@@ -8,8 +8,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. card: a CUDA device must be present; prints ``nvidia-smi``'s name and
    power limit.
 2. build: compiles both decode kernels from ``kernels/csrc`` with nvcc
-   (one process per source, in parallel) and prints the build seconds
-   and ptxas's register, shared-memory and spill counts.
+   (one process per source, in parallel; always, even when a library is
+   up to date, so each run reports its own build) and prints the build
+   seconds and ptxas's register, shared-memory and spill counts.
 3. kernels: each CUDA kernel against its plain PyTorch version on the
    card at the full-width minitron-8b decode shapes (H=32, Hkv=8,
    hd=128, 8 rows, S=4096, BLOCK_S=16), bf16 and f32, with ragged
@@ -43,7 +44,10 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, published
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no tensor f32
-TOL = {"float32": 1e-5, "bfloat16": 2e-2}           # relative to max |plain|
+# max abs error against the plain version, as a fraction of max |plain|
+# (no floor): f32 differs in reduction order only; in bf16 both sides
+# accumulate in f32 and round once, at most one bf16 ulp (2^-7 relative)
+TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
 
 def fail(msg: str) -> None:
@@ -254,7 +258,8 @@ def phase_kernels():
             got, ref, *_bound(nbytes, ops, name))
     for (kname, dname), r in rows.items():
         print(f"[kernels] {kname} {dname}: max_abs_err {r['max_abs_err']:.3e}"
-              f" (tol {TOL[dname]:g} x max|plain| {r['ref_max']:.3f}) | "
+              f" (limit {TOL[dname] * r['ref_max']:.3e} = {TOL[dname]:g} x "
+              f"max|plain| {r['ref_max']:.4f}) | "
               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"sdpa {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), kernel at "
@@ -270,9 +275,11 @@ def _check(kname, dname, got, ref, active):
     if (got[~active] != 0).any():
         fail(f"{kname} {dname}: inactive rows are not exact zeros")
     err = (got.float() - ref.float()).abs().max().item()
-    lim = TOL[dname] * max(1.0, ref.float().abs().max().item())
+    ref_max = ref.float().abs().max().item()
+    lim = TOL[dname] * ref_max
     if err > lim:
-        fail(f"{kname} {dname}: max abs err {err:.3e} > {lim:.3e}")
+        fail(f"{kname} {dname}: max abs err {err:.3e} > {lim:.3e} "
+             f"({TOL[dname]:g} x max|plain| {ref_max:.4f})")
 
 
 def _time_row(kernel, plain, library, got, ref, bound_ms, bound_by):
@@ -491,7 +498,6 @@ def main() -> int:
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "max_err": r["max_abs_err"], "kernel_ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})

@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into ``kernels/build/lib<name>.so``, a shared library with a plain C
-interface, at its first use in a process (or ahead of time through
-:func:`build_all`, which starts one ``nvcc`` per source at once). The
-library is rebuilt when a source is newer than it. A failed build
+interface, at its first use in a process when it is missing or older
+than a source, or ahead of time through :func:`build_all`, which
+rebuilds every library, one ``nvcc`` per source at once. A failed build
 raises: there is no fallback to the plain PyTorch versions.
 
 Nothing here runs at import time, so the CPU tests import every module
@@ -107,19 +107,19 @@ class CudaKernel:
 
 
 def build_all(kernels: List[CudaKernel]) -> Dict[str, float]:
-    """Build every stale library in parallel, one ``nvcc`` per source,
-    then load each. Returns the build seconds per kernel name (0.0 for a
-    library that was already up to date)."""
-    procs = {k.name: k._start_build() for k in kernels if k._stale()}
+    """Build every library, up to date or not, in parallel, one ``nvcc``
+    per source, then load each, so that each call leaves nvcc's ptxas
+    report in every kernel's ``build_log``. Returns the build seconds per
+    kernel name."""
+    procs = {k.name: k._start_build() for k in kernels}
     errors = []
     for k in kernels:
-        if k.name in procs:
-            try:
-                k._finish_build(procs[k.name])
-            except RuntimeError as e:
-                errors.append(str(e))
+        try:
+            k._finish_build(procs[k.name])
+        except RuntimeError as e:
+            errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
     for k in kernels:
         k.function()
-    return {k.name: (k.build_seconds or 0.0) for k in kernels}
+    return {k.name: k.build_seconds for k in kernels}

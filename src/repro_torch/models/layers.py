@@ -11,17 +11,17 @@ engine donates the old ones; here the one persistent tensor is
 written). Each function still returns the cache dict, so call sites
 read like the JAX ones.
 
-Masked writes and the sink. The JAX package makes a masked write a
-bitwise no-op by scattering to an out-of-range index with
-``mode="drop"``. PyTorch has no dropping scatter, and picking the live
-rows out on the host (``nonzero``) would cost a device-to-host sync per
-layer, inside the decode micro-loop too. So every cache carries one
-extra SINK entry past its real extent along its leading axis: row
-``batch`` of a dense cache, block ``num_blocks`` of a paged pool. The
-index of each masked write is redirected to the sink, so index
-assignment writes only the live rows' entries among the real ones, and
-the rows that were masked stay bit-identical. Readers see the real
-extent only (``cache[:batch]``, ``pages[:num_blocks]``).
+Masked writes. The JAX package makes a masked write a bitwise no-op by
+scattering to an out-of-range index with ``mode="drop"``. PyTorch has
+no dropping scatter, and picking the live rows out on the host
+(``nonzero``) would cost a device-to-host sync per layer, inside the
+decode micro-loop too. In a dense cache each row writes only its own
+row, so a masked entry writes back the value it gathered from its
+(clamped) target: the bits stay. In a paged pool a masked row's stale
+block index may alias a live row's target, so the pool carries one
+extra SINK block past its real extent (block ``num_blocks``); masked
+and padding entries are redirected there, and readers see the real
+pool only (``pages[:num_blocks]``).
 """
 from __future__ import annotations
 
@@ -171,15 +171,14 @@ def _positions(pos, b: int, device) -> torch.Tensor:
 # -- dense KV cache ---------------------------------------------------------
 def init_kv_cache(cfg: ModelConfig, n_layers: int, batch: int, max_seq: int,
                   dtype=None, device="cuda") -> Params:
-    """Contiguous KV cache, (n_layers, batch + 1, max_seq, Hkv, hd) per
-    leaf: rows 0..batch-1 are the slots, row ``batch`` is the write sink
-    (module docstring). fp only: the int8 cache is a later slice."""
+    """Contiguous KV cache, (n_layers, batch, max_seq, Hkv, hd) per leaf.
+    fp only: the int8 cache is a later slice."""
     if cfg.kv_cache_dtype:
         raise NotImplementedError(
             f"kv_cache_dtype={cfg.kv_cache_dtype!r}: the quantized KV cache "
             "is a later slice of the port (other model families)")
     dtype = dtype or torch_dtype(cfg.dtype)
-    shape = (n_layers, batch + 1, max_seq, cfg.num_kv_heads,
+    shape = (n_layers, batch, max_seq, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -192,10 +191,11 @@ class DecodeIndex:
     eagerly that would cost a few dozen small launches per layer).
 
     pos: (B,) int64 positions; cos/sin: rope tables for them; valid:
-    (B, T) bool keys each row attends (``j <= pos``); dense: ``rows`` /
-    ``slots``, the write target of each row's new K/V (the sink row for
-    a masked row); paged: ``flat``, the physical token index of each
-    row's new K/V (the sink block for a masked row), plus the int32
+    (B, T) bool keys each row attends (``j <= pos``); dense: ``rows``
+    (0..B-1) and ``slots``, the (clamped) slot each row's new K/V goes
+    to, and ``live``, whether it is written (a masked row writes its old
+    value back); paged: ``flat``, the physical token index of each row's
+    new K/V (the sink block for a masked row), plus the int32
     ``block_tables`` and ``seq_lens = pos + 1`` the kernel takes."""
     pos: torch.Tensor
     cos: torch.Tensor
@@ -203,35 +203,44 @@ class DecodeIndex:
     valid: torch.Tensor
     rows: Optional[torch.Tensor] = None
     slots: Optional[torch.Tensor] = None
+    live: Optional[torch.Tensor] = None
     flat: Optional[torch.Tensor] = None
     block_tables: Optional[torch.Tensor] = None
     seq_lens: Optional[torch.Tensor] = None
 
 
-def _masked_write_idx(slot, s_max: int, sink: int, active=None):
-    """Dense write targets (rows, slots) for one new entry per row (the
-    JAX package's ``_masked_write_idx`` + ``_scatter_slot``): row b at
-    slot[b], or the sink row when the row is masked (active=False) or
-    its slot is past S, which the JAX package's ``mode="drop"``
-    discards. Either way the real row stays bit-identical."""
+def _masked_write_idx(slot, s_max: int, active=None):
+    """Dense write targets for one new entry per row (the JAX package's
+    ``_masked_write_idx`` + ``_scatter_slot``): row b at slot[b] clamped
+    to S-1, and whether the write is live. A row that is masked
+    (active=False) or whose slot is past S, which the JAX package's
+    ``mode="drop"`` discards, writes its old value back."""
     live = slot < s_max
     if active is not None:
         live = live & active
-    rows = torch.where(live, torch.arange(slot.shape[0], device=slot.device),
-                       sink)
-    return rows, torch.where(live, slot, 0)
+    return torch.clamp(slot, max=s_max - 1), live
+
+
+def _scatter_slot(cache, new, idx: DecodeIndex):
+    """cache[b, slots[b]] = new[b] where live, else its own old bits."""
+    old = cache[idx.rows, idx.slots]
+    cache[idx.rows, idx.slots] = torch.where(idx.live[:, None, None],
+                                             new.to(cache.dtype), old)
+    return cache
 
 
 def decode_index(cfg: ModelConfig, pos, kv, active=None) -> DecodeIndex:
     """Per-step quantities of dense decode over a cache shaped like
-    ``kv["k"]``, one layer's (B+1, S, Hkv, hd)."""
-    b, s_max = kv["k"].shape[0] - 1, kv["k"].shape[1]
+    ``kv["k"]``, one layer's (B, S, Hkv, hd)."""
+    b, s_max = kv["k"].shape[0], kv["k"].shape[1]
     pos = _positions(pos, b, kv["k"].device)
     cos, sin = rope_tables(pos[:, None], cfg.resolved_head_dim,
                            cfg.rope_theta)
-    rows, slots = _masked_write_idx(pos, s_max, b, active)
+    slots, live = _masked_write_idx(pos, s_max, active)
     valid = torch.arange(s_max, device=pos.device)[None, :] <= pos[:, None]
-    return DecodeIndex(pos, cos, sin, valid, rows=rows, slots=slots)
+    return DecodeIndex(pos, cos, sin, valid,
+                       rows=torch.arange(b, device=pos.device), slots=slots,
+                       live=live)
 
 
 def paged_decode_index(cfg: ModelConfig, pos, kv, block_tables,
@@ -262,8 +271,8 @@ def _decode_qkv(p, cfg, x, idx: DecodeIndex):
 def decode_attention(p: Params, cfg: ModelConfig, x, kv, pos,
                      decode_impl: str = "kernel", active=None, idx=None):
     """Single-token decode against one layer's dense cache (full
-    attention, fp cache). x: (B,1,D); kv: {"k","v"} (B+1, S, Hkv, hd)
-    with the sink row; pos: (B,) or scalar absolute position of the new
+    attention, fp cache). x: (B,1,D); kv: {"k","v"} (B, S, Hkv, hd);
+    pos: (B,) or scalar absolute position of the new
     token; ``idx``: the step's :func:`decode_index` when the caller
     shares it across layers. Rows with active=False leave their cache
     row bit-identical. The kernel gets ``valid = j <= pos``. Returns
@@ -272,9 +281,9 @@ def decode_attention(p: Params, cfg: ModelConfig, x, kv, pos,
     if idx is None:
         idx = decode_index(cfg, pos, kv, active)
     q, k, v = _decode_qkv(p, cfg, x, idx)
-    kv["k"][idx.rows, idx.slots] = k[:, 0]
-    kv["v"][idx.rows, idx.slots] = v[:, 0]
-    k_cache, v_cache = kv["k"][:b], kv["v"][:b]
+    _scatter_slot(kv["k"], k[:, 0], idx)
+    _scatter_slot(kv["v"], v[:, 0], idx)
+    k_cache, v_cache = kv["k"], kv["v"]
     if decode_impl == "kernel":
         from repro_torch.kernels import ops as kops
         out = kops.gqa_decode(q[:, 0].contiguous(), k_cache, v_cache,
@@ -397,26 +406,25 @@ def write_chunk_kv_paged(kv: Params, k, v, block_tables, start,
 # -- chunked prefill (batched multi-slot) -----------------------------------
 def chunk_write_index(start, lengths, l: int, kv):
     """Where each token of a (B, L) chunk goes in a dense cache shaped
-    like ``kv["k"]``, one layer's (B+1, S, ...): the JAX package's
-    per-row dynamic_update_slice at ``start``, keeping old values where
-    the token index >= lengths. The start + L > S overhang (the last
-    chunk of a near-capacity prompt) is handled as there: the window is
-    clamped to [0, S-L] and the chunk rolled by the clamp's shift, so
-    every valid token lands at its absolute position. Returns
-    (src_rows, src_cols, dst_rows, dst_pos), each (B, L): destination
-    (dst_rows, dst_pos) takes chunk token (src_rows, src_cols); entries
-    not kept go to the sink row. Shared by every layer of the chunk."""
+    like ``kv["k"]``, one layer's (B, S, ...): the JAX package's per-row
+    dynamic_update_slice at ``start``, keeping old values where the token
+    index >= lengths. The start + L > S overhang (the last chunk of a
+    near-capacity prompt) is handled as there: the window is clamped to
+    [0, S-L] and the chunk rolled by the clamp's shift, so every valid
+    token lands at its absolute position. Returns (rows, src_cols,
+    dst_pos, keep), each (B, L): window position (rows, dst_pos) takes
+    chunk token (rows, src_cols) where ``keep``, else its own old value.
+    Shared by every layer of the chunk."""
     b = start.shape[0]
-    s_max, sink = kv["k"].shape[1], kv["k"].shape[0] - 1
+    s_max = kv["k"].shape[1]
     start, lengths = start.long(), lengths.long()
     st_eff = torch.clamp(start, 0, s_max - l)
     shift = (start - st_eff)[:, None]                 # > 0 only on overhang
     w = torch.arange(l, device=start.device)[None, :]
-    rows = torch.arange(b, device=start.device)[:, None]
+    rows = torch.arange(b, device=start.device)[:, None].expand(b, l)
     src_cols = (w - shift) % l                        # jnp.roll(new, shift)
     keep = (w >= shift) & ((w - shift) < lengths[:, None])
-    return (rows.expand(b, l), src_cols, torch.where(keep, rows, sink),
-            torch.where(keep, st_eff[:, None] + w, 0))
+    return rows, src_cols, st_eff[:, None] + w, keep
 
 
 def write_chunk_kv(kv: Params, k, v, start, lengths, index=None) -> Params:
@@ -433,9 +441,13 @@ def write_chunk_kv(kv: Params, k, v, start, lengths, index=None) -> Params:
 
 
 def _blend_rows(cache, new, index):
-    """cache[dst] = new[src] for the (src, dst) pairs of a
-    :func:`chunk_write_index`: each row's kept tokens land at their
-    absolute positions, and nothing else of the real rows changes."""
-    src_rows, src_cols, dst_rows, dst_pos = index
-    cache[dst_rows, dst_pos] = new[src_rows, src_cols].to(cache.dtype)
+    """The (B, L) window of a :func:`chunk_write_index` takes the kept
+    chunk tokens and writes its own old values back elsewhere: each
+    row's kept tokens land at their absolute positions, and nothing
+    else of the cache changes."""
+    rows, src_cols, dst_pos, keep = index
+    old = cache[rows, dst_pos]
+    cache[rows, dst_pos] = torch.where(keep[..., None, None],
+                                       new[rows, src_cols].to(cache.dtype),
+                                       old)
     return cache

@@ -116,8 +116,7 @@ def _mlp_residual(lp, cfg, x):
 # ===========================================================================
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device="cuda") -> Params:
-    """Dense KV cache for ``batch`` slots of ``cache_len`` tokens (plus
-    the sink row, models/layers.py)."""
+    """Dense KV cache for ``batch`` slots of ``cache_len`` tokens."""
     check_supported(cfg)
     return {"kv": L.init_kv_cache(cfg, cfg.num_layers, batch, cache_len,
                                   device=device)}
@@ -226,7 +225,6 @@ def prefill_chunk(params: Params, cfg: ModelConfig, tokens, cache: Params,
 def _prefill_chunk_fused(params, cfg, tokens, cache, start_pos, lengths):
     """Write the chunk's K/V into the cache in place, then attend the
     chunk's queries over (cache prefix + chunk) causally."""
-    b = tokens.shape[0]
     ks, vs = cache["kv"]["k"].unbind(0), cache["kv"]["v"].unbind(0)
     x, start_pos, lengths, rope, valid = _chunk_inputs(
         params, cfg, tokens, start_pos, lengths, ks[0].shape[1])
@@ -236,7 +234,7 @@ def _prefill_chunk_fused(params, cfg, tokens, cache, start_pos, lengths):
         def kv_view(k, v, kc=kc, vc=vc):
             L.write_chunk_kv({"k": kc, "v": vc}, k, v, start_pos, lengths,
                              index=index)
-            return kc[:b], vc[:b]
+            return kc, vc
         x = _mlp_residual(lp, cfg, _chunk_attention(lp, cfg, x, rope, valid,
                                                     kv_view))
     return _last_logits(params, cfg, x, lengths), cache

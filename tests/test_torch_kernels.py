@@ -158,12 +158,17 @@ def _require_cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+# bf16: both sides accumulate in f32 and round once at the end, so an
+# output may land one bf16 ulp (<= 2^-7 of its magnitude) from the other
+BF16_TOL = 1e-2
+
+
 def _close(got, ref, dtype):
-    # f32: reduction order only (~1e-6); bf16: both round the same f32
-    # result, which may land one bf16 ulp apart (~0.4% relative)
-    tol = F32_TOL if dtype == torch.float32 else 2e-2
+    """Max abs error within the tolerance times max |plain|, no floor:
+    attention outputs over many random tokens are well under 1."""
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     err = (got.float() - ref.float()).abs().max().item()
-    return err <= tol * max(1.0, ref.float().abs().max().item())
+    return err <= tol * ref.float().abs().max().item()
 
 
 @pytest.mark.gpu
@@ -240,15 +245,17 @@ def test_paged_gqa_decode_kernel_many_splits(dtype):
 
 @pytest.mark.gpu
 def test_gqa_decode_kernel_reads_through_strides():
-    """A per-layer view of a stacked cache with a sink row (the engine's
-    layout: batch stride > S*Hkv*hd) gives the same output as a compact
-    copy."""
+    """A (B, S, Hkv, hd) view of a longer per-row buffer (batch stride >
+    S*Hkv*hd, as in a cache sliced to its first S tokens) gives the same
+    output as a compact copy."""
     _require_cuda()
     q, k, v, valid, active = [t.cuda() for t in _t(*_dense_case(2))]
-    big_k = torch.zeros((2, 4, *k.shape[1:]), device="cuda")
+    s = k.shape[1]
+    big_k = torch.zeros((k.shape[0], s + 8, *k.shape[2:]), device="cuda")
     big_v = torch.zeros_like(big_k)
-    big_k[1, :3], big_v[1, :3] = k, v
-    got = D.gqa_decode_cuda(q, big_k[1, :3], big_v[1, :3], valid, active)
+    big_k[:, :s], big_v[:, :s] = k, v
+    assert big_k[:, :s].stride(0) > s * k.shape[2] * k.shape[3]
+    got = D.gqa_decode_cuda(q, big_k[:, :s], big_v[:, :s], valid, active)
     assert torch.equal(got, D.gqa_decode_cuda(q, k, v, valid, active))
 
 

@@ -62,8 +62,7 @@ def _close(got, ref):
 
 
 def _dense_caches(cfg, tcfg, seed=0):
-    """A JAX cache and the port's (sink row zero) holding the same
-    random KV rows."""
+    """A JAX cache and the port's holding the same random KV rows."""
     rng = np.random.default_rng(seed)
     jc = M.init_cache(cfg, B, S)
     shape = jc["kv"]["k"].shape
@@ -249,18 +248,20 @@ def test_mixed_step_is_prefill_then_decode_bitwise(impl):
 
 
 def test_masked_writes_go_to_the_sink_only():
-    """Masked rows and padding write nowhere but the sink entry: the real
-    rows/blocks outside the live targets keep their bits."""
+    """Masked rows and padding change no real cache entry: a dense masked
+    row (inactive, or its slot past S) writes its own old bits back, and
+    a paged masked entry lands in the sink block only."""
     tcfg = port_cfg(num_kv_heads=2)
     kv = TL.init_kv_cache(tcfg, 1, B, S, device="cpu")
     layer = {k: v[0] for k, v in kv.items()}
+    assert layer["k"].shape[0] == B                 # no extra row
     layer["k"].normal_()
     before = layer["k"].clone()
-    rows, slots = TL._masked_write_idx(torch.tensor([3, 70, 5]), S, B,
-                                       torch.tensor([True, True, False]))
-    layer["k"][rows, slots] = torch.ones(B, 2, 64)
+    idx = TL.decode_index(tcfg, torch.tensor([3, 70, 5]), layer,
+                          torch.tensor([True, True, False]))
+    TL._scatter_slot(layer["k"], torch.ones(B, 2, 64), idx)
     changed = (layer["k"] != before).any(-1).any(-1)
-    assert changed[0, 3] and changed.sum() == 1 + changed[B].sum()
+    assert changed[0, 3] and changed.sum() == 1
     pages = TL.init_paged_kv_cache(tcfg, 1, 4, BS, device="cpu")["k"][0]
     pages.normal_()
     before = pages.clone()
