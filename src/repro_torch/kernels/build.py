@@ -93,7 +93,7 @@ class CudaKernel:
             fn = getattr(lib, self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
-            err = lib.decode_error_string
+            err = lib.kernel_error_string
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
             self._fn, self._error_string = fn, err

@@ -298,7 +298,7 @@ inline void launch_combine(int dtype, const float* part_m,
 }  // namespace decode
 
 // Message for an error code a *_launch function returned.
-extern "C" const char* decode_error_string(int err) {
+extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -9,6 +9,11 @@ mixed prompt batch through the C&R gateway and drain it.
   # full-width minitron-8b (bf16) on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --fleet 2 --decode-k 4
 
+  # paged engines with the prefix cache, plus a two-turn session that
+  # session affinity pins to the pool holding its cached prefix
+  PYTHONPATH=src python -m repro_torch.launch.serve --fleet 2 --reduced \
+      --decode-k 4 --prefix-cache --device cpu
+
 The port of ``repro/launch/serve.py``'s ``--fleet`` mode. Runs on
 ``--device cuda`` (the default) and raises when no card is present;
 ``--device cpu`` runs the plain PyTorch versions of the kernels.
@@ -59,7 +64,9 @@ def build_fleet_runtime(args, *, slots_per_pool: int = 2, c_chunk: int = 16,
     if args.reduced:
         cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
     params = M.init_params(cfg, seed=0, device=device)
-    scfg = ServingConfig(paged=args.paged, decode_k=args.decode_k)
+    scfg = ServingConfig(paged=args.paged or args.prefix_cache,
+                         prefix_cache=args.prefix_cache,
+                         decode_k=args.decode_k)
     rt = FleetRuntime.from_plan(cfg, params, plan,
                                 slots_per_pool=slots_per_pool,
                                 c_chunk=c_chunk,
@@ -68,15 +75,15 @@ def build_fleet_runtime(args, *, slots_per_pool: int = 2, c_chunk: int = 16,
     return rt, plan
 
 
+def prompt(n_words: int, topic: str) -> str:
+    return " ".join(f"{topic} fact {i}: fleets split by context length."
+                    for i in range(n_words))
+
+
 def fleet_requests(rt: FleetRuntime, new_tokens: int):
     """One prompt per pool band plus one borderline C&R candidate per
     boundary (rag category, 1.2x the boundary)."""
     bounds = rt.router.boundaries
-
-    def prompt(n_words: int, topic: str) -> str:
-        return " ".join(f"{topic} fact {i}: fleets split by context length."
-                        for i in range(n_words))
-
     reqs, rid = [], 0
     for i, eng in enumerate(rt.engines.values()):
         lo = bounds[i - 1] if i else 0
@@ -93,9 +100,20 @@ def fleet_requests(rt: FleetRuntime, new_tokens: int):
     return reqs
 
 
+def session_turns(rt: FleetRuntime):
+    """The two turns of the demo agent session: turn 2 resubmits turn 1's
+    prompt plus new text."""
+    bounds = rt.router.boundaries
+    b0 = bounds[0] if bounds else \
+        next(iter(rt.engines.values())).c_max // 2   # K=1: no bounds
+    base = prompt(max(2, b0 // 4 // 8), "session")
+    return base, base + " follow-up resubmits history."
+
+
 def serve_fleet(args, **build_kw):
-    """Offline fleet demo: plan, route a mixed prompt batch, drain.
-    Returns (runtime, {rid: GatewayResponse}, seconds)."""
+    """Offline fleet demo: plan, route a mixed prompt batch, drain; with
+    ``--prefix-cache``, then a two-turn session. Returns (runtime,
+    {rid: GatewayResponse}, seconds)."""
     rt, plan = build_fleet_runtime(args, **build_kw)
     print(f"runtime pools: boundaries={rt.router.boundaries} "
           f"gammas={rt.router.gammas} "
@@ -109,6 +127,18 @@ def serve_fleet(args, **build_kw):
               f"{' [C&R]' if d.compressed else ''} "
               f"L_eff={d.l_total_effective}")
     results = rt.run(max_iters=20_000)
+    if args.prefix_cache:
+        # turn 2 goes in AFTER turn 1 completes: the gateway pins it to
+        # turn 1's pool (session affinity), and that engine's prefix
+        # cache skips the prefill of the shared full blocks
+        rid = len(reqs)
+        for i, text in enumerate(session_turns(rt)):
+            d = rt.submit(GatewayRequest(rid, text, args.new_tokens,
+                                         session="demo"))
+            print(f"  req {rid}: turn{i + 1:2d} -> {d.pool:6s} "
+                  f"L_eff={d.l_total_effective}")
+            rid += 1
+            results.update(rt.run(max_iters=20_000))
     if torch.device(args.device).type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -116,12 +146,21 @@ def serve_fleet(args, **build_kw):
     s = rt.router.stats
     print(f"served {len(results)} requests / {done} tokens in {dt:.1f}s; "
           f"gateway: borderline={s.borderline} "
-          f"compressed={s.compressed_ok} per_pool={s.per_pool}")
+          f"compressed={s.compressed_ok} pinned={s.affinity_pinned} "
+          f"per_pool={s.per_pool}")
     disp = sum(e.dispatches for e in rt.engines.values())
     dtok = sum(e.decode_tokens_emitted for e in rt.engines.values())
     print(f"engine hot path: decode_k={args.decode_k} "
           f"{disp} dispatches / {dtok} decode tokens "
           f"({disp / max(1, dtok):.3f} dispatches/token)")
+    if args.prefix_cache:
+        for name, eng in rt.engines.items():
+            st = eng.prefix_stats
+            if st["lookups"]:
+                print(f"  {name}: prefix hits {st['hit_blocks']} blocks "
+                      f"({st['hit_tokens']} tokens), "
+                      f"{st['allocated_blocks']} allocated, "
+                      f"{st['registered_blocks']} registered")
     return rt, results, dt
 
 
@@ -138,6 +177,9 @@ def main(argv=None):
                     help="arrival rate (req/s) for fleet planning")
     ap.add_argument("--paged", action="store_true",
                     help="engines use the paged KV cache")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="paged engines share cached prompt prefixes "
+                         "(implies --paged); adds a two-turn session")
     ap.add_argument("--decode-k", type=int, default=1, metavar="K",
                     help="decode iterations per dispatch (on-device "
                          "micro-loop)")

@@ -27,15 +27,26 @@ host free list that reserves each admitted request's worst-case blocks
 and a bounded out-of-order admission window, ``hol_window``, for when
 the FIFO head cannot be placed). Paged reproduces dense tokens exactly.
 
-Later slices of the port add the prefix cache, speculative decoding,
-overload survival (preemption, queue-wait shedding), output-length-aware
-reservation and routing, and sharded serving; their ServingConfig knobs
-raise NotImplementedError here when set (``check_slice``).
+The paged layout can share prompt prefixes (``prefix_cache=True``): full
+prompt blocks are registered under a chained content hash once prefill
+has written them; a later request whose leading blocks hash the same
+maps those physical blocks into its table (ref-counted, read-only) and
+prefills from its first cold token. A released block that holds a
+registered prefix stays cached in an LRU tier, evicted only when the
+free list runs dry. The pool's sink block (past ``num_blocks``, where
+masked writes land) is never allocated, registered or evicted.
+
+Later slices of the port add speculative decoding, overload survival
+(preemption, queue-wait shedding), output-length-aware reservation and
+routing, and sharded serving; their ServingConfig knobs raise
+NotImplementedError here when set (``check_slice``).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
+from collections import Counter, OrderedDict
 from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
@@ -47,7 +58,6 @@ from repro_torch.serving.config import ServingConfig
 
 # ServingConfig knobs of later slices: field -> (default, the slice)
 _LATER_SLICES = {
-    "prefix_cache": (False, "the prefix-cache slice"),
     "spec_k": (1, "the speculative-decoding slice"),
     "preemption": (False, "the overload-survival slice"),
     "max_queue_wait": (None, "the overload-survival slice"),
@@ -129,6 +139,7 @@ class InferenceEngine:
         self.buckets = prefill_buckets(self.c_chunk)
         self.eos_id = scfg.eos_id
         self.paged = scfg.paged
+        self.prefix_cache = scfg.prefix_cache
         if self.paged:
             self.block_size = scfg.block_size
             # logical blocks per slot: enough to address c_max tokens
@@ -146,6 +157,25 @@ class InferenceEngine:
                                          np.int32)
             self._slot_blocks: List[List[int]] = [[] for _ in range(n_max)]
             self._slot_reserved = [0] * n_max
+            # -- ref-counted prefix cache --
+            # _ref[phys]: live slot-table references to a physical block
+            self._ref = np.zeros(self.num_blocks, np.int64)
+            # chained block hash -> physical block holding its KV
+            self._prefix_map: Dict[bytes, int] = {}
+            # physical block -> its registered hash (reverse index)
+            self._block_hash: Dict[int, bytes] = {}
+            # ref == 0 blocks still holding cached prefixes, LRU order;
+            # allocated (evicted) only when _free runs dry
+            self._cached_free: OrderedDict = OrderedDict()
+            # per-slot chain hashes of its FULL prompt blocks, and how
+            # many leading blocks are already in the prefix map
+            self._slot_hashes: List[List[bytes]] = [[] for _ in range(n_max)]
+            self._slot_registered = [0] * n_max
+            self._hash_seed = hashlib.sha1(
+                f"{cfg.name}/{self.block_size}".encode()).digest()
+            self.prefix_stats = {"lookups": 0, "hit_blocks": 0,
+                                 "hit_tokens": 0, "allocated_blocks": 0,
+                                 "registered_blocks": 0, "evicted_blocks": 0}
             # device copy of the block table, re-uploaded only after the
             # allocator touched it
             self._bt_device = None
@@ -158,6 +188,9 @@ class InferenceEngine:
         self.slot_out: List[List[int]] = [[] for _ in range(n_max)]
         self.slot_last_tok = np.zeros(n_max, np.int32)
         self.waiting: List[ServeRequest] = []
+        # chain hashes of waiting requests by rid, so a blocked FIFO head
+        # does not rehash its prompt on every admission probe
+        self._req_hashes: Dict[int, List[bytes]] = {}
         self.results: Dict[int, ServeResult] = {}
         self.iteration = 0
         self._queue_iters: Dict[int, int] = {}
@@ -218,7 +251,23 @@ class InferenceEngine:
         return self.decode_dispatches / self._decode_only_tokens
 
     def free_block_count(self) -> int:
-        return len(self._free) if self.paged else 0
+        """Allocatable physical blocks (paged): the free list plus the
+        evictable cached-prefix tier, what admission reserves against."""
+        return self._available_blocks() if self.paged else 0
+
+    def prefix_cache_blocks(self) -> int:
+        """Physical blocks addressable by prefix hash (referenced or
+        evictable)."""
+        return len(self._prefix_map) if self.paged else 0
+
+    def kv_tokens_held(self) -> int:
+        """Tokens of KV memory pinned: paged counts distinct referenced
+        blocks (a shared prefix block pins memory once, evictable cached
+        blocks not at all); dense pins c_max per occupied slot."""
+        if self.paged:
+            held = self.num_blocks - len(self._free) - len(self._cached_free)
+            return held * self.block_size
+        return sum(r is not None for r in self.slot_req) * self.c_max
 
     def run_to_completion(self, max_iters: int = 100_000
                           ) -> Dict[int, ServeResult]:
@@ -297,6 +346,7 @@ class InferenceEngine:
         self.results[req.rid] = ServeResult(req.rid, [], 0, 0, 0)
         self._enqueued_at.pop(req.rid, None)
         self._queue_iters.pop(req.rid, None)
+        self._req_hashes.pop(req.rid, None)
         self._hol_bypassed.pop(req.rid, None)
 
     def _admit(self) -> None:
@@ -328,6 +378,7 @@ class InferenceEngine:
                 return "skip"
             self._refuse(req, qi)
             return "refused"
+        cached = 0                   # leading prompt tokens already in the cache
         if self.paged:
             worst = math.ceil((len(req.tokens) + req.max_new_tokens)
                               / self.block_size)
@@ -337,17 +388,57 @@ class InferenceEngine:
                     return "skip"
                 self._refuse(req, qi)
                 return "refused"
-            if worst > len(self._free) - self._reserved:
+            hashes = []
+            if self.prefix_cache:
+                if req.rid not in self._req_hashes:
+                    self._req_hashes[req.rid] = self._chain_hashes(req.tokens)
+                hashes = self._req_hashes[req.rid]
+            hits = self._prefix_hits(hashes)
+            # cached leading blocks are mapped, not allocated: only the
+            # cold suffix needs worst-case cover. Pinning an EVICTABLE hit
+            # (ref 0) takes it out of the allocatable tiers without adding
+            # to _reserved, so it is charged here too, or the outstanding
+            # reservations of other slots would be over-committed
+            need = max(0, worst - hits)
+            evictable_hits = sum(
+                1 for i in range(hits)
+                if self._ref[self._prefix_map[hashes[i]]] == 0)
+            if need + evictable_hits > \
+                    self._available_blocks() - self._reserved:
                 return "defer"
-            self._reserved += worst
-            self._slot_reserved[s] = worst
+            blocks = self._slot_blocks[s]
+            for i in range(hits):
+                phys = self._prefix_map[hashes[i]]
+                if self._ref[phys] == 0:        # was evictable: pin it
+                    del self._cached_free[phys]
+                self._ref[phys] += 1
+                self.block_tables[s, len(blocks)] = phys
+                blocks.append(phys)
+            if hits:
+                self._bt_device = None
+            cached = hits * self.block_size
+            self._reserved += need
+            self._slot_reserved[s] = need
+            self._slot_hashes[s] = hashes
+            self._slot_registered[s] = hits
+            if self.prefix_cache:
+                self.prefix_stats["lookups"] += 1
+                self.prefix_stats["hit_blocks"] += hits
+                self.prefix_stats["hit_tokens"] += hits * self.block_size
         self.waiting.pop(qi)
+        self._req_hashes.pop(req.rid, None)
         self._hol_bypassed.pop(req.rid, None)
         self.slot_req[s] = req
         self._dev_dirty = True
-        self.slot_pos[s] = 0
-        self.slot_prefill_left[s] = list(req.tokens)
+        # prefill skips the cached prefix: it resumes at the first cold
+        # token, in a private block (shared blocks are never written)
+        self.slot_pos[s] = cached
+        self.slot_prefill_left[s] = list(req.tokens[cached:])
         self.slot_out[s] = []
+        if not self.slot_prefill_left[s] and req.tokens:
+            # fully cached prompt: decode starts this same iteration from
+            # the last prompt token
+            self.slot_last_tok[s] = req.tokens[-1]
         self._queue_iters[req.rid] = self._queue_iters.get(req.rid, 0) \
             + self.iteration - self._enqueued_at.pop(req.rid)
         return "admitted"
@@ -369,19 +460,74 @@ class InferenceEngine:
                 return True
         return False
 
+    # -- prefix cache --------------------------------------------------------
+    def _chain_hashes(self, tokens: List[int]) -> List[bytes]:
+        """One chained content hash per FULL prompt block: h_i =
+        sha1(h_{i-1} || tokens of block i as int64), seeded per (model,
+        block size), so equal hashes mean equal prefixes up to and
+        including the block, and so equal KV."""
+        bs = self.block_size
+        out, h = [], self._hash_seed
+        for i in range(len(tokens) // bs):
+            blk = np.asarray(tokens[i * bs:(i + 1) * bs], np.int64)
+            h = hashlib.sha1(h + blk.tobytes()).digest()
+            out.append(h)
+        return out
+
+    def _prefix_hits(self, hashes: List[bytes]) -> int:
+        """Longest run of leading full blocks already cached."""
+        n = 0
+        for h in hashes:
+            if h not in self._prefix_map:
+                break
+            n += 1
+        return n
+
+    def _available_blocks(self) -> int:
+        """Blocks an allocation could obtain: free + evictable."""
+        return len(self._free) + len(self._cached_free)
+
+    def _alloc_block(self) -> int:
+        """Pop a free block; when the free list is dry, evict the least
+        recently released cached prefix block (its hash leaves the
+        prefix map: its content is about to be overwritten)."""
+        if self._free:
+            return self._free.pop()
+        phys, _ = self._cached_free.popitem(last=False)
+        del self._prefix_map[self._block_hash.pop(phys)]
+        self.prefix_stats["evicted_blocks"] += 1
+        return phys
+
+    def _register_prefix_blocks(self, s: int) -> None:
+        """Publish slot ``s``'s full prompt blocks that prefill has now
+        written completely. First writer wins: a block whose hash another
+        slot registered meanwhile stays private."""
+        hashes = self._slot_hashes[s]
+        done = min(len(hashes), int(self.slot_pos[s]) // self.block_size)
+        blocks = self._slot_blocks[s]
+        for i in range(self._slot_registered[s], done):
+            h = hashes[i]
+            if h not in self._prefix_map:
+                self._prefix_map[h] = blocks[i]
+                self._block_hash[blocks[i]] = h
+                self.prefix_stats["registered_blocks"] += 1
+        self._slot_registered[s] = done
+
     def _ensure_blocks(self, s: int, tokens_needed: int) -> None:
         """Allocate physical blocks for slot ``s`` until it covers
         ``tokens_needed`` positions, out of its admission-time worst-case
-        reservation (which the free list always covers)."""
+        reservation (which the allocatable tiers always cover)."""
         blocks = self._slot_blocks[s]
         while len(blocks) * self.block_size < tokens_needed:
-            assert self._slot_reserved[s] > 0 and self._free, \
+            assert self._slot_reserved[s] > 0 and self._available_blocks(), \
                 "slot outran its worst-case block reservation"
             self._reserved -= 1
             self._slot_reserved[s] -= 1
-            phys = self._free.pop()
+            phys = self._alloc_block()
+            self._ref[phys] = 1
             self.block_tables[s, len(blocks)] = phys
             blocks.append(phys)
+            self.prefix_stats["allocated_blocks"] += 1
             self._bt_device = None
 
     def _block_table_device(self) -> torch.Tensor:
@@ -390,31 +536,58 @@ class InferenceEngine:
         return self._bt_device
 
     def _release_slot(self, s: int) -> None:
-        """Return slot ``s``'s blocks to the free list and drop its unused
-        reservation (the request finished early or at its cap)."""
-        self._free.extend(self._slot_blocks[s])
+        """Decrement the refcount of every block slot ``s`` holds (a block
+        shared with another live slot survives). A block reaching ref 0
+        goes to the free list if private, or to the evictable LRU tier if
+        it holds a registered prefix. Drops the slot's unused reservation
+        (the request finished early or at its cap)."""
+        for phys in self._slot_blocks[s]:
+            self._ref[phys] -= 1
+            assert self._ref[phys] >= 0, "refcount underflow"
+            if self._ref[phys] == 0:
+                if phys in self._block_hash:
+                    self._cached_free[phys] = None
+                else:
+                    self._free.append(phys)
         self._reserved -= self._slot_reserved[s]
         self._slot_blocks[s] = []
         self._slot_reserved[s] = 0
+        self._slot_hashes[s] = []
+        self._slot_registered[s] = 0
         self.block_tables[s, :] = 0
         self._bt_device = None
         if not any(r is not None for r in self.slot_req):
             self.assert_block_invariants()
 
     def assert_block_invariants(self) -> None:
-        """Every physical block is either owned by exactly one slot or
-        free, and the outstanding reservation fits the free list."""
+        """Every physical block of ``[0, num_blocks)`` sits in exactly one
+        tier (referenced, cached-free or free), each block's refcount
+        equals its occurrences in the slot tables, the prefix map and its
+        reverse index agree, and the outstanding reservation fits the
+        allocatable tiers. The sink block is in none of them."""
         if not self.paged:
             return
-        owned = [b for blocks in self._slot_blocks for b in blocks]
-        assert len(set(owned)) == len(owned), "block owned twice"
-        assert len(set(self._free)) == len(self._free), \
-            "duplicate in free list"
-        assert not set(owned) & set(self._free), "block owned and free"
-        assert len(owned) + len(self._free) == self.num_blocks, \
-            "block leak: owned and free do not partition the pool"
-        assert 0 <= self._reserved <= len(self._free), \
-            "reservation exceeds free blocks"
+        cnt = Counter(b for blocks in self._slot_blocks for b in blocks)
+        for phys in range(self.num_blocks):
+            assert self._ref[phys] == cnt.get(phys, 0), \
+                f"block {phys}: ref {self._ref[phys]} != " \
+                f"{cnt.get(phys, 0)} table entries"
+        referenced = set(cnt)
+        free, cached = set(self._free), set(self._cached_free)
+        assert len(free) == len(self._free), "duplicate in free list"
+        assert not referenced & free, "block both referenced and free"
+        assert not referenced & cached, "block both referenced and cached"
+        assert not free & cached, "block both free and cached-free"
+        assert referenced | free | cached <= set(range(self.num_blocks)), \
+            "a tier holds a block outside the pool (the sink?)"
+        assert len(referenced) + len(free) + len(cached) == self.num_blocks, \
+            "block leak: tiers do not partition the pool"
+        assert set(self._prefix_map.values()) == set(self._block_hash), \
+            "prefix map and reverse index disagree"
+        assert cached <= set(self._block_hash), \
+            "cached-free block without a registered hash"
+        assert 0 <= self._reserved <= self._available_blocks(), \
+            "reservation exceeds allocatable blocks"
 
     def _bucket_chunks(self, chunks: Dict[int, List[int]]):
         """Pad pending chunks into the smallest covering bucket shape
@@ -453,6 +626,10 @@ class InferenceEngine:
             self._prefill_iters[rid] = self._prefill_iters.get(rid, 0) + 1
             if not self.slot_prefill_left[s]:
                 self.slot_last_tok[s] = chunk[-1]
+            if self.prefix_cache:
+                # full prompt blocks this chunk completed become
+                # addressable by later admissions
+                self._register_prefix_blocks(s)
 
     def _decode_logits(self, tokens, pos, active) -> torch.Tensor:
         """One masked decode step over all n_max rows -> logits (B, V)."""

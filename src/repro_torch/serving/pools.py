@@ -10,12 +10,17 @@ target pool's KV cache. ``TwoPoolRuntime`` is the paper's K=2 case;
 ``FleetRuntime.from_plan`` builds N engines from a ``FleetPlan``.
 
 Every engine shares the ONE parameter set it is given (one copy on the
-card). Live re-provisioning (``reprovision``) is a later slice.
+card). The compressor's TextRank runs on that card too, through the
+CUDA kernel (``kernels/textrank.py``). Live re-provisioning
+(``reprovision``) is a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Sequence
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.compression import ExtractiveCompressor
@@ -23,6 +28,7 @@ from repro_torch.core.naming import pool_names
 from repro_torch.core.planner import FleetPlan
 from repro_torch.core.router import GatewayRouter, RoutingDecision
 from repro_torch.core.workload import OutputLenPredictor, Request
+from repro_torch.kernels import ops
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.engine import (InferenceEngine, ServeRequest,
                                         ServeResult, check_slice)
@@ -92,8 +98,17 @@ class FleetRuntime:
         self.tokenizer = ByteChunkTokenizer(cfg.vocab_size)
         # per-category output-length model, fed by record_completion
         self.lout_predictor = lout_predictor
-        self.router = GatewayRouter(boundaries=boundaries, gammas=gammas,
-                                    compressor=ExtractiveCompressor())
+        # C&R scores sentences with TextRank on the params' device: the
+        # CUDA kernel on its own stream on the card, the plain version
+        # on the CPU
+        device = params["embed"].device
+        self.gateway_stream = (torch.cuda.Stream(device)
+                               if device.type == "cuda" else None)
+        scorer = functools.partial(ops.textrank_scores, device=device,
+                                   stream=self.gateway_stream)
+        self.router = GatewayRouter(
+            boundaries=boundaries, gammas=gammas,
+            compressor=ExtractiveCompressor(textrank_fn=scorer))
         names = pool_names(k)
         self.engines: Dict[str, InferenceEngine] = {
             names[i]: InferenceEngine(cfg, params, n_maxes[i], c_maxes[i],

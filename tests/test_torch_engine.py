@@ -201,11 +201,11 @@ def test_utilization_and_counters(models):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(paged=True, prefix_cache=True), dict(spec_k=4),
+    dict(spec_k=4),
     dict(preemption=True), dict(max_queue_wait=8.0),
     dict(swap_threshold=16), dict(lout_routing=True),
     dict(mesh=object()), dict(parallel=object()), dict(autoscale=True)],
-    ids=lambda kw: next(k for k in kw if k != "paged"))
+    ids=lambda kw: next(iter(kw)))
 def test_later_slice_knobs_raise(models, knob):
     _, _, tcfg, tp = models
     with pytest.raises(NotImplementedError, match="later|not ported"):

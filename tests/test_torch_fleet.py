@@ -41,6 +41,9 @@ from repro_torch.serving import config as TSC
 from repro_torch.serving import pools as TPools
 from repro_torch.serving import tokenizer as TT
 
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402  (the gateway phase's prompt builders)
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -134,22 +137,36 @@ def test_router_and_compressor_copies_decide_alike():
         TT.ByteChunkTokenizer(1024).encode(text)
 
 
-def test_fleet_runtime_matches_jax():
-    """from_plan on reduced minitron-8b: the port's dense fleet routes
-    every request to the JAX runtime's pool with its C&R decision and
-    emits its tokens (xla <-> torch decode); the port's paged fleet emits
-    the same tokens again."""
+@pytest.fixture(scope="module")
+def reduced_models():
+    """Reduced minitron-8b in f32: the JAX parameters and the port's copy
+    of them."""
     cfg = reduced_f32("minitron-8b")
     jp = M.init_params(cfg, jax.random.PRNGKey(0))
     tcfg = dataclasses.replace(get_config("minitron-8b").reduced(),
                                dtype="float32")
     tp = P.from_jax_numpy(jax.tree.map(np.asarray, jp), device="cpu")
-    kw = dict(slots_per_pool=2, c_chunk=16, decode_k=4, eos_id=None)
+    return cfg, jp, tcfg, tp
+
+
+def _azure_plans():
+    """The same K=2 azure plan from both packages, and the context scale
+    that puts the long pool at 512 tokens (B = 64, gamma 2)."""
     plan_j = JP.plan_k_pool(JW.get_workload("azure"), lam=1000.0, t_slo=0.5,
                             k=2)
     plan_t = TP.plan_k_pool(TW.get_workload("azure"), lam=1000.0, t_slo=0.5,
                             k=2)
-    scale = 512 / plan_j.pools[-1].c_max
+    return plan_j, plan_t, 512 / plan_j.pools[-1].c_max
+
+
+def test_fleet_runtime_matches_jax(reduced_models):
+    """from_plan on reduced minitron-8b: the port's dense fleet routes
+    every request to the JAX runtime's pool with its C&R decision and
+    emits its tokens (xla <-> torch decode); the port's paged fleet emits
+    the same tokens again."""
+    cfg, jp, tcfg, tp = reduced_models
+    kw = dict(slots_per_pool=2, c_chunk=16, decode_k=4, eos_id=None)
+    plan_j, plan_t, scale = _azure_plans()
     reqs = [(0, _prompt(3, "short"), 8, "prose"),
             (1, _prompt(9, "border"), 8, "rag"),
             (2, _prompt(30, "long"), 8, "prose"),
@@ -176,6 +193,44 @@ def test_fleet_runtime_matches_jax():
         assert rt.router.boundaries == rj.router.boundaries
         assert serve(rt, TPools.GatewayRequest) == ref, f"paged={paged}"
         assert rt.router.stats.per_pool == rj.router.stats.per_pool
+
+
+def test_in_band_request_compresses_like_jax(reduced_models):
+    """One in-band borderline request (B < L_total <= gamma * B, rag)
+    through both runtimes: the same C&R decision, compressed text and
+    tokens. The JAX runtime's compressor is swapped for one scoring with
+    its Pallas TextRank, so both sides score in f32 (the port's runtime
+    scores with the plain version on the CPU, and launches no kernel)."""
+    from repro.kernels import ops as jax_ops
+    from repro_torch.kernels import textrank as TRK
+    cfg, jp, tcfg, tp = reduced_models
+    plan_j, plan_t, scale = _azure_plans()
+    kw = dict(slots_per_pool=2, c_chunk=16, decode_k=4, eos_id=None,
+              ctx_scale=scale)
+    rj = JPools.FleetRuntime.from_plan(cfg, jp, plan_j, decode_impl="xla",
+                                       **kw)
+    rj.router.compressor = JC.ExtractiveCompressor(
+        textrank_fn=jax_ops.textrank_scores)
+    rt = TPools.FleetRuntime.from_plan(tcfg, tp, plan_t, decode_impl="torch",
+                                       paged=True, prefix_cache=True, **kw)
+    b, gamma = rt.router.boundaries[0], rt.router.gammas[0]
+    text = chip_smoke.varied_prompt(np.random.default_rng(3), 100,
+                                    rt.tokenizer, words=(3, 6))
+    assert b < rt.tokenizer.count(text) + 8 <= gamma * b
+    launches = TRK.KERNEL.launches
+    out = {}
+    for rt_, req_cls in ((rj, JPools.GatewayRequest),
+                         (rt, TPools.GatewayRequest)):
+        d = dataclasses.asdict(rt_.submit(req_cls(0, text, 8,
+                                                  category="rag")))
+        d.pop("compression_ms")
+        res = rt_.run(max_iters=2000)[0]
+        out[rt_ is rt] = (d, res.pool, res.output_tokens)
+    assert out[True] == out[False]
+    d = out[True][0]
+    assert d["compressed"] and d["pool"] == "short"
+    assert d["l_total_effective"] <= b        # Eq. 15
+    assert TRK.KERNEL.launches == launches
 
 
 def test_fleet_rejects_later_slice_knobs():
