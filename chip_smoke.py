@@ -18,6 +18,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    stale block-table entries and two rows aliasing one block; times the
    kernel, the plain version and ``F.scaled_dot_product_attention`` on
    the same gathered inputs (the yardstick; the port never calls it).
+   Then both decode kernels, bf16 and f32, at the fleet pools' shapes:
+   the long pool (B=4, S=4096, one live row of 1,100 tokens, three
+   inactive) and the short pool (B=4, S=512, four live rows of 400-500),
+   each checked against its plain version, two calls bitwise equal, dense
+   equal to paged bitwise on the same tokens, and timed rotating over
+   enough copies of the caches that the live K/V between two uses of one
+   copy exceeds the 50 MB L2.
    TextRank against its plain version in f32 at N = 1, 64, 1024 and 1500
    sentences (symmetric |normal| matrices, one with an all-zero column),
    timed at N = 64 and 1024 beside the host numpy scorer it replaces.
@@ -176,8 +183,7 @@ def profile_decode(eng, n_dispatch: int = 2):
     if dev_us == 0:
         return None
     rows.sort(key=lambda r: -r[1])
-    attn_us = sum(t for k, t, _ in rows
-                  if "decode_partial" in k or "combine_kernel" in k)
+    attn_us = sum(t for k, t, _ in rows if "decode_cluster" in k)
     return {"wall_ms": 1e3 * wall / n_dispatch,
             "device_ms": dev_us / 1e3 / n_dispatch,
             "attn_ms": attn_us / 1e3 / n_dispatch,
@@ -199,8 +205,14 @@ def phase_card():
 
 
 def phase_build():
+    import ctypes
     from repro_torch.kernels import build, ops
     secs = build.build_all(list(ops.KERNELS))
+    for k in ops.KERNELS[:2]:        # the decode kernels' dynamic smem
+        fn = ctypes.CDLL(str(k.library)).decode_smem_bytes
+        fn.argtypes = [ctypes.c_int] * 3
+        print(f"[build] {k.name}: dynamic smem per block at hd 128, "
+              f"q_per_kv 4: bf16 {fn(1, 128, 4)} B, f32 {fn(0, 128, 4)} B")
     for k in ops.KERNELS:
         regs = [int(x) for x in re.findall(r"Used (\d+) registers",
                                            k.build_log)]
@@ -254,6 +266,146 @@ def _paged_inputs(dtype, gen, b=8, s=4096, h=32, hkv=8, hd=128, bs=16):
     return q, k, v, tables.contiguous(), seq, active
 
 
+# the main path's shapes: the long pool (one live row of 1,100 tokens,
+# three inactive) and the short pool (four live rows of 400-500 tokens)
+FLEET_SHAPES = {"long": (4096, [0, 1100, 0, 0]),
+                "short": (512, [400, 433, 467, 500])}
+L2_BYTES = 50e6                      # H100 L2; the timed calls rotate past it
+
+
+def _fleet_inputs(dtype, gen, s, lens, h=32, hkv=8, hd=128, bs=16):
+    """Dense inputs of a fleet pool (prefix rows of ``lens`` tokens; a row
+    of length 0 is inactive) and the same K/V scattered into shuffled
+    pages of ``bs`` tokens, so both kernels see the same tokens."""
+    import torch
+    dev = "cuda"
+    b = len(lens)
+    q = torch.randn((b, h, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, s, hkv, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, s, hkv, hd), generator=gen, device=dev).to(dtype)
+    ln = torch.tensor(lens, device=dev)
+    valid = torch.arange(s, device=dev)[None, :] < ln[:, None]
+    active = ln > 0
+    nb = s // bs
+    perm = torch.randperm(b * nb, generator=gen, device=dev)
+    kp = torch.empty((b * nb, bs, hkv, hd), dtype=dtype, device=dev)
+    vp = torch.empty_like(kp)
+    kp[perm] = k.reshape(b * nb, bs, hkv, hd)
+    vp[perm] = v.reshape(b * nb, bs, hkv, hd)
+    tables = perm.reshape(b, nb).to(torch.int32).contiguous()
+    seq = ln.to(torch.int32)
+    return (q, k, v, valid.contiguous(), active), (q, kp, vp, tables, seq,
+                                                   active)
+
+
+def _rotating(make, n):
+    """A call that runs ``make(i)``'s closure for i = 0, 1, ..., n-1 in
+    turn, so back-to-back timed calls read ``n`` distinct copies."""
+    import itertools
+    calls = [make(i) for i in range(n)]
+    it = itertools.cycle(calls)
+    return lambda: next(it)()
+
+
+def phase_fleet_kernels():
+    """Both decode kernels at the fleet pools' shapes, bf16 and f32:
+    checked against the plain version, two calls bitwise equal, dense
+    equal to paged bitwise on the same tokens, then timed. The timed
+    calls rotate over enough copies of the inputs that the live K/V read
+    between two uses of one copy exceeds the 50 MB L2, as on the path,
+    where 32 layers and 15.5 GB of weights pass between two calls."""
+    import torch
+    from repro_torch.kernels import gqa_decode as D
+    from repro_torch.kernels import paged_decode as PD
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        el = torch.tensor([], dtype=dtype).element_size()
+        for pool, (s, lens) in FLEET_SHAPES.items():
+            dense, paged = _fleet_inputs(dtype, gen, s, lens)
+            q, k, v, valid, active = dense
+            b, h, hd = q.shape
+            hkv = k.shape[2]
+            got = D.gqa_decode_cuda(*dense)
+            gotp = PD.paged_gqa_decode_cuda(*paged)
+            again = D.gqa_decode_cuda(*dense)
+            againp = PD.paged_gqa_decode_cuda(*paged)
+            ref = D.gqa_decode_plain(*dense)
+            torch.cuda.synchronize()
+            _check("gqa_decode", name, got, ref, active, pool)
+            _check("paged_gqa_decode", name, gotp, ref, active, pool)
+            if not (torch.equal(got, again) and torch.equal(gotp, againp)):
+                fail(f"decode {name} {pool}: two identical calls differ")
+            if not torch.equal(got, gotp):
+                fail(f"decode {name} {pool}: dense and paged differ on the "
+                     f"same tokens")
+            tokens = int(valid[active].sum())
+            live = 2 * tokens * hkv * hd * el
+            n_copies = max(2, int(-(-2 * L2_BYTES // live)))
+            copies = [dense] + [tuple(t.clone() for t in dense)
+                                for _ in range(n_copies - 1)]
+            pcopies = [paged] + [(c[0], *(t.clone() for t in paged[1:3]),
+                                  *paged[3:]) for c in copies[1:]]
+            dbytes = live + 2 * q.numel() * el + valid.numel() + b
+            pbytes = (live + 2 * q.numel() * el + 4 * b + b
+                      + 4 * sum(-(-n // 16) for n in lens))
+            ops = 4 * tokens * h * hd
+            for kname, fn, plain, lib, nbytes, ins in (
+                    ("gqa_decode", D.gqa_decode_cuda, D.gqa_decode_plain,
+                     _sdpa_dense, dbytes, copies),
+                    ("paged_decode", PD.paged_gqa_decode_cuda,
+                     PD.paged_gqa_decode_plain, _sdpa_paged, pbytes,
+                     pcopies)):
+                libs = [lib(*c) for c in ins]
+                r = _time_row(
+                    _rotating(lambda i: lambda: fn(*ins[i]), n_copies),
+                    _rotating(lambda i: lambda: plain(*ins[i]), n_copies),
+                    _rotating(lambda i: libs[i], n_copies),
+                    got, ref, *_bound(nbytes, ops, name), iters=50)
+                rows[(kname, name, pool)] = r
+                print(f"[kernels] {kname} {name} {pool} pool (B={b}, S={s}, "
+                      f"lens {lens}, {tokens} live tokens, {n_copies} "
+                      f"rotated copies): max_abs_err {r['max_abs_err']:.3e} "
+                      f"(limit {TOL[name] * r['ref_max']:.3e}) | kernel "
+                      f"{1e3 * r['ms']:.2f} us, plain {1e3 * r['plain_ms']:.2f}"
+                      f" us, sdpa {1e3 * r['library_ms']:.2f} us, bound "
+                      f"{1e3 * r['bound_ms']:.3f} us ({r['bound_by']}), kernel "
+                      f"at {100 * r['bound_ms'] / r['ms']:.1f}% of bound; "
+                      f"two calls equal, dense == paged bitwise")
+            del copies, pcopies, libs
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _sdpa_dense(q, k, v, valid, active):
+    """F.scaled_dot_product_attention on the dense inputs (the yardstick;
+    the port never calls it): a closure over the transposed views."""
+    import torch.nn.functional as F
+    kq, kk, vv = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    mask = valid[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(kq, kk, vv, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def _sdpa_paged(q, kp, vp, tables, seq, active):
+    """SDPA on the pages gathered through the tables (gathered once,
+    outside the timed call)."""
+    import torch
+    import torch.nn.functional as F
+    b, nb = tables.shape
+    bs, hkv, hd = kp.shape[1:]
+    bt = tables.long().clamp(0, kp.shape[0] - 1)
+    kg = kp[bt].reshape(b, nb * bs, hkv, hd).transpose(1, 2)
+    vg = vp[bt].reshape(b, nb * bs, hkv, hd).transpose(1, 2)
+    mask = (torch.arange(nb * bs, device=q.device)[None, :]
+            < seq[:, None])[:, None, None, :]
+    kq = q[:, :, None, :]
+    return lambda: F.scaled_dot_product_attention(kq, kg, vg, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
 def _bound(b_bytes: float, ops: float, dtype_name: str):
     t_bytes = b_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype_name] * 1e3
@@ -264,7 +416,6 @@ def phase_kernels():
     """Each kernel against its plain version; returns the kernels-line
     rows (bf16, the main path's type) keyed by kernel name."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import gqa_decode as D
     from repro_torch.kernels import paged_decode as PD
     gen = torch.Generator(device="cuda")
@@ -278,44 +429,39 @@ def phase_kernels():
         b, h, hd = q.shape
         hkv = k.shape[2]
         got = D.gqa_decode_cuda(q, k, v, valid, active)
+        again = D.gqa_decode_cuda(q, k, v, valid, active)
         ref = D.gqa_decode_plain(q, k, v, valid, active)
         torch.cuda.synchronize()
         _check("gqa_decode", name, got, ref, active)
+        if not torch.equal(got, again):
+            fail(f"gqa_decode {name}: two identical calls differ")
         tokens = int(valid[active].sum())
         nbytes = (2 * tokens * hkv * hd * el + 2 * q.numel() * el
                   + valid.numel() + b)
         ops = 4 * tokens * h * hd
-        kq = q[:, :, None, :]                       # (B, H, 1, hd)
-        kk, vv = k.transpose(1, 2), v.transpose(1, 2)
-        mask = valid[:, None, None, :]
         rows[("gqa_decode", name)] = _time_row(
             lambda: D.gqa_decode_cuda(q, k, v, valid, active),
             lambda: D.gqa_decode_plain(q, k, v, valid, active),
-            lambda: F.scaled_dot_product_attention(
-                kq, kk, vv, attn_mask=mask, enable_gqa=True),
+            _sdpa_dense(q, k, v, valid, active),
             got, ref, *_bound(nbytes, ops, name))
         # -- paged ---------------------------------------------------------
         q, kp, vp, tables, seq, active = _paged_inputs(dtype, gen)
         got = PD.paged_gqa_decode_cuda(q, kp, vp, tables, seq, active)
+        again = PD.paged_gqa_decode_cuda(q, kp, vp, tables, seq, active)
         ref = PD.paged_gqa_decode_plain(q, kp, vp, tables, seq, active)
         torch.cuda.synchronize()
         _check("paged_gqa_decode", name, got, ref, active)
+        if not torch.equal(got, again):
+            fail(f"paged_gqa_decode {name}: two identical calls differ")
         tokens = int(seq[active].sum())
         nbytes = (2 * tokens * hkv * hd * el + 2 * q.numel() * el
                   + 4 * (tables.numel() + b) + b)
         ops = 4 * tokens * h * hd
-        bt = tables.long().clamp(0, kp.shape[0] - 1)
-        nb, bs = tables.shape[1], kp.shape[1]
-        kg = kp[bt].reshape(b, nb * bs, hkv, hd).transpose(1, 2)
-        vg = vp[bt].reshape(b, nb * bs, hkv, hd).transpose(1, 2)
-        pmask = (torch.arange(nb * bs, device="cuda")[None, :]
-                 < seq[:, None])[:, None, None, :]
         rows[("paged_decode", name)] = _time_row(
             lambda: PD.paged_gqa_decode_cuda(q, kp, vp, tables, seq, active),
             lambda: PD.paged_gqa_decode_plain(q, kp, vp, tables, seq,
                                               active),
-            lambda: F.scaled_dot_product_attention(
-                q[:, :, None, :], kg, vg, attn_mask=pmask, enable_gqa=True),
+            _sdpa_paged(q, kp, vp, tables, seq, active),
             got, ref, *_bound(nbytes, ops, name))
     for (kname, dname), r in rows.items():
         print(f"[kernels] {kname} {dname}: max_abs_err {r['max_abs_err']:.3e}"
@@ -329,27 +475,29 @@ def phase_kernels():
             if dname == "bfloat16"}
 
 
-def _check(kname, dname, got, ref, active):
+def _check(kname, dname, got, ref, active, shape=""):
     import torch
+    what = f"{kname} {dname} {shape}".rstrip()
     if not torch.isfinite(got).all():
-        fail(f"{kname} {dname}: non-finite output")
+        fail(f"{what}: non-finite output")
     if (got[~active] != 0).any():
-        fail(f"{kname} {dname}: inactive rows are not exact zeros")
+        fail(f"{what}: inactive rows are not exact zeros")
     err = (got.float() - ref.float()).abs().max().item()
     ref_max = ref.float().abs().max().item()
     lim = TOL[dname] * ref_max
     if err > lim:
-        fail(f"{kname} {dname}: max abs err {err:.3e} > {lim:.3e} "
+        fail(f"{what}: max abs err {err:.3e} > {lim:.3e} "
              f"({TOL[dname]:g} x max|plain| {ref_max:.4f})")
 
 
-def _time_row(kernel, plain, library, got, ref, bound_ms, bound_by):
+def _time_row(kernel, plain, library, got, ref, bound_ms, bound_by,
+              iters=20):
     # turns: plain, kernel, kernel, plain (and the library call between,
     # where there is one)
     p1 = cuda_ms(plain, iters=5)
-    k1 = cuda_ms(kernel)
-    lib = cuda_ms(library) if library is not None else None
-    k2 = cuda_ms(kernel)
+    k1 = cuda_ms(kernel, iters=iters)
+    lib = cuda_ms(library, iters=iters) if library is not None else None
+    k2 = cuda_ms(kernel, iters=iters)
     p2 = cuda_ms(plain, iters=5)
     return {"max_abs_err": (got.float() - ref.float()).abs().max().item(),
             "ref_max": ref.float().abs().max().item(),
@@ -910,6 +1058,7 @@ def main() -> int:
     smi = phase_card()
     phase_build()
     rows = phase_kernels()
+    phase_fleet_kernels()
     rows["textrank"] = phase_textrank()
     phase_parity()
     launches = phase_fleet()

@@ -1,35 +1,68 @@
-// Shared pieces of the two flash-decode GQA kernels (gqa_decode.cu,
-// paged_decode.cu): element conversion, vector loads, the tiled
-// online-softmax sweep of one warp, the in-block merge of the warps'
-// partial states, and the pass that merges the splits of S.
+// Shared body of the two flash-decode GQA kernels (gqa_decode.cu,
+// paged_decode.cu).
 //
-// Work split. One thread block handles one (row, kv_head, split of S)
-// with WARPS warps; the block stages the QPK query heads of its kv group
-// in shared memory. Each warp walks the split in tiles of 32 tokens, one
-// token per lane:
-//   1. scores: each lane reads its token's K head row (16-byte loads;
-//      the 32 lanes have 32 independent loads in flight) and dots it with
-//      the staged queries, QPK heads at once;
-//   2. softmax: one warp max and one warp sum per head per tile (not per
-//      token) update the f32 running (m, l), replicated on all lanes;
-//   3. P.V: the tile's valid tokens' V rows are read coalesced (lane =
-//      HD/32 dims) and accumulated into acc, which each lane keeps for
-//      its dims of every head.
-// QPK <= 8 query rows is far under any MMA tile, so the dots are plain
-// FMAs. Masked tokens (and whole masked tiles) are never loaded. The
-// warps merge in shared memory, each block writes one partial (m, l,
-// acc) per query head, and combine_kernel merges the splits.
+// Work split. A row's token axis (S, or NB * BLOCK_S) is cut into 64-token
+// work items. Each (row, kv head) gets one thread-block cluster of CL = 8
+// blocks, and block r of the cluster takes items r, r + 8, r + 16, ...,
+// so the live items of a row are spread over 8 blocks and Hkv clusters,
+// whatever its length: a live 1,100-token row (18 items) keeps 64 SMs
+// reading, 2-3 items each. The grid, (8, Hkv, B), depends on shapes
+// only: the host reads no length back and the launch has a fixed shape.
+// A cluster of an inactive row exits at once (rank 0 writes the zeros).
+//
+// One block (4 warps):
+//   1. scans its items: the 64 threads of each item resolve their
+//      token's K/V row offset, or -1 for a masked token or one past the
+//      row's extent (paged: the block table is read only for tokens below
+//      seq_len), all items' loads in flight together; the items with an
+//      attended token form the block's live list, in item order;
+//   2. walks the live list through a ring of shared-memory stages (2 in
+//      bf16, 1 in f32): the K tile and the V tile of the next items are
+//      requested as cp.async.cg groups of 16-byte copies (through L2,
+//      bypassing L1) before any compute, and each stage is refilled as
+//      soon as it is consumed. Rows are padded by 8 elements, so ldmatrix
+//      reads are free of bank conflicts; a masked token's rows are
+//      zero-filled and never loaded. ~72 KB a block in bf16 at HD = 128,
+//      3 blocks per SM: up to ~190 KB of K/V requested per SM. (A third
+//      stage, or clusters of 16, leave fewer clusters resident and
+//      measured slower on an H100: PERF.md, section 6);
+//   3. scores S^T = K.Q^T. bf16: mma.sync m16n8k16 with the tile's tokens
+//      as M (one 16-token slice per warp), the group's <= 8 query heads as
+//      N (zero-padded) and HD as K, Q held in registers. f32: FMAs from
+//      shared memory, two lanes per token (TF32 would not hold the f32
+//      model's 1e-5 parity);
+//   4. online softmax in f32 across the block's items: the running max
+//      per head, p = exp(s - m) written to shared memory in T, the
+//      rescale factor alpha = exp(m_old - m) applied to l and acc;
+//   5. O^T += V^T.P^T. bf16: mma.sync m16n8k16 with dims as M (two 16-dim
+//      slices per warp at HD = 128), heads as N, tokens as K, V read by
+//      ldmatrix.trans, P rounded to bf16 as FlashAttention does; m, l and
+//      the accumulator stay f32 in registers. f32: FMAs, one dim a thread;
+//   6. merge: the 8 blocks' (m, l, acc) are combined through distributed
+//      shared memory after a cluster barrier, each block producing 1/8 of
+//      the outputs, in rank order (never arrival order: the bits do not
+//      depend on timing), in the same launch, with no partials in device
+//      memory and no counters.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
+#include <type_traits>
 
 namespace decode {
 
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
-constexpr int TILE = 32;            // tokens per warp tile (one per lane)
+constexpr int TILE = 64;            // tokens per work item
+constexpr int CL = 8;               // blocks per (row, kv head): one cluster
+constexpr int MAX_ITEMS = 256;      // work items per block (64 x 8 x 256 =
+                                    // 131072 tokens per row at most)
+constexpr int PAD = 8;              // elements of padding per staged row
+constexpr int NQ = 8;               // query heads per group, padded (MMA N)
 constexpr float NEG_INF = -1e30f;   // the Pallas kernels' mask value
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -47,18 +80,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-template <typename T, int N>
-struct alignas(sizeof(T) * N) Vec {
-  T v[N];
-};
-
-template <typename T, int N>
-__device__ __forceinline__ void load_vec(const T* p, float (&out)[N]) {
-  const Vec<T, N> r = *reinterpret_cast<const Vec<T, N>*>(p);
-#pragma unroll
-  for (int i = 0; i < N; ++i) out[i] = to_f(r.v[i]);
-}
-
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(FULL, x, off);
@@ -72,227 +93,507 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// Per-warp running softmax state: m/l per query head (the same on every
-// lane), acc per head for the lane's VEC = HD/32 dims.
-template <int HD, int QPK>
-struct WarpState {
-  static constexpr int VEC = HD / 32;
-  float m[QPK];
-  float l[QPK];
-  float acc[QPK][VEC];
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  __device__ __forceinline__ void init() {
+// 16 bytes from global to shared memory through L2 only (.cg).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a . b, bf16 in, f32 accumulate; a 16x16 row-major, b 16x8 col-major.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+
+// Dynamic shared memory of one block (set above 48 KB per instantiation).
+template <typename T, int HD, int QPK>
+struct Smem {
+  static constexpr bool F32 = std::is_same<T, float>::value;
+  // K/V stages of the ring: 2 in bf16 (~72 KB a block at HD = 128, 3
+  // blocks per SM); 1 in f32, whose stage is twice the size
+  static constexpr int STAGES = F32 ? 1 : 2;
+  alignas(16) T k[STAGES][TILE][HD + PAD];  // K rows; merge: the acc
+  alignas(16) T v[STAGES][TILE][HD + PAD];  // V rows
+  alignas(16) T p[NQ][TILE + PAD];          // softmax weights, head-major
+  alignas(16) float q[F32 ? QPK : 1][HD];   // f32: staged queries
+  int64_t off[STAGES][TILE];                // token row offsets, -1 = skip
+  float red_m[WARPS][NQ];                   // per-warp maxima of a tile
+  float red_l[WARPS][NQ];                   // per-warp sums of a tile
+  float m[NQ], l[NQ];                       // the block's running state
+  int live[MAX_ITEMS];                      // items with a token, in order
+  uint8_t flag[MAX_ITEMS];                  // scan: item has a token
+  int n_live;
+};
+
+// The tile's max for head h from the warps' maxima.
+__device__ __forceinline__ float tile_max(const float (&red)[WARPS][NQ],
+                                          int h) {
+  float m = red[0][h];
 #pragma unroll
-    for (int h = 0; h < QPK; ++h) {
-      m[h] = NEG_INF;
-      l[h] = 0.f;
+  for (int w = 1; w < WARPS; ++w) m = fmaxf(m, red[w][h]);
+  return m;
+}
+
+// Step 1: the block's live items (those of rank + CL * j, j < nb, that
+// hold an attended token), in item order, in sm.live / sm.n_live.
+template <typename T, int HD, int QPK, typename Token>
+__device__ __forceinline__ void scan_items(Smem<T, HD, QPK>& sm, int rank,
+                                           int nb, Token& token) {
+  constexpr int PER = THREADS / TILE;       // items per pass of the block
+  constexpr int UNROLL = 4;                 // passes with loads in flight
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  for (int j = tid; j < nb; j += THREADS) sm.flag[j] = 0;
+  __syncthreads();
+  for (int j0 = 0; j0 < nb; j0 += PER * UNROLL) {
+    bool ok[UNROLL];
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[h][i] = 0.f;
+    for (int u = 0; u < UNROLL; ++u) {
+      const int j = j0 + PER * u + tid / TILE;
+      ok[u] = j < nb && token((rank + CL * j) * TILE + tid % TILE) >= 0;
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int j = j0 + PER * u + tid / TILE;
+      if (__any_sync(FULL, ok[u]) && lane == 0 && j < nb) sm.flag[j] = 1;
     }
   }
-};
-
-// Shared memory of one block.
-template <int HD, int QPK>
-struct Smem {
-  alignas(16) float q[QPK][HD];             // staged queries, f32
-  float p[WARPS][QPK][TILE];                // a tile's softmax weights
-  float m[WARPS][QPK];                      // warp partials for the merge
-  float l[WARPS][QPK];
-  float acc[WARPS][QPK][HD];
-};
-
-// Stage the QPK query heads of kv group g of `row` into shared memory.
-template <typename T, int HD, int QPK>
-__device__ __forceinline__ void stage_q(Smem<HD, QPK>& sm, const T* q,
-                                        int row, int H, int g) {
-  const T* src = q + ((int64_t)row * H + g * QPK) * HD;
-  for (int i = threadIdx.x; i < QPK * HD; i += THREADS)
-    sm.q[i / HD][i % HD] = to_f(src[i]);
+  __syncthreads();
+  if (warp == 0) {
+    int nl = 0;
+    for (int b0 = 0; b0 < nb; b0 += 32) {
+      const bool live = b0 + lane < nb && sm.flag[b0 + lane];
+      const unsigned bal = __ballot_sync(FULL, live);
+      if (live) sm.live[nl + __popc(bal & ((1u << lane) - 1u))] = b0 + lane;
+      nl += __popc(bal);
+    }
+    if (lane == 0) sm.n_live = nl;
+  }
   __syncthreads();
 }
 
-// One warp's sweep over tokens [t_begin, t_end) of one row, in tiles of
-// 32. `offset(t)` is the element offset of token t's K (= V) head row;
-// `valid(t)` says whether token t (< t_end) is attended.
-template <typename T, int HD, int QPK, typename Offset, typename Valid>
-__device__ __forceinline__ void sweep(WarpState<HD, QPK>& st,
-                                      Smem<HD, QPK>& sm, const T* k,
-                                      const T* v, int t_begin, int t_end,
-                                      float scale, Offset offset,
-                                      Valid valid) {
-  constexpr int VEC = HD / 32;
-  constexpr int CH = 16 / sizeof(T);        // elements per 16-byte load
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float(&p)[QPK][TILE] = sm.p[warp];
-  for (int t0 = t_begin + warp * TILE; t0 < t_end; t0 += WARPS * TILE) {
-    const int t = t0 + lane;
-    const bool ok = t < t_end && valid(t);
-    const unsigned mask = __ballot_sync(FULL, ok);
-    if (mask == 0) continue;
-    int64_t off = 0;
-    float s[QPK];
+// Step 2: fill stage `st` with live item `li` of the block (item rank +
+// CL * sm.live[li]): offsets first (their loads hit L1 after the scan),
+// then the K tile and the V tile as two cp.async groups. Past the live
+// list it commits two empty groups, so every refill adds two groups.
+template <typename T, int HD, int QPK, typename Token>
+__device__ __forceinline__ void request(Smem<T, HD, QPK>& sm, int st, int li,
+                                        int rank, const T* __restrict__ k,
+                                        const T* __restrict__ v,
+                                        Token& token) {
+  constexpr int CH = 16 / sizeof(T);       // elements per copy
+  constexpr int CPR = HD / CH;             // copies per row
+  const int tid = threadIdx.x;
+  const bool have = li < sm.n_live;
+  if (have) {
+    if (tid < TILE)
+      sm.off[st][tid] = token((rank + CL * sm.live[li]) * TILE + tid);
+    __syncthreads();
+  }
 #pragma unroll
-    for (int h = 0; h < QPK; ++h) s[h] = 0.f;
-    if (ok) {
-      off = offset(t);
-      const T* krow = k + off;
-#pragma unroll
-      for (int d = 0; d < HD; d += CH) {
-        float kc[CH];
-        load_vec<T, CH>(krow + d, kc);
-#pragma unroll
-        for (int h = 0; h < QPK; ++h)
-#pragma unroll
-          for (int i = 0; i < CH; ++i) s[h] += sm.q[h][d + i] * kc[i];
+  for (int kv = 0; kv < 2; ++kv) {
+    T(*dst)[HD + PAD] = kv == 0 ? sm.k[st] : sm.v[st];
+    const T* src = kv == 0 ? k : v;
+    if (have)
+      for (int i = tid; i < TILE * CPR; i += THREADS) {
+        const int j = i / CPR;
+        const int c = (i % CPR) * CH;
+        const int64_t o = sm.off[st][j];
+        if (o >= 0)
+          cp_async16(&dst[j][c], src + o + c);
+        else
+          *reinterpret_cast<uint4*>(&dst[j][c]) = make_uint4(0, 0, 0, 0);
       }
-    }
-#pragma unroll
-    for (int h = 0; h < QPK; ++h) {
-      const float sc = ok ? s[h] * scale : NEG_INF;
-      const float m_new = fmaxf(st.m[h], warp_max(sc));
-      const float alpha = expf(st.m[h] - m_new);
-      const float e = ok ? expf(sc - m_new) : 0.f;
-      st.l[h] = st.l[h] * alpha + warp_sum(e);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) st.acc[h][i] *= alpha;
-      st.m[h] = m_new;
-      p[h][lane] = e;
-    }
-    __syncwarp();
-#pragma unroll
-    for (int j0 = 0; j0 < TILE; j0 += 4) {
-      float vv[4][VEC];
-      bool have[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int j = j0 + u;
-        const int64_t off_j = __shfl_sync(FULL, (long long)off, j);
-        have[u] = (mask >> j) & 1u;
-        if (have[u]) load_vec<T, VEC>(v + off_j + lane * VEC, vv[u]);
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (!have[u]) continue;
-#pragma unroll
-        for (int h = 0; h < QPK; ++h) {
-          const float pj = p[h][j0 + u];
-#pragma unroll
-          for (int i = 0; i < VEC; ++i) st.acc[h][i] += pj * vv[u][i];
-        }
-      }
-    }
-    __syncwarp();
+    cp_async_commit();
   }
 }
 
-// Merge the block's WARPS partial states in shared memory and write one
-// partial per query head of this (row, kv_head, split):
-//   part_m/part_l: [row][kv_head][split][QPK]
-//   part_acc:      [row][kv_head][split][QPK][HD]
+// Steps 3-4, bf16: warp w scores tokens 16w..16w+15 of stage st against
+// the 8 (padded) heads on the tensor cores; qf holds the B fragments of
+// Q^T. The thread holds tokens t, t + 8 and heads h, h + 1 of the 16x8
+// tile. Returns in alpha the rescale factors of heads h, h + 1.
 template <int HD, int QPK>
-__device__ __forceinline__ void merge_warps_and_store(
-    const WarpState<HD, QPK>& st, Smem<HD, QPK>& sm, float* part_m,
-    float* part_l, float* part_acc, int64_t part_idx) {
-  constexpr int VEC = HD / 32;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+__device__ __forceinline__ void scores_softmax_mma(
+    Smem<__nv_bfloat16, HD, QPK>& sm, int st,
+    const uint32_t (&qf)[HD / 16][2], float scale, float (&alpha)[2]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4(a, &sm.k[st][warp * 16 + (lane % 16)]
+                        [kk * 16 + (lane / 16) * 8]);
+    mma_bf16(c, a, qf[kk][0], qf[kk][1]);
+  }
+  const int t = warp * 16 + lane / 4;
+  const int h = (lane % 4) * 2;
+  const bool ok0 = sm.off[st][t] >= 0, ok1 = sm.off[st][t + 8] >= 0;
+  const float s[4] = {ok0 ? c[0] * scale : NEG_INF,
+                      ok0 ? c[1] * scale : NEG_INF,
+                      ok1 ? c[2] * scale : NEG_INF,
+                      ok1 ? c[3] * scale : NEG_INF};
+  float m[2] = {fmaxf(s[0], s[2]), fmaxf(s[1], s[3])};
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1)       // over the warp's tokens
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      m[i] = fmaxf(m[i], __shfl_xor_sync(FULL, m[i], off));
+  if (lane < 4) {
+    sm.red_m[warp][h] = m[0];
+    sm.red_m[warp][h + 1] = m[1];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m_old = sm.m[h + i];
+    m[i] = fmaxf(m_old, tile_max(sm.red_m, h + i));
+    alpha[i] = expf(m_old - m[i]);
+  }
+  const float e[4] = {ok0 ? expf(s[0] - m[0]) : 0.f,
+                      ok0 ? expf(s[1] - m[1]) : 0.f,
+                      ok1 ? expf(s[2] - m[0]) : 0.f,
+                      ok1 ? expf(s[3] - m[1]) : 0.f};
+  sm.p[h][t] = __float2bfloat16(e[0]);
+  sm.p[h + 1][t] = __float2bfloat16(e[1]);
+  sm.p[h][t + 8] = __float2bfloat16(e[2]);
+  sm.p[h + 1][t + 8] = __float2bfloat16(e[3]);
+  float l[2] = {e[0] + e[2], e[1] + e[3]};
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] += __shfl_xor_sync(FULL, l[i], off);
+  if (lane < 4) {
+    sm.red_l[warp][h] = l[0];
+    sm.red_l[warp][h + 1] = l[1];
+  }
+}
+
+// Steps 3-4, f32: lanes 2j and 2j+1 of warp w share token 16w + j of
+// stage st, each taking every other 4-float chunk of HD; FMAs from shared
+// memory. Returns in alpha the rescale factor of every head.
+template <int HD, int QPK>
+__device__ __forceinline__ void scores_softmax_fma(Smem<float, HD, QPK>& sm,
+                                                   int st, float scale,
+                                                   float (&alpha)[QPK]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t = warp * 16 + lane / 2;
+  float s[QPK];
+#pragma unroll
+  for (int h = 0; h < QPK; ++h) s[h] = 0.f;
+#pragma unroll
+  for (int d = (lane % 2) * 4; d < HD; d += 8) {
+    const float4 kv = *reinterpret_cast<const float4*>(&sm.k[st][t][d]);
+#pragma unroll
+    for (int h = 0; h < QPK; ++h) {
+      const float4 qv = *reinterpret_cast<const float4*>(&sm.q[h][d]);
+      s[h] += qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
+    }
+  }
+  const bool ok = sm.off[st][t] >= 0;
 #pragma unroll
   for (int h = 0; h < QPK; ++h) {
-    if (lane == 0) {
-      sm.m[warp][h] = st.m[h];
-      sm.l[warp][h] = st.l[h];
-    }
+    s[h] += __shfl_xor_sync(FULL, s[h], 1);
+    s[h] = ok ? s[h] * scale : NEG_INF;
+    float m = s[h];
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) sm.acc[warp][h][lane * VEC + i] = st.acc[h][i];
+    for (int off = 2; off < 32; off <<= 1)
+      m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
+    if (lane == 0) sm.red_m[warp][h] = m;
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < QPK * HD; idx += THREADS) {
-    const int h = idx / HD;
-    const int d = idx % HD;
-    float m = NEG_INF;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) m = fmaxf(m, sm.m[w][h]);
-    float l = 0.f, a = 0.f;
+  for (int h = 0; h < QPK; ++h) {
+    const float m_old = sm.m[h];
+    const float m = fmaxf(m_old, tile_max(sm.red_m, h));
+    alpha[h] = expf(m_old - m);
+    const float e = ok ? expf(s[h] - m) : 0.f;
+    if (lane % 2 == 0) sm.p[h][t] = e;
+    float l = lane % 2 == 0 ? e : 0.f;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float c = expf(sm.m[w][h] - m);
-      l += sm.l[w][h] * c;
-      a += sm.acc[w][h][d] * c;
-    }
-    part_acc[(part_idx * QPK + h) * HD + d] = a;
-    if (d == 0) {
-      part_m[part_idx * QPK + h] = m;
-      part_l[part_idx * QPK + h] = l;
+    for (int off = 2; off < 32; off <<= 1) l += __shfl_xor_sync(FULL, l, off);
+    if (lane == 0) sm.red_l[warp][h] = l;
+  }
+}
+
+// Step 5, bf16: warp w owns the 16-dim slices w, w + 4, ... of O^T; its
+// accumulator fragments c are rescaled by alpha (heads h, h + 1 of the
+// thread) and the stage's V^T.P^T is added on the tensor cores.
+template <int HD, int QPK>
+__device__ __forceinline__ void pv_mma(Smem<__nv_bfloat16, HD, QPK>& sm,
+                                       int st, float (&c)[HD / 64][4],
+                                       const float (&alpha)[2]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int mi = lane / 8, mr = lane % 8;     // ldmatrix: matrix, row
+#pragma unroll
+  for (int i = 0; i < HD / 64; ++i) {
+    const int mt = warp + WARPS * i;
+    c[i][0] *= alpha[0];
+    c[i][1] *= alpha[1];
+    c[i][2] *= alpha[0];
+    c[i][3] *= alpha[1];
+#pragma unroll
+    for (int ks = 0; ks < TILE / 16; ++ks) {
+      uint32_t a[4];
+      ldmatrix_x4_trans(a, &sm.v[st][ks * 16 + mr + (mi >> 1) * 8]
+                                [mt * 16 + (mi & 1) * 8]);
+      const __nv_bfloat16* pr = &sm.p[lane / 4][ks * 16 + (lane % 4) * 2];
+      mma_bf16(c[i], a, *reinterpret_cast<const uint32_t*>(pr),
+               *reinterpret_cast<const uint32_t*>(pr + 8));
     }
   }
 }
 
-// Mark this block's split empty (no valid token): only (m, l) are
-// written, and combine_kernel skips the split.
-template <int QPK>
-__device__ __forceinline__ void store_empty(float* part_m, float* part_l,
-                                            int64_t part_idx) {
-  if (threadIdx.x < QPK) {
-    part_m[part_idx * QPK + threadIdx.x] = NEG_INF;
-    part_l[part_idx * QPK + threadIdx.x] = 0.f;
-  }
-}
-
-// Merge the nsplit partials of each (row, query head) and write the
-// normalised output, (B, H*HD) in T. Grid: B * H blocks of HD threads.
-// Inactive rows get exact zeros and their partials are never read. A
-// split that saw no valid token has l = 0 and drops out of the sums; l
-// is floored at 1e-30 as in the Pallas kernels, so a row with no valid
-// token at all also yields zeros.
-template <typename T>
-__global__ void combine_kernel(const float* __restrict__ part_m,
-                               const float* __restrict__ part_l,
-                               const float* __restrict__ part_acc,
-                               const uint8_t* __restrict__ active,
-                               T* __restrict__ out, int H, int qpk, int HD,
-                               int nsplit) {
-  const int row = blockIdx.x / H;
-  const int head = blockIdx.x % H;
+// Step 5, f32: thread d < HD owns dim d of every head, tokens in order.
+template <int HD, int QPK>
+__device__ __forceinline__ void pv_fma(Smem<float, HD, QPK>& sm, int st,
+                                       float (&a)[QPK][1],
+                                       const float (&alpha)[QPK]) {
   const int d = threadIdx.x;
-  T* dst = out + (int64_t)blockIdx.x * HD + d;
-  if (!active[row]) {
-    *dst = from_f<T>(0.f);
+  if (d >= HD) return;
+#pragma unroll
+  for (int h = 0; h < QPK; ++h) a[h][0] *= alpha[h];
+#pragma unroll 8
+  for (int t = 0; t < TILE; ++t) {
+    const float vv = sm.v[st][t][d];
+#pragma unroll
+    for (int h = 0; h < QPK; ++h) a[h][0] += sm.p[h][t] * vv;
+  }
+}
+
+// The block's share of work of (row, kv group g): block (rank, g, row) of
+// a grid whose x extent is CL, one cluster. `token(t)` returns the
+// element offset of token t's K (= V) head row, or -1 when the token is
+// not attended; `n` is the row's number of items. Writes the group's
+// QPK output rows of `out` (B, H * HD).
+template <typename T, int HD, int QPK, typename Token>
+__device__ __forceinline__ void attend(const T* __restrict__ q,
+                                       const T* __restrict__ k,
+                                       const T* __restrict__ v,
+                                       const uint8_t* __restrict__ active,
+                                       T* __restrict__ out, int n, int H,
+                                       float scale, Token token) {
+  constexpr bool F32 = Smem<T, HD, QPK>::F32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<T, HD, QPK>& sm = *reinterpret_cast<Smem<T, HD, QPK>*>(smem_raw);
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int g = blockIdx.y, row = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const T* qg = q + ((int64_t)row * H + g * QPK) * HD;
+  T* out_g = out + ((int64_t)row * H + g * QPK) * HD;
+  const bool act = active[row] != 0;   // in flight with the scan's loads
+  uint32_t qf[HD / 16][2];             // bf16: B fragments of Q^T
+  if constexpr (F32) {
+    for (int i = tid; i < QPK * HD; i += THREADS)
+      sm.q[i / HD][i % HD] = qg[i];
+  } else {
+    const int hq = lane / 4;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const T* qp = qg + hq * HD + kk * 16 + (lane % 4) * 2;
+      qf[kk][0] = hq < QPK ? *reinterpret_cast<const uint32_t*>(qp) : 0u;
+      qf[kk][1] = hq < QPK ? *reinterpret_cast<const uint32_t*>(qp + 8) : 0u;
+    }
+  }
+  if (tid < NQ) {
+    sm.m[tid] = NEG_INF;
+    sm.l[tid] = 0.f;
+  }
+  const int nb = rank < n ? (n - rank + CL - 1) / CL : 0;
+  scan_items(sm, rank, nb, token);
+  if (!act) {                          // the whole cluster exits
+    if (rank == 0)
+      for (int o = tid; o < QPK * HD; o += THREADS) out_g[o] = from_f<T>(0.f);
     return;
   }
-  const int g = head / qpk;
-  const int h = head % qpk;
-  const int hkv = H / qpk;
-  const int64_t base = ((int64_t)row * hkv + g) * nsplit;
-  float m = NEG_INF;
-  for (int s = 0; s < nsplit; ++s)
-    m = fmaxf(m, part_m[(base + s) * qpk + h]);
-  float l = 0.f, a = 0.f;
-  for (int s = 0; s < nsplit; ++s) {
-    const int64_t i = (base + s) * qpk + h;
-    if (part_l[i] > 0.f) {            // a split with no valid token wrote
-      const float c = expf(part_m[i] - m);   // only (m, l) = (-1e30, 0)
-      l += part_l[i] * c;
-      a += part_acc[i * HD + d] * c;
+  constexpr int NA = F32 ? QPK : 2;    // rescale factors a thread applies
+  float alpha[NA];
+  float acc[F32 ? QPK : HD / 64][F32 ? 1 : 4] = {};
+  constexpr int STAGES = Smem<T, HD, QPK>::STAGES;
+  for (int s = 0; s < STAGES; ++s) request(sm, s, s, rank, k, v, token);
+  for (int li = 0; li < sm.n_live; ++li) {
+    const int st = li % STAGES;
+    cp_async_wait<2 * STAGES - 1>();   // this item's K tile has landed
+    __syncthreads();
+    if constexpr (F32)
+      scores_softmax_fma<HD, QPK>(sm, st, scale, alpha);
+    else
+      scores_softmax_mma<HD, QPK>(sm, st, qf, scale, alpha);
+    cp_async_wait<2 * STAGES - 2>();   // and its V tile
+    __syncthreads();
+    if (tid < QPK) {                   // sm.m is read by no one until the
+      const float m_old = sm.m[tid];   // next item's scores
+      const float m_new = fmaxf(m_old, tile_max(sm.red_m, tid));
+      float l = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) l += sm.red_l[w][tid];
+      sm.l[tid] = sm.l[tid] * expf(m_old - m_new) + l;
+      sm.m[tid] = m_new;
+    }
+    if constexpr (F32)
+      pv_fma<HD, QPK>(sm, st, acc, alpha);
+    else
+      pv_mma<HD, QPK>(sm, st, acc, alpha);
+    __syncthreads();                   // stage st is consumed: refill it
+    request(sm, st, li + STAGES, rank, k, v, token);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  // Step 6. The block's acc, f32 [QPK][HD], over its K stages.
+  float(&accs)[QPK][HD] = *reinterpret_cast<float(*)[QPK][HD]>(&sm.k[0][0][0]);
+  static_assert(sizeof(float) * QPK * HD <= sizeof(sm.k), "acc staging");
+  if constexpr (F32) {
+    if (tid < HD)
+#pragma unroll
+      for (int h = 0; h < QPK; ++h) accs[h][tid] = acc[h][0];
+  } else {
+    const int warp = tid / 32;
+    const int h = (lane % 4) * 2;
+#pragma unroll
+    for (int i = 0; i < HD / 64; ++i) {
+      const int d = (warp + WARPS * i) * 16 + lane / 4;
+      if (h < QPK) {
+        accs[h][d] = acc[i][0];
+        accs[h][d + 8] = acc[i][2];
+      }
+      if (h + 1 < QPK) {
+        accs[h + 1][d] = acc[i][1];
+        accs[h + 1][d + 8] = acc[i][3];
+      }
     }
   }
-  *dst = from_f<T>(a / fmaxf(l, 1e-30f));
+  cluster.sync();                      // every block's state is in place
+  for (int o = rank * THREADS + tid; o < QPK * HD; o += CL * THREADS) {
+    const int h = o / HD, d = o % HD;
+    float mr[CL], lr[CL], ar[CL];      // every rank's state, loads batched
+#pragma unroll
+    for (int r = 0; r < CL; ++r) {
+      const Smem<T, HD, QPK>* rs = cluster.map_shared_rank(&sm, r);
+      mr[r] = rs->m[h];
+      lr[r] = rs->l[h];
+      ar[r] = (*reinterpret_cast<const float(*)[QPK][HD]>(
+          &rs->k[0][0][0]))[h][d];
+    }
+    float mx = NEG_INF;
+#pragma unroll
+    for (int r = 0; r < CL; ++r) mx = fmaxf(mx, mr[r]);
+    float a = 0.f, l = 0.f;
+#pragma unroll
+    for (int r = 0; r < CL; ++r) {     // in rank order
+      if (lr[r] > 0.f) {               // a block with no token drops out
+        const float w = expf(mr[r] - mx);
+        l += lr[r] * w;
+        a += w * ar[r];
+      }
+    }
+    out_g[o] = from_f<T>(a / fmaxf(l, 1e-30f));
+  }
+  cluster.sync();                      // no block leaves while read
 }
 
-// Launch combine_kernel for `dtype` (0 = float32, 1 = bfloat16).
-inline void launch_combine(int dtype, const float* part_m,
-                           const float* part_l, const float* part_acc,
-                           const uint8_t* active, void* out, int B, int H,
-                           int qpk, int HD, int nsplit, cudaStream_t stream) {
-  if (dtype == 0)
-    combine_kernel<float><<<B * H, HD, 0, stream>>>(
-        part_m, part_l, part_acc, active, static_cast<float*>(out), H, qpk,
-        HD, nsplit);
-  else
-    combine_kernel<__nv_bfloat16><<<B * H, HD, 0, stream>>>(
-        part_m, part_l, part_acc, active, static_cast<__nv_bfloat16*>(out), H,
-        qpk, HD, nsplit);
+// Call f(T{}, integral_constant<HD>, integral_constant<QPK>) for the
+// supported instantiations; dtype 0 = float32, 1 = bfloat16.
+// cudaErrorInvalidValue for an unsupported shape.
+template <typename F>
+cudaError_t dispatch(int dtype, int hd, int qpk, F&& f) {
+  auto by_qpk = [&](auto t, auto d) -> cudaError_t {
+    switch (qpk) {
+      case 1: return f(t, d, std::integral_constant<int, 1>{});
+      case 2: return f(t, d, std::integral_constant<int, 2>{});
+      case 4: return f(t, d, std::integral_constant<int, 4>{});
+      case 8: return f(t, d, std::integral_constant<int, 8>{});
+      default: return cudaErrorInvalidValue;
+    }
+  };
+  auto by_hd = [&](auto t) -> cudaError_t {
+    switch (hd) {
+      case 64: return by_qpk(t, std::integral_constant<int, 64>{});
+      case 128: return by_qpk(t, std::integral_constant<int, 128>{});
+      default: return cudaErrorInvalidValue;
+    }
+  };
+  if (dtype == 0) return by_hd(float{});
+  if (dtype == 1) return by_hd(__nv_bfloat16{});
+  return cudaErrorInvalidValue;
+}
+
+// The wrapper's item count must be the one this build derives from the
+// row's extent (S, or NB * BS), and fit MAX_ITEMS per block: a wrapper
+// whose TILE, CL or MAX_ITEMS disagree with these is refused here.
+inline bool items_ok(int n_items, int extent) {
+  const int want = extent > TILE ? (extent + TILE - 1) / TILE : 1;
+  return n_items == want && (n_items + CL - 1) / CL <= MAX_ITEMS;
+}
+
+// Launch `kernel` in clusters of CL blocks along x, with Smem<T, HD, QPK>
+// of dynamic shared memory. The function's shared-memory limit (above 48
+// KB) belongs to the current device, so it is raised once per
+// instantiation and device. `launch` has internal linkage, so the record
+// of that stays in this library even where another one holds the same
+// instantiation.
+template <typename T, int HD, int QPK, typename... KArgs, typename... Args>
+static cudaError_t launch(void (*kernel)(KArgs...), dim3 grid,
+                          cudaStream_t stream, Args... args) {
+  constexpr int smem = sizeof(Smem<T, HD, QPK>);
+  constexpr int MAX_DEVICES = 64;
+  static std::atomic<bool> raised[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEVICES || !raised[dev].load(std::memory_order_acquire)) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    if (dev < MAX_DEVICES) raised[dev].store(true, std::memory_order_release);
+  }
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = CL;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
 }
 
 }  // namespace decode
@@ -302,35 +603,14 @@ extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Instantiate KERNEL<T, HD, QPK> for the supported shapes and launch it
-// with the remaining arguments; `dtype` 0 = float32, 1 = bfloat16. Leaves
-// the error code in `err` (cudaErrorInvalidValue for an unsupported
-// shape).
-#define DECODE_DISPATCH(KERNEL, GRID, dtype, hd, qpk, stream, ...)           \
-  do {                                                                      \
-    auto go = [&](auto t_tag, auto hd_tag, auto qpk_tag) {                   \
-      using T = decltype(t_tag);                                            \
-      constexpr int D = decltype(hd_tag)::value;                            \
-      constexpr int Q = decltype(qpk_tag)::value;                           \
-      KERNEL<T, D, Q><<<GRID, decode::THREADS, 0, stream>>>(__VA_ARGS__);   \
-    };                                                                      \
-    auto by_qpk = [&](auto t_tag, auto hd_tag) {                             \
-      switch (qpk) {                                                        \
-        case 1: go(t_tag, hd_tag, std::integral_constant<int, 1>{}); break;  \
-        case 2: go(t_tag, hd_tag, std::integral_constant<int, 2>{}); break;  \
-        case 4: go(t_tag, hd_tag, std::integral_constant<int, 4>{}); break;  \
-        case 8: go(t_tag, hd_tag, std::integral_constant<int, 8>{}); break;  \
-        default: err = cudaErrorInvalidValue;                               \
-      }                                                                     \
-    };                                                                      \
-    auto by_hd = [&](auto t_tag) {                                          \
-      switch (hd) {                                                         \
-        case 64: by_qpk(t_tag, std::integral_constant<int, 64>{}); break;    \
-        case 128: by_qpk(t_tag, std::integral_constant<int, 128>{}); break;  \
-        default: err = cudaErrorInvalidValue;                               \
-      }                                                                     \
-    };                                                                      \
-    if (dtype == 0) by_hd(float{});                                         \
-    else if (dtype == 1) by_hd(__nv_bfloat16{});                            \
-    else err = cudaErrorInvalidValue;                                       \
-  } while (0)
+// Dynamic shared memory of one block of an instantiation (0 if there is
+// none), for the build report.
+extern "C" int decode_smem_bytes(int dtype, int hd, int qpk) {
+  int bytes = 0;
+  decode::dispatch(dtype, hd, qpk, [&](auto t, auto d, auto q) {
+    bytes = sizeof(decode::Smem<decltype(t), decltype(d)::value,
+                                decltype(q)::value>);
+    return cudaSuccess;
+  });
+  return bytes;
+}

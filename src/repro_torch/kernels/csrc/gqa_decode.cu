@@ -7,66 +7,66 @@
 // not be a prefix; active (B,) bool. Out (B, H*HD) in q's type.
 //
 // Bound on an H100: bytes. Each valid token costs 2 * Hkv * HD * sizeof(T)
-// bytes of K/V against 4 * H * HD flops, about 2 * q_per_kv / sizeof(T)
-// flops per byte, far under the card's ~295. The design therefore aims
-// at memory traffic: each K/V byte of a valid token is read once, a
-// masked token's K/V (and a fully masked tile) is never loaded, inactive
-// rows read nothing, and S is split so that even one live row spreads
-// over many SMs (see decode_common.cuh for the work split).
-#include <type_traits>
-
+// bytes of K/V against 4 * H * HD flops, 2 * q_per_kv / sizeof(T) flops
+// per byte (4 at q_per_kv = 4 in bf16), far under the card's ~295. What
+// the design (decode_common.cuh) does about it:
+//   1. the work follows the live tokens, not the cache's capacity: S is
+//      cut into 64-token items dealt round robin to the 8 blocks of one
+//      cluster per (row, kv head), so a live 1,100-token row keeps 64
+//      SMs reading; the items' 64 valid bytes are read first, and items
+//      with no valid token are never staged;
+//   2. each block requests the K and V tiles of its next items by
+//      cp.async.cg before any compute, 32 KB an item in bf16, refilling a
+//      2-stage shared-memory ring as it consumes it: ~190 KB per SM in
+//      flight;
+//   3. a token's 256-byte head row is copied whole by 16 lanes, so every
+//      sector fetched is used; masked tokens are never loaded; the scores
+//      and P.V run on the tensor cores in bf16 (mma.sync);
+//   4. the 8 blocks of a cluster merge their states through distributed
+//      shared memory in the same launch, in rank order: no second launch
+//      and no partials in device memory.
 #include "decode_common.cuh"
 
 namespace {
 
 template <typename T, int HD, int QPK>
 __global__ void __launch_bounds__(decode::THREADS)
-gqa_decode_partial(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const uint8_t* __restrict__ valid,
-                   const uint8_t* __restrict__ active,
-                   float* __restrict__ part_m, float* __restrict__ part_l,
-                   float* __restrict__ part_acc, int S, int H, int Hkv,
-                   int64_t kv_sb, int64_t kv_ss, int chunk, float scale) {
-  __shared__ decode::Smem<HD, QPK> sm;
-  const int split = blockIdx.x;
-  const int g = blockIdx.y;
+    gqa_decode_cluster(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v,
+                       const uint8_t* __restrict__ valid,
+                       const uint8_t* __restrict__ active, T* __restrict__ out,
+                       int S, int H, int64_t kv_sb, int64_t kv_ss, int n_items,
+                       float scale) {
   const int row = blockIdx.z;
-  if (!active[row]) return;          // combine_kernel writes the zeros
-  decode::WarpState<HD, QPK> st;
-  st.init();
-  decode::stage_q<T, HD, QPK>(sm, q, row, H, g);
   const uint8_t* vrow = valid + (int64_t)row * S;
-  const int64_t base = (int64_t)row * kv_sb + (int64_t)g * HD;
-  const int start = split * chunk;
-  decode::sweep<T, HD, QPK>(
-      st, sm, k, v, start, min(S, start + chunk), scale,
-      [&](int t) { return base + t * kv_ss; },
-      [&](int t) { return vrow[t] != 0; });
-  const int64_t part_idx = ((int64_t)row * Hkv + g) * gridDim.x + split;
-  decode::merge_warps_and_store<HD, QPK>(st, sm, part_m, part_l, part_acc,
-                                         part_idx);
+  const int64_t base = (int64_t)row * kv_sb + (int64_t)blockIdx.y * HD;
+  decode::attend<T, HD, QPK>(
+      q, k, v, active, out, n_items, H, scale, [&](int t) -> int64_t {
+        return t < S && vrow[t] ? base + t * kv_ss : -1;
+      });
 }
 
 }  // namespace
 
 extern "C" int gqa_decode_launch(const void* q, const void* k, const void* v,
                                  const uint8_t* valid, const uint8_t* active,
-                                 void* out, float* part_m, float* part_l,
-                                 float* part_acc, int B, int S, int H, int Hkv,
+                                 void* out, int B, int S, int H, int Hkv,
                                  int HD, int64_t kv_sb, int64_t kv_ss,
-                                 int nsplit, float scale, int dtype,
+                                 int n_items, float scale, int dtype,
                                  void* stream_ptr) {
+  if (!decode::items_ok(n_items, S))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  cudaError_t err = cudaSuccess;
-  const int qpk = H / Hkv;
-  const int chunk = (S + nsplit - 1) / nsplit;
-  const dim3 grid(nsplit, Hkv, B);
-  DECODE_DISPATCH(gqa_decode_partial, grid, dtype, HD, qpk, stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k),
-                  static_cast<const T*>(v), valid, active, part_m, part_l,
-                  part_acc, S, H, Hkv, kv_sb, kv_ss, chunk, scale);
-  if (err != cudaSuccess) return (int)err;
-  decode::launch_combine(dtype, part_m, part_l, part_acc, active, out, B, H,
-                         qpk, HD, nsplit, stream);
-  return (int)cudaGetLastError();
+  const dim3 grid(decode::CL, Hkv, B);
+  return (int)decode::dispatch(
+      dtype, HD, H / Hkv, [&](auto t_tag, auto hd_tag, auto qpk_tag) {
+        using T = decltype(t_tag);
+        constexpr int D = decltype(hd_tag)::value;
+        constexpr int Q = decltype(qpk_tag)::value;
+        return decode::launch<T, D, Q>(
+            gqa_decode_cluster<T, D, Q>, grid, stream,
+            static_cast<const T*>(q), static_cast<const T*>(k),
+            static_cast<const T*>(v), valid, active, static_cast<T*>(out), S,
+            H, kv_sb, kv_ss, n_items, scale);
+      });
 }

@@ -7,56 +7,46 @@
 // int32 (pos + 1); active (B,) bool. Out (B, H*HD) in q's type.
 //
 // Token t of row b lives in physical block block_tables[b, t / BLOCK_S],
-// clamped to [0, P-1], at offset t % BLOCK_S. Each lane loads the table
-// entry of the token it reads, so a row may alias blocks of another row
-// (prefix sharing) and a stale entry past seq_len is never dereferenced:
-// tokens t >= seq_len are skipped, and a split past seq_len exits.
+// clamped to [0, P-1], at offset t % BLOCK_S. Each block reads the table
+// entries of its own items, and only those of tokens below seq_len, so a
+// row may alias blocks of another row (prefix sharing) and a stale entry
+// past seq_len is never dereferenced.
 //
-// Bound on an H100: bytes, as for gqa_decode.cu. Each K/V byte of the
-// row's first seq_len tokens is read once; nothing past seq_len and
-// nothing of an inactive row is read.
-#include <type_traits>
-
+// Bound on an H100: bytes, 2 * q_per_kv / sizeof(T) flops per byte
+// against the card's ~295, as for gqa_decode.cu, and the same design
+// (decode_common.cuh): 64-token items of the logical token axis dealt to
+// the 8 blocks of one cluster per (row, kv head) (items past seq_len are
+// never staged), K and V tiles requested ahead by cp.async.cg into a
+// shared-memory ring, whole 256-byte head rows per token, bf16 products
+// on the tensor cores, and the blocks' states merged in rank order
+// through distributed shared memory in the same launch. Items, their
+// order and the merge are those of the dense kernel for the same extent,
+// so a paged row and a dense row holding the same tokens give the same
+// bits.
 #include "decode_common.cuh"
 
 namespace {
 
 template <typename T, int HD, int QPK>
 __global__ void __launch_bounds__(decode::THREADS)
-paged_decode_partial(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v,
-                     const int32_t* __restrict__ block_tables,
-                     const int32_t* __restrict__ seq_lens,
-                     const uint8_t* __restrict__ active,
-                     float* __restrict__ part_m, float* __restrict__ part_l,
-                     float* __restrict__ part_acc, int H, int Hkv, int P,
-                     int BS, int NB, int64_t p_sp, int64_t p_ss, int chunk,
-                     float scale) {
-  __shared__ decode::Smem<HD, QPK> sm;
-  const int split = blockIdx.x;
-  const int g = blockIdx.y;
+    paged_decode_cluster(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v,
+                         const int32_t* __restrict__ block_tables,
+                         const int32_t* __restrict__ seq_lens,
+                         const uint8_t* __restrict__ active,
+                         T* __restrict__ out, int H, int P, int BS, int NB,
+                         int64_t p_sp, int64_t p_ss, int n_items,
+                         float scale) {
   const int row = blockIdx.z;
-  if (!active[row]) return;          // combine_kernel writes the zeros
-  const int64_t part_idx = ((int64_t)row * Hkv + g) * gridDim.x + split;
-  const int start = split * chunk;
-  const int end = min(min(NB * BS, start + chunk), seq_lens[row]);
-  if (start >= end) {                 // the split lies past seq_len
-    decode::store_empty<QPK>(part_m, part_l, part_idx);
-    return;
-  }
-  decode::WarpState<HD, QPK> st;
-  st.init();
-  decode::stage_q<T, HD, QPK>(sm, q, row, H, g);
   const int32_t* bt = block_tables + (int64_t)row * NB;
-  decode::sweep<T, HD, QPK>(
-      st, sm, k, v, start, end, scale,
-      [&](int t) {
+  const int64_t head = (int64_t)blockIdx.y * HD;
+  const int end = min(seq_lens[row], NB * BS);
+  decode::attend<T, HD, QPK>(
+      q, k, v, active, out, n_items, H, scale, [&](int t) -> int64_t {
+        if (t >= end) return -1;
         const int phys = min(max(bt[t / BS], 0), P - 1);
-        return (int64_t)phys * p_sp + (t % BS) * p_ss + (int64_t)g * HD;
-      },
-      [](int) { return true; });
-  decode::merge_warps_and_store<HD, QPK>(st, sm, part_m, part_l, part_acc,
-                                         part_idx);
+        return (int64_t)phys * p_sp + (t % BS) * p_ss + head;
+      });
 }
 
 }  // namespace
@@ -64,24 +54,24 @@ paged_decode_partial(const T* __restrict__ q, const T* __restrict__ k,
 extern "C" int paged_decode_launch(const void* q, const void* k,
                                    const void* v, const int32_t* block_tables,
                                    const int32_t* seq_lens,
-                                   const uint8_t* active, void* out,
-                                   float* part_m, float* part_l,
-                                   float* part_acc, int B, int H, int Hkv,
-                                   int HD, int P, int BS, int NB,
-                                   int64_t p_sp, int64_t p_ss, int nsplit,
-                                   float scale, int dtype, void* stream_ptr) {
+                                   const uint8_t* active, void* out, int B,
+                                   int H, int Hkv, int HD, int P, int BS,
+                                   int NB, int64_t p_sp, int64_t p_ss,
+                                   int n_items, float scale, int dtype,
+                                   void* stream_ptr) {
+  if (!decode::items_ok(n_items, NB * BS))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  cudaError_t err = cudaSuccess;
-  const int qpk = H / Hkv;
-  const int chunk = (NB * BS + nsplit - 1) / nsplit;
-  const dim3 grid(nsplit, Hkv, B);
-  DECODE_DISPATCH(paged_decode_partial, grid, dtype, HD, qpk, stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k),
-                  static_cast<const T*>(v), block_tables, seq_lens, active,
-                  part_m, part_l, part_acc, H, Hkv, P, BS, NB, p_sp, p_ss,
-                  chunk, scale);
-  if (err != cudaSuccess) return (int)err;
-  decode::launch_combine(dtype, part_m, part_l, part_acc, active, out, B, H,
-                         qpk, HD, nsplit, stream);
-  return (int)cudaGetLastError();
+  const dim3 grid(decode::CL, Hkv, B);
+  return (int)decode::dispatch(
+      dtype, HD, H / Hkv, [&](auto t_tag, auto hd_tag, auto qpk_tag) {
+        using T = decltype(t_tag);
+        constexpr int D = decltype(hd_tag)::value;
+        constexpr int Q = decltype(qpk_tag)::value;
+        return decode::launch<T, D, Q>(
+            paged_decode_cluster<T, D, Q>, grid, stream,
+            static_cast<const T*>(q), static_cast<const T*>(k),
+            static_cast<const T*>(v), block_tables, seq_lens, active,
+            static_cast<T*>(out), H, P, BS, NB, p_sp, p_ss, n_items, scale);
+      });
 }

@@ -4,9 +4,11 @@ wrapper and its plain PyTorch version.
 Replaces the Pallas kernel ``_decode_kernel`` / ``gqa_decode`` of
 ``src/repro/kernels/gqa_decode.py``. The kernel (``csrc/gqa_decode.cu``)
 is bound by memory traffic on an H100: it reads each K/V element of a
-valid token once, skips masked tokens and inactive rows before loading
-their K/V, and splits S over many thread blocks (``num_splits``), merging
-the splits in a second pass.
+valid token once and skips masked tokens and inactive rows before loading
+their K/V. The token axis is cut into 64-token work items, dealt round
+robin to the ``CLUSTER`` blocks of one thread-block cluster per (row, kv
+head), so a live row spreads over many SMs whatever its length, and the
+cluster merges its blocks' states in the same launch.
 
 ``gqa_decode_plain`` is the function both compute: ``kernels/ref.py``'s
 ``gqa_decode_ref`` plus exact zeros for inactive rows. Callers go
@@ -30,12 +32,17 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 
+# csrc/decode_common.cuh's TILE, CL and MAX_ITEMS; the library refuses an
+# item count that does not follow from its own
+TILE = 64                          # tokens per work item
+CLUSTER = 8                        # blocks per (row, kv head)
+MAX_ITEMS = 256                    # work items per block
+
 KERNEL = CudaKernel("gqa_decode", "gqa_decode_launch", [
-    _P, _P, _P, _P, _P,             # q, k, v, valid, active
-    _P, _P, _P, _P,                 # out, part_m, part_l, part_acc
+    _P, _P, _P, _P, _P, _P,         # q, k, v, valid, active, out
     _I, _I, _I, _I, _I,             # B, S, H, Hkv, HD
     _L, _L,                         # K/V batch and token strides
-    _I, ctypes.c_float, _I, _P])    # nsplit, scale, dtype, stream
+    _I, ctypes.c_float, _I, _P])    # items, scale, dtype, stream
 
 
 def gqa_decode_plain(q, k_cache, v_cache, valid, active=None):
@@ -55,11 +62,16 @@ def gqa_decode_plain(q, k_cache, v_cache, valid, active=None):
     return out
 
 
-def num_splits(tokens: int, per_split: int = 256) -> int:
-    """Splits of the token axis per (row, kv_head): one thread block per
-    ``per_split`` tokens (up to 64), so one long live row spreads over
-    many SMs; blocks of inactive rows exit at once."""
-    return max(1, min(64, -(-tokens // per_split)))
+def num_items(extent: int) -> int:
+    """Work items of a row's token axis: one per ``TILE`` tokens of the
+    extent (S, or NB * BLOCK_S). The launch's grid, (CLUSTER, Hkv, B),
+    and this count depend on shapes alone, so a call never waits on a
+    length read back from the card."""
+    items = max(1, -(-extent // TILE))
+    if -(-items // CLUSTER) > MAX_ITEMS:
+        raise ValueError(f"decode kernels: {extent} tokens per row exceed "
+                         f"{TILE * CLUSTER * MAX_ITEMS}")
+    return items
 
 
 def check_common(q, active, what: str) -> None:
@@ -123,19 +135,11 @@ def gqa_decode_cuda(q, k_cache, v_cache, valid, active: Optional[torch.Tensor]
                          "bool tensor on q's device")
     if active is None:
         active = torch.ones(b, dtype=torch.bool, device=q.device)
-    nsplit = num_splits(s)
-    qpk = h // hkv
     out = torch.empty((b, h * hd), dtype=q.dtype, device=q.device)
-    part_m = torch.empty((b, hkv, nsplit, qpk), dtype=torch.float32,
-                         device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((b, hkv, nsplit, qpk, hd), dtype=torch.float32,
-                           device=q.device)
     fn = KERNEL.function()
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            valid.data_ptr(), active.data_ptr(), out.data_ptr(),
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-            b, s, h, hkv, hd, k_cache.stride(0), k_cache.stride(1), nsplit,
+            valid.data_ptr(), active.data_ptr(), out.data_ptr(), b, s, h,
+            hkv, hd, k_cache.stride(0), k_cache.stride(1), num_items(s),
             1.0 / math.sqrt(hd), DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     KERNEL.launches += 1

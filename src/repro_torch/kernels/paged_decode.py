@@ -8,7 +8,9 @@ H100: it reads each K/V element of a row's first ``seq_len`` tokens
 once, through the row's block table (clamped to ``[0, P-1]``, loaded by
 the kernel itself for every block it reads, so rows may alias blocks),
 reads nothing past ``seq_len`` or of an inactive row, and splits the
-logical token axis over many thread blocks (``num_splits``).
+logical token axis into the dense kernel's 64-token work items, dealt to
+the blocks of one cluster per (row, kv head) as in the dense kernel and
+merged in the same launch.
 
 ``paged_gqa_decode_plain`` is the function both compute:
 ``kernels/ref.py``'s ``paged_gqa_decode_ref`` plus exact zeros for
@@ -24,7 +26,7 @@ import torch
 
 from repro_torch.kernels.build import CudaKernel
 from repro_torch.kernels.gqa_decode import (DTYPES, check_common, check_kv,
-                                            gqa_decode_plain, num_splits)
+                                            gqa_decode_plain, num_items)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,10 +34,10 @@ _L = ctypes.c_int64
 
 KERNEL = CudaKernel("paged_decode", "paged_decode_launch", [
     _P, _P, _P, _P, _P, _P,         # q, k, v, block_tables, seq_lens, active
-    _P, _P, _P, _P,                 # out, part_m, part_l, part_acc
+    _P,                             # out
     _I, _I, _I, _I, _I, _I, _I,     # B, H, Hkv, HD, P, BLOCK_S, NB
     _L, _L,                         # page block and token strides
-    _I, ctypes.c_float, _I, _P])    # nsplit, scale, dtype, stream
+    _I, ctypes.c_float, _I, _P])    # items, scale, dtype, stream
 
 
 def paged_gqa_decode_plain(q, k_pages, v_pages, block_tables, seq_lens,
@@ -74,20 +76,12 @@ def paged_gqa_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens,
     nb = block_tables.shape[1]
     if active is None:
         active = torch.ones(b, dtype=torch.bool, device=q.device)
-    nsplit = num_splits(nb * bs)
-    qpk = h // hkv
     out = torch.empty((b, h * hd), dtype=q.dtype, device=q.device)
-    part_m = torch.empty((b, hkv, nsplit, qpk), dtype=torch.float32,
-                         device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((b, hkv, nsplit, qpk, hd), dtype=torch.float32,
-                           device=q.device)
     fn = KERNEL.function()
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), seq_lens.data_ptr(), active.data_ptr(),
-            out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-            part_acc.data_ptr(), b, h, hkv, hd, p_blocks, bs, nb,
-            k_pages.stride(0), k_pages.stride(1), nsplit,
+            out.data_ptr(), b, h, hkv, hd, p_blocks, bs, nb,
+            k_pages.stride(0), k_pages.stride(1), num_items(nb * bs),
             1.0 / math.sqrt(hd), DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     KERNEL.launches += 1

@@ -158,8 +158,11 @@ def _require_cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-# bf16: both sides accumulate in f32 and round once at the end, so an
-# output may land one bf16 ulp (<= 2^-7 of its magnitude) from the other
+# bf16: the kernel rounds the softmax weights P to bf16 before P.V, as
+# FlashAttention does (~2^-8 relative per weight), and rounds the output
+# once; the plain version keeps P in f32. At chip_smoke.py's phase-3 shape
+# that measured 9.766e-4 dense (limit 2.051e-3) and 7.8125e-3 paged (limit
+# 1.727e-2) on an H100 80GB HBM3 at 700 W: about half the limit
 BF16_TOL = 1e-2
 
 
@@ -183,8 +186,8 @@ def test_gqa_decode_kernel_matches_plain(qpk, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gqa_decode_kernel_many_splits(dtype):
-    """S = 1000: several splits of S, a ragged last tile, and a row whose
-    valid tokens sit in two splits only."""
+    """S = 1000: several work items per block, a ragged last item, and a
+    row whose valid tokens sit in a few items only."""
     _require_cuda()
     q, k, v, _, active = [t.cuda() for t in _t(*_dense_case(4, s=1000))]
     j = torch.arange(1000, device="cuda")
@@ -268,3 +271,132 @@ def test_kernel_wrappers_reject_unsupported_shapes():
     q, k, v, valid, active = [t.cuda() for t in _t(*_dense_case(1))]
     with pytest.raises(ValueError, match="valid"):
         D.gqa_decode_cuda(q, k, v, valid.int(), active)
+
+
+# ---------------------------------------------------------------------------
+# the decode kernels' work items (host side, no card)
+# ---------------------------------------------------------------------------
+def test_num_items_depends_on_the_extent_only():
+    """The grid is fixed by shapes: the item count never reads a length,
+    and a row longer than the kernels take is refused before a launch."""
+    assert D.num_items(4096) == 64 and D.num_items(512) == 8
+    assert D.num_items(1) == 1 and D.num_items(65) == 2
+    longest = D.TILE * D.CLUSTER * D.MAX_ITEMS
+    assert D.num_items(longest) == longest // D.TILE
+    with pytest.raises(ValueError, match="tokens per row"):
+        D.num_items(longest + 1)
+
+
+# ---------------------------------------------------------------------------
+# the main path's shapes, on the card
+# ---------------------------------------------------------------------------
+FLEET = {"long": (4096, [0, 1100, 0, 0]),      # one live row, three idle
+         "short": (512, [400, 433, 467, 500])}  # four live rows
+
+
+def _fleet_case(pool, seed=0, h=32, hkv=8, hd=128, bs=16):
+    """Dense inputs of a fleet pool, and the same K/V in shuffled pages."""
+    s, lens = FLEET[pool]
+    rng = np.random.default_rng(seed)
+    b = len(lens)
+    q = rng.standard_normal((b, h, hd)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, hd)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, hd)).astype(np.float32)
+    ln = np.array(lens)
+    valid = np.arange(s)[None, :] < ln[:, None]
+    active = ln > 0
+    nb = s // bs
+    perm = rng.permutation(b * nb)
+    kp = np.empty((b * nb, bs, hkv, hd), np.float32)
+    vp = np.empty_like(kp)
+    kp[perm] = k.reshape(b * nb, bs, hkv, hd)
+    vp[perm] = v.reshape(b * nb, bs, hkv, hd)
+    tables = perm.reshape(b, nb).astype(np.int32)
+    return (q, k, v, valid, active), (q, kp, vp, tables, ln.astype(np.int32),
+                                      active)
+
+
+def _on_card(arrays, dtype):
+    out = [t.cuda() for t in _t(*arrays)]
+    return [t.to(dtype) if t.is_floating_point() else t for t in out]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pool", ["long", "short"])
+def test_decode_kernels_at_fleet_shapes(pool, dtype):
+    """Both kernels against their plain versions at the pools' shapes;
+    the idle rows of the long pool are exact zeros."""
+    _require_cuda()
+    dense, paged = _fleet_case(pool)
+    dense, paged = _on_card(dense, dtype), _on_card(paged, dtype)
+    got = D.gqa_decode_cuda(*dense)
+    gotp = PD.paged_gqa_decode_cuda(*paged)
+    ref = D.gqa_decode_plain(*dense)
+    torch.cuda.synchronize()
+    assert _close(got, ref, dtype) and _close(gotp, ref, dtype)
+    idle = ~dense[4]
+    assert (got[idle] == 0).all() and (gotp[idle] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extent", [1, 64, 65, 4096, 131136])
+def test_decode_library_refuses_item_counts_it_does_not_derive(extent):
+    """The library derives the item count from the extent with its own
+    TILE, CL and MAX_ITEMS, and refuses any other count, and a row past
+    its longest, before a launch: the wrapper's constants cannot drift
+    from the kernel's unseen."""
+    _require_cuda()
+    b, hkv, hd = 1, 1, 64
+    q = torch.zeros(b, hkv, hd, dtype=torch.bfloat16, device="cuda")
+    k = torch.zeros(b, extent, hkv, hd, dtype=torch.bfloat16, device="cuda")
+    valid = torch.ones(b, extent, dtype=torch.bool, device="cuda")
+    active = torch.ones(b, dtype=torch.bool, device="cuda")
+    out = torch.empty(b, hkv * hd, dtype=torch.bfloat16, device="cuda")
+    fn = D.KERNEL.function()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(items):
+        return fn(q.data_ptr(), k.data_ptr(), k.data_ptr(), valid.data_ptr(),
+                  active.data_ptr(), out.data_ptr(), b, extent, hkv, hkv, hd,
+                  k.stride(0), k.stride(1), items, 0.125, 1, stream)
+
+    if extent > D.TILE * D.CLUSTER * D.MAX_ITEMS:
+        assert launch(-(-extent // D.TILE)) != 0
+        return
+    assert launch(D.num_items(extent)) == 0
+    assert launch(D.num_items(extent) + 1) != 0
+    if D.num_items(extent) > 1:
+        assert launch(D.num_items(extent) - 1) != 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernels_repeat_bitwise(dtype):
+    """Two consecutive calls, and calls alternating between the two pools'
+    shapes, give identical bits: the merge's order does not depend on
+    which block finishes first."""
+    _require_cuda()
+    cases = {pool: _fleet_case(pool, seed=3) for pool in FLEET}
+    cases = {pool: (_on_card(d, dtype), _on_card(p, dtype))
+             for pool, (d, p) in cases.items()}
+    first = {pool: (D.gqa_decode_cuda(*d), PD.paged_gqa_decode_cuda(*p))
+             for pool, (d, p) in cases.items()}
+    for pool in ("long", "long", "short", "long", "short", "short"):
+        d, p = cases[pool]
+        assert torch.equal(D.gqa_decode_cuda(*d), first[pool][0])
+        assert torch.equal(PD.paged_gqa_decode_cuda(*p), first[pool][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pool", ["long", "short"])
+def test_dense_equals_paged_bitwise(pool, dtype):
+    """Pages holding the dense rows' tokens (in any physical order) give
+    the dense kernel's bits: both kernels share items, order and merge."""
+    _require_cuda()
+    dense, paged = _fleet_case(pool, seed=5)
+    dense, paged = _on_card(dense, dtype), _on_card(paged, dtype)
+    assert torch.equal(D.gqa_decode_cuda(*dense),
+                       PD.paged_gqa_decode_cuda(*paged))
