@@ -25,9 +25,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    equal to paged bitwise on the same tokens, and timed rotating over
    enough copies of the caches that the live K/V between two uses of one
    copy exceeds the 50 MB L2.
-   TextRank against its plain version in f32 at N = 1, 64, 1024 and 1500
-   sentences (symmetric |normal| matrices, one with an all-zero column),
-   timed at N = 64 and 1024 beside the host numpy scorer it replaces.
+   Then both decode kernels, bf16 and f32, at the head shapes of other
+   registered configs, (q_per_kv, head_dim) = (5, 128), (6, 128), (12,
+   192) and (16, 64): against the plain version, two calls bitwise equal,
+   dense equal to paged bitwise; and in bf16 at the long pool's contexts,
+   one live row at S = 16384 and 65536. bf16 is held to 1e-2 and to 2^-8
+   (one bf16 ulp) x max|plain| everywhere.
+   TextRank against its plain version in f32 at N = 1, 64, 96, 97, 239,
+   240, 512, 1024, 1500 and 2000 sentences (symmetric |normal| matrices,
+   two with an all-zero column; one block up to 96, at 2000 a grid whose
+   rows do not fit shared memory), one launch a call and two calls
+   bitwise equal; a
+   sweep of grid sizes at N = 64, 96, 128, 239, 512 and 1024 (the
+   measurement behind kernels/textrank.py's rule); times at N = 64, 512
+   and 1024 beside the host numpy scorer it replaces; and the host split of
+   ``ops.textrank_scores`` (cast, copy in, launch, kernel, copy out) at N
+   = 64 and 1024.
 4. parity: the reduced minitron-8b port in f32 serves the same requests
    on the card (kernels) and on the CPU (plain versions), dense and
    paged; the greedy tokens must match (a flip only at a CPU near-tie).
@@ -50,7 +63,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    each session's turn 2 must be pinned to its pool and hit its cached
    prefix; the block invariants must hold at idle. Prints compression
    ms with the kernel and with the numpy scorer, the kept-set agreement
-   of the two, and each session's turn 2 against its turn 1.
+   of the two, and each session's turn 2 against its turn 1. Then the
+   compressor alone at the paper's size (B* = 8192, gamma 2): three
+   prompts of 9,500-14,500 tokens (400-800 sentences) compressed to
+   8192 - 64 tokens with the kernel scorer and the numpy scorer; prints
+   the kept-set agreement, compression_ms of each and the split between
+   tfidf_matrix, the similarity product and TextRank.
 
 Then it prints the ``kernels`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -74,6 +92,11 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no tensor f32
 # (no floor): f32 differs in reduction order only; in bf16 both sides
 # accumulate in f32 and round once, at most one bf16 ulp (2^-7 relative)
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# bf16 is also held to 2^-8 x max|plain|: one bf16 ulp at the top of the
+# output's range, what two f32 computations of one function rounded to
+# bf16 can differ by (the decode kernels carry P into P.V as a bf16
+# hi/lo pair, as exact as the plain version's f32 P)
+BF16_ULP = 2.0 ** -8
 
 
 # the gateway phase's in-band prompts draw their sentences from this list
@@ -209,10 +232,12 @@ def phase_build():
     from repro_torch.kernels import build, ops
     secs = build.build_all(list(ops.KERNELS))
     for k in ops.KERNELS[:2]:        # the decode kernels' dynamic smem
-        fn = ctypes.CDLL(str(k.library)).decode_smem_bytes
-        fn.argtypes = [ctypes.c_int] * 3
-        print(f"[build] {k.name}: dynamic smem per block at hd 128, "
-              f"q_per_kv 4: bf16 {fn(1, 128, 4)} B, f32 {fn(0, 128, 4)} B")
+        fn = k.extra("decode_smem_bytes", [ctypes.c_int] * 3)
+        print(f"[build] {k.name}: dynamic smem per block (bf16 / f32) at "
+              + ", ".join(f"hd {hd} q_per_kv {qpk}: {fn(1, hd, qpk)} / "
+                          f"{fn(0, hd, qpk)} B"
+                          for hd, qpk in ((128, 4), (128, 6), (192, 12),
+                                          (64, 16))))
     for k in ops.KERNELS:
         regs = [int(x) for x in re.findall(r"Used (\d+) registers",
                                            k.build_log)]
@@ -368,7 +393,8 @@ def phase_fleet_kernels():
                 print(f"[kernels] {kname} {name} {pool} pool (B={b}, S={s}, "
                       f"lens {lens}, {tokens} live tokens, {n_copies} "
                       f"rotated copies): max_abs_err {r['max_abs_err']:.3e} "
-                      f"(limit {TOL[name] * r['ref_max']:.3e}) | kernel "
+                      f"(limit {TOL[name] * r['ref_max']:.3e}"
+                      f"{_ulp_note(name, r)}) | kernel "
                       f"{1e3 * r['ms']:.2f} us, plain {1e3 * r['plain_ms']:.2f}"
                       f" us, sdpa {1e3 * r['library_ms']:.2f} us, bound "
                       f"{1e3 * r['bound_ms']:.3f} us ({r['bound_by']}), kernel "
@@ -377,6 +403,117 @@ def phase_fleet_kernels():
             del copies, pcopies, libs
             torch.cuda.empty_cache()
     return rows
+
+
+# (q_per_kv, head_dim) of registered configs the decode kernels serve
+# beside minitron-8b's (4, 128): llama4-scout-17b-a16e (5, 128),
+# nemotron-4-15b (6, 128), nemotron-4-340b (12, 192), and the widest
+# group, (16, 64); Hkv = 8 as in all of them
+HEAD_SHAPES = ((5, 128), (6, 128), (12, 192), (16, 64))
+
+
+def phase_head_shapes():
+    """Both decode kernels, bf16 and f32, at each of HEAD_SHAPES (B=4,
+    S=4096, rows of 4079, 1100, 0 and 333 tokens): against the plain
+    version, two calls bitwise equal, dense equal to paged bitwise; in
+    bf16 also timed, beside minitron-8b's (4, 128) on the same rows,
+    rotating over copies past the L2 as phase_fleet_kernels does."""
+    import torch
+    from repro_torch.kernels import gqa_decode as D
+    from repro_torch.kernels import paged_decode as PD
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    s, lens = 4096, [4096 - 17, 1100, 0, 333]
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        shapes = ((4, 128),) + HEAD_SHAPES if name == "bfloat16" \
+            else HEAD_SHAPES
+        for qpk, hd in shapes:
+            dense, paged = _fleet_inputs(dtype, gen, s, lens, h=8 * qpk,
+                                         hkv=8, hd=hd)
+            active = dense[4]
+            got = D.gqa_decode_cuda(*dense)
+            gotp = PD.paged_gqa_decode_cuda(*paged)
+            again = D.gqa_decode_cuda(*dense)
+            againp = PD.paged_gqa_decode_cuda(*paged)
+            ref = D.gqa_decode_plain(*dense)
+            torch.cuda.synchronize()
+            shape = f"q_per_kv {qpk} hd {hd}"
+            err, top = _check("gqa_decode", name, got, ref, active, shape)
+            errp, _ = _check("paged_gqa_decode", name, gotp, ref, active,
+                             shape)
+            if not (torch.equal(got, again) and torch.equal(gotp, againp)):
+                fail(f"decode {name} {shape}: two identical calls differ")
+            if not torch.equal(got, gotp):
+                fail(f"decode {name} {shape}: dense and paged differ on the "
+                     f"same tokens")
+            print(f"[kernels] decode {name} H={8 * qpk} Hkv=8 hd={hd} (B=4, "
+                  f"S={s}, lens {lens}): max_abs_err dense {err:.3e}, paged "
+                  f"{errp:.3e} (limit {TOL[name] * top:.3e}"
+                  + (f", 2^-8 x max|plain| {BF16_ULP * top:.3e}"
+                     if name == "bfloat16" else "")
+                  + "); two calls equal, dense == paged bitwise"
+                  + (_time_head_shape(dense, paged, lens)
+                     if name == "bfloat16" else ""))
+            del dense, paged
+            torch.cuda.empty_cache()
+
+
+def _time_head_shape(dense, paged, lens) -> str:
+    """Device us per call of both decode kernels on ``dense`` / ``paged``
+    (bf16), rotating over copies whose live K/V exceed the L2 twice,
+    with the bytes bound; the text appended to the check line."""
+    from repro_torch.kernels import gqa_decode as D
+    from repro_torch.kernels import paged_decode as PD
+    q, k = dense[0], dense[1]
+    hkv, hd = k.shape[2], k.shape[3]
+    live = 2 * sum(lens) * hkv * hd * k.element_size()
+    n_copies = max(2, int(-(-2 * L2_BYTES // live)))
+    copies = [dense] + [tuple(t.clone() for t in dense)
+                        for _ in range(n_copies - 1)]
+    pcopies = [paged] + [(c[0], *(t.clone() for t in paged[1:3]),
+                          *paged[3:]) for c in copies[1:]]
+    times = []
+    for fn, ins in ((D.gqa_decode_cuda, copies),
+                    (PD.paged_gqa_decode_cuda, pcopies)):
+        call = _rotating(lambda i: lambda: fn(*ins[i]), n_copies)
+        times.append(min(cuda_ms(call, iters=50), cuda_ms(call, iters=50)))
+    bound = _bound(live + 2 * q.numel() * q.element_size(),
+                   4 * sum(lens) * q.shape[1] * hd, "bfloat16")[0]
+    return (f"; kernel {1e3 * times[0]:.2f} / {1e3 * times[1]:.2f} us "
+            f"dense / paged ({n_copies} rotated copies), bytes bound "
+            f"{1e3 * bound:.3f} us")
+
+
+def phase_long_rows():
+    """bf16 error of both decode kernels at the long pool's contexts: 4
+    rows, one live of S - 17 tokens, at S = 16384 and 65536 (the plan's
+    c_max); ~1.1 GB of K/V at 65536."""
+    import torch
+    from repro_torch.kernels import gqa_decode as D
+    from repro_torch.kernels import paged_decode as PD
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    for s in (16384, 65536):
+        lens = [0, s - 17, 0, 0]
+        dense, paged = _fleet_inputs(torch.bfloat16, gen, s, lens)
+        got = D.gqa_decode_cuda(*dense)
+        gotp = PD.paged_gqa_decode_cuda(*paged)
+        ref = D.gqa_decode_plain(*dense)
+        torch.cuda.synchronize()
+        err, top = _check("gqa_decode", "bfloat16", got, ref, dense[4],
+                          f"S={s}")
+        errp, _ = _check("paged_gqa_decode", "bfloat16", gotp, ref,
+                         dense[4], f"S={s}")
+        if not torch.equal(got, gotp):
+            fail(f"decode bf16 S={s}: dense and paged differ")
+        print(f"[kernels] decode bfloat16 long row (B=4, S={s}, lens "
+              f"{lens}): max_abs_err dense {err:.3e}, paged {errp:.3e}; "
+              f"max|plain| {top:.4e}; err / max|plain| {err / top:.3e} / "
+              f"{errp / top:.3e} (limits 2^-8 = {BF16_ULP:.3e}, "
+              f"{TOL['bfloat16']:g}); dense == paged bitwise")
+        del dense, paged, got, gotp, ref
+        torch.cuda.empty_cache()
 
 
 def _sdpa_dense(q, k, v, valid, active):
@@ -466,13 +603,21 @@ def phase_kernels():
     for (kname, dname), r in rows.items():
         print(f"[kernels] {kname} {dname}: max_abs_err {r['max_abs_err']:.3e}"
               f" (limit {TOL[dname] * r['ref_max']:.3e} = {TOL[dname]:g} x "
-              f"max|plain| {r['ref_max']:.4f}) | "
+              f"max|plain| {r['ref_max']:.4f}{_ulp_note(dname, r)}) | "
               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"sdpa {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), kernel at "
               f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
     return {kname: r for (kname, dname), r in rows.items()
             if dname == "bfloat16"}
+
+
+def _ulp_note(dname, r) -> str:
+    """The bf16 one-ulp limit beside an error line."""
+    if dname != "bfloat16":
+        return ""
+    return (f"; 2^-8 x max|plain| {BF16_ULP * r['ref_max']:.3e}, err = "
+            f"{r['max_abs_err'] / r['ref_max']:.3e} x max|plain|")
 
 
 def _check(kname, dname, got, ref, active, shape=""):
@@ -488,6 +633,10 @@ def _check(kname, dname, got, ref, active, shape=""):
     if err > lim:
         fail(f"{what}: max abs err {err:.3e} > {lim:.3e} "
              f"({TOL[dname]:g} x max|plain| {ref_max:.4f})")
+    if dname == "bfloat16" and err > BF16_ULP * ref_max:
+        fail(f"{what}: max abs err {err:.3e} > one bf16 ulp at the top of "
+             f"the range, 2^-8 x max|plain| = {BF16_ULP * ref_max:.3e}")
+    return err, ref_max
 
 
 def _time_row(kernel, plain, library, got, ref, bound_ms, bound_by,
@@ -528,9 +677,21 @@ def _textrank_sim(rng, n, zero_col=None):
     return m
 
 
+# TextRank's checks: one block up to N = 96 (kernels/textrank.py's
+# SINGLE_MAX), a grid above, its rows staged in shared memory up to 1500
+# and read from global memory every step at 2000; 1500 and 2000 with a
+# zero column sum
+TEXTRANK_N = ((1, None), (64, None), (96, None), (97, None), (239, None),
+              (240, None), (512, None), (1024, None), (1500, 3), (2000, 5))
+TEXTRANK_GRIDS = (1, 2, 4, 8, 16, 32, 64, 128)    # the sweep behind the rule
+
+
 def phase_textrank():
     """TextRank kernel against its plain version (f32, limit 1e-5 x
-    max|plain|) and its times; returns the kernels-line row at N = 64
+    max|plain|), one launch a call and two calls bitwise equal, at each of
+    TEXTRANK_N; the sweep over grid sizes that sets the rule in
+    kernels/textrank.py; its times at N = 64, 512 and 1024; the host share
+    of ``ops.textrank_scores``. Returns the kernels-line row at N = 64
     (the size of the gateway's prompts) with the largest error seen."""
     import numpy as np
     import torch
@@ -538,26 +699,54 @@ def phase_textrank():
     from repro_torch.kernels import ops
     from repro_torch.kernels import textrank as TR
     rng = np.random.default_rng(0)
-    sims, max_err = {}, 0.0
-    for n, zero_col in ((1, None), (64, None), (1024, None), (1500, 3)):
+    sims, devs, max_err = {}, {}, 0.0
+    for n, zero_col in TEXTRANK_N:
         sim = _textrank_sim(rng, n, zero_col)
         sims[n] = sim
-        dev = torch.from_numpy(sim.astype(np.float32)).cuda()
+        dev = devs[n] = torch.from_numpy(sim.astype(np.float32)).cuda()
+        before = TR.KERNEL.launches
         got = TR.textrank_cuda(dev)
+        again = TR.textrank_cuda(dev)
         ref = TR.textrank_plain(dev)
         torch.cuda.synchronize()
+        if TR.KERNEL.launches != before + 2:
+            fail(f"textrank N={n}: {TR.KERNEL.launches - before} launches "
+                 f"for 2 calls")
         if not torch.isfinite(got).all():
             fail(f"textrank N={n}: non-finite output")
+        if not torch.equal(got, again):
+            fail(f"textrank N={n}: two identical calls differ")
         err = (got - ref).abs().max().item()
         ref_max = ref.abs().max().item()
         lim = TOL["float32"] * ref_max
+        plan = TR.device_plan(n, dev.device)
+        blk = TR.block(plan, dev.device.index)
         print(f"[kernels] textrank float32 N={n}"
               f"{' (zero column)' if zero_col is not None else ''}: "
               f"max_abs_err {err:.3e} (limit {lim:.3e} = 1e-05 x "
-              f"max|plain| {ref_max:.4e})")
+              f"max|plain| {ref_max:.4e}); grid {plan.grid} x "
+              f"{plan.threads} threads, {plan.rows} rows a block, "
+              f"{'staged' if blk.staged else 'rows from global memory'}, "
+              f"{blk.smem} B smem; two calls equal")
         if err > lim:
             fail(f"textrank N={n}: max abs err {err:.3e} > {lim:.3e}")
         max_err = max(max_err, err)
+    # the grid-size sweep (device ms; one launch of plan_for(n, g) each)
+    devs[128] = torch.from_numpy(
+        _textrank_sim(rng, 128).astype(np.float32)).cuda()
+    for n in (64, 96, 128, 239, 512, 1024):
+        times = []
+        for g in TEXTRANK_GRIDS:
+            plan = TR.plan_for(n, g)
+            if plan.grid != g:
+                continue
+            times.append((g, plan.rows,
+                          TR.block(plan, devs[n].device.index).staged,
+                          cuda_ms(lambda: TR._launch(devs[n], plan))))
+        print(f"[kernels] textrank N={n} grid sweep (grid, rows, staged, "
+              f"ms): " + ", ".join(f"({g}, {r}, {int(st)}, {ms:.4f})"
+                                   for g, r, st, ms in times)
+              + f"; the rule picks {TR.device_plan(n, devs[n].device).grid}")
     rows = {}
     # the first call on a fresh stream pays one-time costs (the caching
     # allocator's first blocks for that stream): timed apart
@@ -566,8 +755,8 @@ def phase_textrank():
     ops.textrank_scores(sims[64], device="cuda", stream=stream)
     print(f"[kernels] textrank N=64: first ops.textrank_scores call on a "
           f"new stream {1e3 * (time.perf_counter() - t0):.3f} ms")
-    for n in (64, 1024):
-        dev = torch.from_numpy(sims[n].astype(np.float32)).cuda()
+    for n in (64, 512, 1024):
+        dev = devs[n]
         # each input byte read once, the output written once; 2 N^2 f32
         # operations per step plus the column sums
         row = _time_row(lambda: TR.textrank_cuda(dev),
@@ -583,13 +772,48 @@ def phase_textrank():
         print(f"[kernels] textrank float32 N={n}: kernel {row['ms']:.4f} ms, "
               f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} "
               f"ms ({row['bound_by']}), kernel at "
-              f"{100 * row['bound_ms'] / row['ms']:.2f}% of bound; library "
-              f"none (no PyTorch call computes PageRank); host: numpy "
-              f"textrank_scores_np (f64) {numpy_ms:.4f} ms, "
-              f"ops.textrank_scores on the card (cast, copy in, launch, "
-              f"copy out) {call_ms:.4f} ms")
+              f"{100 * row['bound_ms'] / row['ms']:.2f}% of bound, "
+              f"{row['plain_ms'] / row['ms']:.2f}x the plain version; "
+              f"library none (no PyTorch call computes PageRank); host: "
+              f"numpy textrank_scores_np (f64) {numpy_ms:.4f} ms, "
+              f"ops.textrank_scores on the card {call_ms:.4f} ms")
         rows[n] = row
+        if n in (64, 1024):
+            _textrank_host_split(sims[n], stream)
     return rows[64]
+
+
+def _textrank_host_split(sim, stream, reps: int = 50):
+    """``ops.textrank_scores``'s parts on the host clock, each ended by a
+    sync: the f64 -> f32 cast, the copy to the card, the launch (host
+    time of the wrapper), the kernel's wait, the copy back. Medians."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import textrank as TR
+    parts = {k: [] for k in ("cast", "copy in", "launch", "kernel wait",
+                             "copy out")}
+    for _ in range(reps + 1):
+        t0 = time.perf_counter()
+        a = np.ascontiguousarray(sim, dtype=np.float32)
+        t1 = time.perf_counter()
+        with torch.cuda.stream(stream):
+            d = torch.from_numpy(a).to("cuda")
+            stream.synchronize()
+            t2 = time.perf_counter()
+            out = TR.textrank_cuda(d)
+            t3 = time.perf_counter()
+            stream.synchronize()
+            t4 = time.perf_counter()
+            out.cpu().numpy()
+            t5 = time.perf_counter()
+        for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+                                t5 - t4)):
+            parts[k].append(1e3 * v)
+    med = {k: sorted(v[1:])[reps // 2] for k, v in parts.items()}
+    print(f"[kernels] textrank N={sim.shape[0]} host split of "
+          f"ops.textrank_scores (ms, medians of {reps}, each part synced): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in med.items())
+          + f"; sum {sum(med.values()):.4f}")
 
 
 # ----------------------------------------------------------------- phase 4
@@ -1040,6 +1264,79 @@ def phase_gateway():
     return counts["textrank"]
 
 
+# the paper's C&R band at the planned B* = 8192, gamma 2: prompts of
+# 9,000-16,000 tokens (~20 tokens a sentence: 400-800 sentences),
+# compressed to T_c = B* - L_out
+PAPER_B, PAPER_LOUT = 8192, 64
+PAPER_PROMPT_TOKENS = (9500, 12000, 14500)
+
+
+def phase_compressor_paper_size():
+    """The C&R compressor alone (no engine: the smoke's pools are scaled
+    to 4096 tokens) on prompts of the paper's size, with the kernel
+    scorer and the numpy scorer: kept-set agreement, compression_ms of
+    each, and the host split of one scoring between ``tfidf_matrix``,
+    the similarity product and TextRank."""
+    import numpy as np
+    import torch
+    from repro_torch.core.compression import (ExtractiveCompressor,
+                                              split_sentences,
+                                              textrank_scores_np,
+                                              tfidf_matrix)
+    from repro_torch.kernels import ops
+    from repro_torch.serving.tokenizer import ByteChunkTokenizer
+    tok = ByteChunkTokenizer(256000)
+    rng = np.random.default_rng(7)
+    stream = torch.cuda.Stream()
+    scorer = lambda m: ops.textrank_scores(m, device="cuda",  # noqa: E731
+                                           stream=stream)
+    kernel_c = ExtractiveCompressor(textrank_fn=scorer)
+    numpy_c = ExtractiveCompressor()
+    budget = PAPER_B - PAPER_LOUT
+    kernel_c.compress(varied_prompt(rng, 9000, tok), budget)   # warm-up
+    agree = 0
+    for n_tok in PAPER_PROMPT_TOKENS:
+        text = varied_prompt(rng, n_tok, tok)
+        rk, rn = kernel_c.compress(text, budget), numpy_c.compress(text,
+                                                                  budget)
+        if not (rk.success and rn.success) \
+                or rk.compressed_tokens > budget:
+            fail(f"compressor at {n_tok} tokens: not compressed within "
+                 f"{budget} (kernel {rk.compressed_tokens}, numpy "
+                 f"{rn.compressed_tokens})")
+        n_sent = len(rn.scores)
+        if rk.kept_indices == rn.kept_indices:
+            agree += 1
+        else:
+            edge = sorted(set(rk.kept_indices) ^ set(rn.kept_indices))
+            print(f"[compressor] kept-set disagreement at {n_tok} tokens "
+                  f"({n_sent} sentences): sentences {edge} kept by one "
+                  f"scorer only; composite scores (kernel, numpy): "
+                  + ", ".join(f"{i}: ({rk.scores[i]:.9f}, "
+                              f"{rn.scores[i]:.9f})" for i in edge))
+        sents = split_sentences(text)
+        t0 = time.perf_counter()
+        m = tfidf_matrix(sents)
+        t1 = time.perf_counter()
+        sim = m @ m.T
+        t2 = time.perf_counter()
+        scorer(sim)
+        t3 = time.perf_counter()
+        textrank_scores_np(sim)
+        t4 = time.perf_counter()
+        split = {"tfidf_matrix": t1 - t0, "m @ m.T": t2 - t1,
+                 "textrank kernel call": t3 - t2,
+                 "textrank numpy": t4 - t3}
+        print(f"[compressor] {tok.count(text)} tokens, {n_sent} sentences, "
+              f"vocab {m.shape[1]} -> budget {budget}: kept "
+              f"{len(rk.kept_indices)} sentences, {rk.compressed_tokens} "
+              f"tokens; compression_ms kernel scorer {rk.latency_ms:.3f}, "
+              f"numpy scorer {rn.latency_ms:.3f}; split (ms) "
+              + ", ".join(f"{k} {1e3 * v:.3f}" for k, v in split.items()))
+    print(f"[compressor] paper-size prompts: kept sets equal {agree}/"
+          f"{len(PAPER_PROMPT_TOKENS)}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1059,10 +1356,13 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     phase_fleet_kernels()
+    phase_head_shapes()
+    phase_long_rows()
     rows["textrank"] = phase_textrank()
     phase_parity()
     launches = phase_fleet()
     launches["textrank"] = phase_gateway()
+    phase_compressor_paper_size()
     sources = {"gqa_decode": ("src/repro_torch/kernels/csrc/gqa_decode.cu",
                               "src/repro/kernels/gqa_decode.py:29"),
                "paged_decode": ("src/repro_torch/kernels/csrc/paged_decode.cu",

@@ -55,6 +55,7 @@ class CudaKernel:
         self.build_seconds: Optional[float] = None
         self.build_log = ""
         self._fn = None
+        self._lib = None
         self._error_string = None
 
     def _stale(self) -> bool:
@@ -96,8 +97,17 @@ class CudaKernel:
             err = lib.kernel_error_string
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            self._fn, self._error_string = fn, err
+            self._fn, self._error_string, self._lib = fn, err, lib
         return self._fn
+
+    def extra(self, name: str, argtypes: Sequence, restype=ctypes.c_int):
+        """Another C function of the same library (built as for
+        :meth:`function`), such as a query the wrapper needs."""
+        self.function()
+        fn = getattr(self._lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        return fn
 
     def check(self, rc: int) -> None:
         """Raise if the entry point returned a CUDA error."""

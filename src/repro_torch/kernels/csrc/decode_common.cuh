@@ -10,6 +10,13 @@
 // only: the host reads no length back and the launch has a fixed shape.
 // A cluster of an inactive row exits at once (rank 0 writes the zeros).
 //
+// Head shapes. HD is 64, 128 or 192; the group's q_per_kv query heads
+// (1-16, a run-time argument) are padded with zero queries to NH: in
+// bf16 NT = NH / 8 = 1 or 2 n8 tiles of the MMA, in f32 NH = 4, 8 or 16
+// (the FMA loops stay unrolled and branch-free: a run-time guard per head
+// slowed the f32 path by half or more on an H100, PERF.md section 6).
+// Instantiations: 3 head dims x 5 NH (2 in bf16, 3 in f32).
+//
 // One block (4 warps):
 //   1. scans its items: the 64 threads of each item resolve their
 //      token's K/V row offset, or -1 for a masked token or one past the
@@ -20,24 +27,32 @@
 //      bf16, 1 in f32): the K tile and the V tile of the next items are
 //      requested as cp.async.cg groups of 16-byte copies (through L2,
 //      bypassing L1) before any compute, and each stage is refilled as
-//      soon as it is consumed. Rows are padded by 8 elements, so ldmatrix
+//      soon as it is consumed. Rows are padded by 8 elements (at HD = 192
+//      a 400-byte row rotates ldmatrix's rows by 4 banks), so ldmatrix
 //      reads are free of bank conflicts; a masked token's rows are
-//      zero-filled and never loaded. ~72 KB a block in bf16 at HD = 128,
-//      3 blocks per SM: up to ~190 KB of K/V requested per SM. (A third
-//      stage, or clusters of 16, leave fewer clusters resident and
-//      measured slower on an H100: PERF.md, section 6);
+//      zero-filled and never loaded. ~73 KB a block in bf16 at HD = 128,
+//      3 blocks per SM: up to ~190 KB of K/V requested per SM; ~108 KB at
+//      HD = 192, 2 blocks per SM. (A third stage, or clusters of 16, leave
+//      fewer clusters resident and measured slower on an H100: PERF.md,
+//      section 6);
 //   3. scores S^T = K.Q^T. bf16: mma.sync m16n8k16 with the tile's tokens
-//      as M (one 16-token slice per warp), the group's <= 8 query heads as
-//      N (zero-padded) and HD as K, Q held in registers. f32: FMAs from
-//      shared memory, two lanes per token (TF32 would not hold the f32
-//      model's 1e-5 parity);
+//      as M (one 16-token slice per warp), the padded query heads as N
+//      (NT tiles, sharing each K fragment) and HD as K, Q held in
+//      registers. f32: FMAs from shared memory, two lanes per token
+//      (TF32 would not hold the f32 model's 1e-5 parity);
 //   4. online softmax in f32 across the block's items: the running max
 //      per head, p = exp(s - m) written to shared memory in T, the
 //      rescale factor alpha = exp(m_old - m) applied to l and acc;
-//   5. O^T += V^T.P^T. bf16: mma.sync m16n8k16 with dims as M (two 16-dim
-//      slices per warp at HD = 128), heads as N, tokens as K, V read by
-//      ldmatrix.trans, P rounded to bf16 as FlashAttention does; m, l and
-//      the accumulator stay f32 in registers. f32: FMAs, one dim a thread;
+//   5. O^T += V^T.P^T. bf16: mma.sync m16n8k16 with dims as M (HD / 64
+//      16-dim slices per warp), heads as N, tokens as K, V read by
+//      ldmatrix.trans. P is split into a bf16 pair, hi = bf16(p) and
+//      lo = bf16(p - hi), and each k16 step runs V^T.P_hi^T and
+//      V^T.P_lo^T on the same V fragment into the same f32 accumulator:
+//      V is exact in bf16, so the product carries p to ~2^-16 relative,
+//      the reference's f32 P.V to well under the output's bf16 rounding
+//      (one bf16 P would add ~2^-9 relative per weight). l sums the f32
+//      p itself; m, l and the accumulator stay f32 in registers. f32:
+//      FMAs, HD / 128 rounded up dims a thread;
 //   6. merge: the 8 blocks' (m, l, acc) are combined through distributed
 //      shared memory after a cluster barrier, each block producing 1/8 of
 //      the outputs, in rank order (never arrival order: the bits do not
@@ -62,7 +77,7 @@ constexpr int CL = 8;               // blocks per (row, kv head): one cluster
 constexpr int MAX_ITEMS = 256;      // work items per block (64 x 8 x 256 =
                                     // 131072 tokens per row at most)
 constexpr int PAD = 8;              // elements of padding per staged row
-constexpr int NQ = 8;               // query heads per group, padded (MMA N)
+constexpr int MAX_QPK = 16;         // query heads per kv head, at most
 constexpr float NEG_INF = -1e30f;   // the Pallas kernels' mask value
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -139,18 +154,30 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The B fragment (two 32-bit registers) of an n8 tile of P^T: tokens
+// k0 + (lane % 4) * 2 and + 8 of head row `row` (head-major storage).
+__device__ __forceinline__ void p_frag(const __nv_bfloat16* row, int k0,
+                                       int lane, uint32_t& b0, uint32_t& b1) {
+  const __nv_bfloat16* pr = row + k0 + (lane % 4) * 2;
+  b0 = *reinterpret_cast<const uint32_t*>(pr);
+  b1 = *reinterpret_cast<const uint32_t*>(pr + 8);
+}
+
 
 // Dynamic shared memory of one block (set above 48 KB per instantiation).
-template <typename T, int HD, int QPK>
+template <typename T, int HD, int NH>
 struct Smem {
   static constexpr bool F32 = std::is_same<T, float>::value;
-  // K/V stages of the ring: 2 in bf16 (~72 KB a block at HD = 128, 3
+  static_assert(F32 || NH % 8 == 0, "bf16 pads heads to n8 tiles");
+  static constexpr int NQ = NH;             // query heads, padded
+  // K/V stages of the ring: 2 in bf16 (~73 KB a block at HD = 128, 3
   // blocks per SM); 1 in f32, whose stage is twice the size
   static constexpr int STAGES = F32 ? 1 : 2;
   alignas(16) T k[STAGES][TILE][HD + PAD];  // K rows; merge: the acc
   alignas(16) T v[STAGES][TILE][HD + PAD];  // V rows
-  alignas(16) T p[NQ][TILE + PAD];          // softmax weights, head-major
-  alignas(16) float q[F32 ? QPK : 1][HD];   // f32: staged queries
+  alignas(16) T p[NQ][TILE + PAD];          // softmax weights (bf16: hi)
+  alignas(16) T p_lo[F32 ? 1 : NQ][TILE + PAD];  // bf16: p - hi
+  alignas(16) float q[F32 ? NQ : 1][HD];    // f32: staged queries
   int64_t off[STAGES][TILE];                // token row offsets, -1 = skip
   float red_m[WARPS][NQ];                   // per-warp maxima of a tile
   float red_l[WARPS][NQ];                   // per-warp sums of a tile
@@ -161,6 +188,7 @@ struct Smem {
 };
 
 // The tile's max for head h from the warps' maxima.
+template <int NQ>
 __device__ __forceinline__ float tile_max(const float (&red)[WARPS][NQ],
                                           int h) {
   float m = red[0][h];
@@ -171,8 +199,8 @@ __device__ __forceinline__ float tile_max(const float (&red)[WARPS][NQ],
 
 // Step 1: the block's live items (those of rank + CL * j, j < nb, that
 // hold an attended token), in item order, in sm.live / sm.n_live.
-template <typename T, int HD, int QPK, typename Token>
-__device__ __forceinline__ void scan_items(Smem<T, HD, QPK>& sm, int rank,
+template <typename T, int HD, int NH, typename Token>
+__device__ __forceinline__ void scan_items(Smem<T, HD, NH>& sm, int rank,
                                            int nb, Token& token) {
   constexpr int PER = THREADS / TILE;       // items per pass of the block
   constexpr int UNROLL = 4;                 // passes with loads in flight
@@ -210,8 +238,8 @@ __device__ __forceinline__ void scan_items(Smem<T, HD, QPK>& sm, int rank,
 // CL * sm.live[li]): offsets first (their loads hit L1 after the scan),
 // then the K tile and the V tile as two cp.async groups. Past the live
 // list it commits two empty groups, so every refill adds two groups.
-template <typename T, int HD, int QPK, typename Token>
-__device__ __forceinline__ void request(Smem<T, HD, QPK>& sm, int st, int li,
+template <typename T, int HD, int NH, typename Token>
+__device__ __forceinline__ void request(Smem<T, HD, NH>& sm, int st, int li,
                                         int rank, const T* __restrict__ k,
                                         const T* __restrict__ v,
                                         Token& token) {
@@ -243,89 +271,118 @@ __device__ __forceinline__ void request(Smem<T, HD, QPK>& sm, int st, int li,
 }
 
 // Steps 3-4, bf16: warp w scores tokens 16w..16w+15 of stage st against
-// the 8 (padded) heads on the tensor cores; qf holds the B fragments of
-// Q^T. The thread holds tokens t, t + 8 and heads h, h + 1 of the 16x8
-// tile. Returns in alpha the rescale factors of heads h, h + 1.
-template <int HD, int QPK>
+// the NT n8 tiles of (padded) heads on the tensor cores; qf holds the B
+// fragments of Q^T. In tile nt the thread holds tokens t, t + 8 and heads
+// 8 nt + h, + 1 of the 16x8 tile. Writes p as a bf16 hi/lo pair and
+// returns in alpha the rescale factors of the thread's heads.
+template <int HD, int NT>
 __device__ __forceinline__ void scores_softmax_mma(
-    Smem<__nv_bfloat16, HD, QPK>& sm, int st,
-    const uint32_t (&qf)[HD / 16][2], float scale, float (&alpha)[2]) {
+    Smem<__nv_bfloat16, HD, 8 * NT>& sm, int st,
+    const uint32_t (&qf)[NT][HD / 16][2], float scale,
+    float (&alpha)[NT][2]) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  float c[NT][4] = {};
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     uint32_t a[4];
     ldmatrix_x4(a, &sm.k[st][warp * 16 + (lane % 16)]
                         [kk * 16 + (lane / 16) * 8]);
-    mma_bf16(c, a, qf[kk][0], qf[kk][1]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) mma_bf16(c[nt], a, qf[nt][kk][0],
+                                             qf[nt][kk][1]);
   }
   const int t = warp * 16 + lane / 4;
-  const int h = (lane % 4) * 2;
   const bool ok0 = sm.off[st][t] >= 0, ok1 = sm.off[st][t + 8] >= 0;
-  const float s[4] = {ok0 ? c[0] * scale : NEG_INF,
-                      ok0 ? c[1] * scale : NEG_INF,
-                      ok1 ? c[2] * scale : NEG_INF,
-                      ok1 ? c[3] * scale : NEG_INF};
-  float m[2] = {fmaxf(s[0], s[2]), fmaxf(s[1], s[3])};
+  float s[NT][4], m[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    s[nt][0] = ok0 ? c[nt][0] * scale : NEG_INF;
+    s[nt][1] = ok0 ? c[nt][1] * scale : NEG_INF;
+    s[nt][2] = ok1 ? c[nt][2] * scale : NEG_INF;
+    s[nt][3] = ok1 ? c[nt][3] * scale : NEG_INF;
+    m[nt][0] = fmaxf(s[nt][0], s[nt][2]);
+    m[nt][1] = fmaxf(s[nt][1], s[nt][3]);
+  }
 #pragma unroll
   for (int off = 4; off < 32; off <<= 1)       // over the warp's tokens
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-      m[i] = fmaxf(m[i], __shfl_xor_sync(FULL, m[i], off));
-  if (lane < 4) {
-    sm.red_m[warp][h] = m[0];
-    sm.red_m[warp][h + 1] = m[1];
-  }
-  __syncthreads();
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float m_old = sm.m[h + i];
-    m[i] = fmaxf(m_old, tile_max(sm.red_m, h + i));
-    alpha[i] = expf(m_old - m[i]);
+      for (int i = 0; i < 2; ++i)
+        m[nt][i] = fmaxf(m[nt][i], __shfl_xor_sync(FULL, m[nt][i], off));
+  if (lane < 4)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int h = nt * 8 + lane * 2;
+      sm.red_m[warp][h] = m[nt][0];
+      sm.red_m[warp][h + 1] = m[nt][1];
+    }
+  __syncthreads();
+  float l[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int h = nt * 8 + (lane % 4) * 2;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_old = sm.m[h + i];
+      m[nt][i] = fmaxf(m_old, tile_max(sm.red_m, h + i));
+      alpha[nt][i] = expf(m_old - m[nt][i]);
+    }
+    const float e[4] = {ok0 ? expf(s[nt][0] - m[nt][0]) : 0.f,
+                        ok0 ? expf(s[nt][1] - m[nt][1]) : 0.f,
+                        ok1 ? expf(s[nt][2] - m[nt][0]) : 0.f,
+                        ok1 ? expf(s[nt][3] - m[nt][1]) : 0.f};
+    const int hh[4] = {h, h + 1, h, h + 1}, tt[4] = {t, t, t + 8, t + 8};
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const __nv_bfloat16 hi = __float2bfloat16(e[x]);
+      sm.p[hh[x]][tt[x]] = hi;
+      sm.p_lo[hh[x]][tt[x]] = __float2bfloat16(e[x] - __bfloat162float(hi));
+    }
+    l[nt][0] = e[0] + e[2];
+    l[nt][1] = e[1] + e[3];
   }
-  const float e[4] = {ok0 ? expf(s[0] - m[0]) : 0.f,
-                      ok0 ? expf(s[1] - m[1]) : 0.f,
-                      ok1 ? expf(s[2] - m[0]) : 0.f,
-                      ok1 ? expf(s[3] - m[1]) : 0.f};
-  sm.p[h][t] = __float2bfloat16(e[0]);
-  sm.p[h + 1][t] = __float2bfloat16(e[1]);
-  sm.p[h][t + 8] = __float2bfloat16(e[2]);
-  sm.p[h + 1][t + 8] = __float2bfloat16(e[3]);
-  float l[2] = {e[0] + e[2], e[1] + e[3]};
 #pragma unroll
   for (int off = 4; off < 32; off <<= 1)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] += __shfl_xor_sync(FULL, l[i], off);
-  if (lane < 4) {
-    sm.red_l[warp][h] = l[0];
-    sm.red_l[warp][h + 1] = l[1];
-  }
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        l[nt][i] += __shfl_xor_sync(FULL, l[nt][i], off);
+  if (lane < 4)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int h = nt * 8 + lane * 2;
+      sm.red_l[warp][h] = l[nt][0];
+      sm.red_l[warp][h + 1] = l[nt][1];
+    }
 }
 
 // Steps 3-4, f32: lanes 2j and 2j+1 of warp w share token 16w + j of
 // stage st, each taking every other 4-float chunk of HD; FMAs from shared
-// memory. Returns in alpha the rescale factor of every head.
-template <int HD, int QPK>
-__device__ __forceinline__ void scores_softmax_fma(Smem<float, HD, QPK>& sm,
+// memory over the NH (padded) heads. Returns in alpha the rescale factor
+// of every head.
+template <int HD, int NH>
+__device__ __forceinline__ void scores_softmax_fma(Smem<float, HD, NH>& sm,
                                                    int st, float scale,
-                                                   float (&alpha)[QPK]) {
+                                                   float (&alpha)[NH]) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int t = warp * 16 + lane / 2;
-  float s[QPK];
+  float s[NH];
 #pragma unroll
-  for (int h = 0; h < QPK; ++h) s[h] = 0.f;
+  for (int h = 0; h < NH; ++h) s[h] = 0.f;
 #pragma unroll
   for (int d = (lane % 2) * 4; d < HD; d += 8) {
     const float4 kv = *reinterpret_cast<const float4*>(&sm.k[st][t][d]);
 #pragma unroll
-    for (int h = 0; h < QPK; ++h) {
+    for (int h = 0; h < NH; ++h) {
       const float4 qv = *reinterpret_cast<const float4*>(&sm.q[h][d]);
       s[h] += qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
     }
   }
   const bool ok = sm.off[st][t] >= 0;
 #pragma unroll
-  for (int h = 0; h < QPK; ++h) {
+  for (int h = 0; h < NH; ++h) {
     s[h] += __shfl_xor_sync(FULL, s[h], 1);
     s[h] = ok ? s[h] * scale : NEG_INF;
     float m = s[h];
@@ -336,7 +393,7 @@ __device__ __forceinline__ void scores_softmax_fma(Smem<float, HD, QPK>& sm,
   }
   __syncthreads();
 #pragma unroll
-  for (int h = 0; h < QPK; ++h) {
+  for (int h = 0; h < NH; ++h) {
     const float m_old = sm.m[h];
     const float m = fmaxf(m_old, tile_max(sm.red_m, h));
     alpha[h] = expf(m_old - m);
@@ -350,84 +407,109 @@ __device__ __forceinline__ void scores_softmax_fma(Smem<float, HD, QPK>& sm,
 }
 
 // Step 5, bf16: warp w owns the 16-dim slices w, w + 4, ... of O^T; its
-// accumulator fragments c are rescaled by alpha (heads h, h + 1 of the
-// thread) and the stage's V^T.P^T is added on the tensor cores.
-template <int HD, int QPK>
-__device__ __forceinline__ void pv_mma(Smem<__nv_bfloat16, HD, QPK>& sm,
-                                       int st, float (&c)[HD / 64][4],
-                                       const float (&alpha)[2]) {
+// accumulator fragments c are rescaled by alpha (the thread's heads) and
+// the stage's V^T.P_hi^T + V^T.P_lo^T is added on the tensor cores, both
+// products on one V fragment per k16 step.
+template <int HD, int NT>
+__device__ __forceinline__ void pv_mma(Smem<__nv_bfloat16, HD, 8 * NT>& sm,
+                                       int st, float (&c)[NT][HD / 64][4],
+                                       const float (&alpha)[NT][2]) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int mi = lane / 8, mr = lane % 8;     // ldmatrix: matrix, row
 #pragma unroll
   for (int i = 0; i < HD / 64; ++i) {
     const int mt = warp + WARPS * i;
-    c[i][0] *= alpha[0];
-    c[i][1] *= alpha[1];
-    c[i][2] *= alpha[0];
-    c[i][3] *= alpha[1];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      c[nt][i][0] *= alpha[nt][0];
+      c[nt][i][1] *= alpha[nt][1];
+      c[nt][i][2] *= alpha[nt][0];
+      c[nt][i][3] *= alpha[nt][1];
+    }
 #pragma unroll
     for (int ks = 0; ks < TILE / 16; ++ks) {
       uint32_t a[4];
       ldmatrix_x4_trans(a, &sm.v[st][ks * 16 + mr + (mi >> 1) * 8]
                                 [mt * 16 + (mi & 1) * 8]);
-      const __nv_bfloat16* pr = &sm.p[lane / 4][ks * 16 + (lane % 4) * 2];
-      mma_bf16(c[i], a, *reinterpret_cast<const uint32_t*>(pr),
-               *reinterpret_cast<const uint32_t*>(pr + 8));
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int h = nt * 8 + lane / 4;
+        uint32_t b0, b1;
+        p_frag(sm.p[h], ks * 16, lane, b0, b1);
+        mma_bf16(c[nt][i], a, b0, b1);
+        p_frag(sm.p_lo[h], ks * 16, lane, b0, b1);
+        mma_bf16(c[nt][i], a, b0, b1);
+      }
     }
   }
 }
 
-// Step 5, f32: thread d < HD owns dim d of every head, tokens in order.
-template <int HD, int QPK>
-__device__ __forceinline__ void pv_fma(Smem<float, HD, QPK>& sm, int st,
-                                       float (&a)[QPK][1],
-                                       const float (&alpha)[QPK]) {
-  const int d = threadIdx.x;
-  if (d >= HD) return;
+// Step 5, f32: thread d owns dims d, d + THREADS, ... (< HD) of every
+// (padded) head, tokens in order.
+template <int HD, int NH>
+__device__ __forceinline__ void pv_fma(
+    Smem<float, HD, NH>& sm, int st,
+    float (&a)[NH][(HD + THREADS - 1) / THREADS], const float (&alpha)[NH]) {
+  constexpr int DPT = (HD + THREADS - 1) / THREADS;
 #pragma unroll
-  for (int h = 0; h < QPK; ++h) a[h][0] *= alpha[h];
+  for (int u = 0; u < DPT; ++u) {
+    const int d = threadIdx.x + u * THREADS;
+    if (d >= HD) break;
+#pragma unroll
+    for (int h = 0; h < NH; ++h) a[h][u] *= alpha[h];
 #pragma unroll 8
-  for (int t = 0; t < TILE; ++t) {
-    const float vv = sm.v[st][t][d];
+    for (int t = 0; t < TILE; ++t) {
+      const float vv = sm.v[st][t][d];
 #pragma unroll
-    for (int h = 0; h < QPK; ++h) a[h][0] += sm.p[h][t] * vv;
+      for (int h = 0; h < NH; ++h) a[h][u] += sm.p[h][t] * vv;
+    }
   }
 }
 
 // The block's share of work of (row, kv group g): block (rank, g, row) of
 // a grid whose x extent is CL, one cluster. `token(t)` returns the
 // element offset of token t's K (= V) head row, or -1 when the token is
-// not attended; `n` is the row's number of items. Writes the group's
-// QPK output rows of `out` (B, H * HD).
-template <typename T, int HD, int QPK, typename Token>
+// not attended; `n` is the row's number of items; the group has qpk <=
+// NH query heads. Writes the group's qpk output rows of `out` (B, H *
+// HD).
+template <typename T, int HD, int NH, typename Token>
 __device__ __forceinline__ void attend(const T* __restrict__ q,
                                        const T* __restrict__ k,
                                        const T* __restrict__ v,
                                        const uint8_t* __restrict__ active,
                                        T* __restrict__ out, int n, int H,
-                                       float scale, Token token) {
-  constexpr bool F32 = Smem<T, HD, QPK>::F32;
+                                       int qpk, float scale, Token token) {
+  using S = Smem<T, HD, NH>;
+  constexpr bool F32 = S::F32;
+  constexpr int NQ = NH;
+  constexpr int NT = NH >= 8 ? NH / 8 : 1;            // bf16 n8 tiles
+  constexpr int DPT = (HD + THREADS - 1) / THREADS;   // f32 dims a thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<T, HD, QPK>& sm = *reinterpret_cast<Smem<T, HD, QPK>*>(smem_raw);
+  S& sm = *reinterpret_cast<S*>(smem_raw);
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int g = blockIdx.y, row = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32;
-  const T* qg = q + ((int64_t)row * H + g * QPK) * HD;
-  T* out_g = out + ((int64_t)row * H + g * QPK) * HD;
+  const T* qg = q + ((int64_t)row * H + g * qpk) * HD;
+  T* out_g = out + ((int64_t)row * H + g * qpk) * HD;
   const bool act = active[row] != 0;   // in flight with the scan's loads
-  uint32_t qf[HD / 16][2];             // bf16: B fragments of Q^T
-  if constexpr (F32) {
-    for (int i = tid; i < QPK * HD; i += THREADS)
-      sm.q[i / HD][i % HD] = qg[i];
+  uint32_t qf[NT][HD / 16][2];         // bf16: B fragments of Q^T
+  if constexpr (F32) {                 // padded heads: zero queries
+    for (int i = tid; i < NQ * HD; i += THREADS)
+      sm.q[i / HD][i % HD] = i < qpk * HD ? qg[i] : 0.f;
   } else {
-    const int hq = lane / 4;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const T* qp = qg + hq * HD + kk * 16 + (lane % 4) * 2;
-      qf[kk][0] = hq < QPK ? *reinterpret_cast<const uint32_t*>(qp) : 0u;
-      qf[kk][1] = hq < QPK ? *reinterpret_cast<const uint32_t*>(qp + 8) : 0u;
+    for (int nt = 0; nt < NT; ++nt) {
+      const int hq = nt * 8 + lane / 4;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const T* qp = qg + hq * HD + kk * 16 + (lane % 4) * 2;
+        qf[nt][kk][0] =
+            hq < qpk ? *reinterpret_cast<const uint32_t*>(qp) : 0u;
+        qf[nt][kk][1] =
+            hq < qpk ? *reinterpret_cast<const uint32_t*>(qp + 8) : 0u;
+      }
     }
   }
   if (tid < NQ) {
@@ -438,25 +520,25 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
   scan_items(sm, rank, nb, token);
   if (!act) {                          // the whole cluster exits
     if (rank == 0)
-      for (int o = tid; o < QPK * HD; o += THREADS) out_g[o] = from_f<T>(0.f);
+      for (int o = tid; o < qpk * HD; o += THREADS) out_g[o] = from_f<T>(0.f);
     return;
   }
-  constexpr int NA = F32 ? QPK : 2;    // rescale factors a thread applies
-  float alpha[NA];
-  float acc[F32 ? QPK : HD / 64][F32 ? 1 : 4] = {};
-  constexpr int STAGES = Smem<T, HD, QPK>::STAGES;
+  // rescale factors a thread applies, and its accumulator
+  std::conditional_t<F32, float[NQ], float[NT][2]> alpha;
+  std::conditional_t<F32, float[NQ][DPT], float[NT][HD / 64][4]> acc = {};
+  constexpr int STAGES = S::STAGES;
   for (int s = 0; s < STAGES; ++s) request(sm, s, s, rank, k, v, token);
   for (int li = 0; li < sm.n_live; ++li) {
     const int st = li % STAGES;
     cp_async_wait<2 * STAGES - 1>();   // this item's K tile has landed
     __syncthreads();
     if constexpr (F32)
-      scores_softmax_fma<HD, QPK>(sm, st, scale, alpha);
+      scores_softmax_fma<HD, NH>(sm, st, scale, alpha);
     else
-      scores_softmax_mma<HD, QPK>(sm, st, qf, scale, alpha);
+      scores_softmax_mma<HD, NT>(sm, st, qf, scale, alpha);
     cp_async_wait<2 * STAGES - 2>();   // and its V tile
     __syncthreads();
-    if (tid < QPK) {                   // sm.m is read by no one until the
+    if (tid < qpk) {                   // sm.m is read by no one until the
       const float m_old = sm.m[tid];   // next item's scores
       const float m_new = fmaxf(m_old, tile_max(sm.red_m, tid));
       float l = 0.f;
@@ -466,47 +548,54 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
       sm.m[tid] = m_new;
     }
     if constexpr (F32)
-      pv_fma<HD, QPK>(sm, st, acc, alpha);
+      pv_fma<HD, NH>(sm, st, acc, alpha);
     else
-      pv_mma<HD, QPK>(sm, st, acc, alpha);
+      pv_mma<HD, NT>(sm, st, acc, alpha);
     __syncthreads();                   // stage st is consumed: refill it
     request(sm, st, li + STAGES, rank, k, v, token);
   }
   cp_async_wait<0>();
   __syncthreads();
-  // Step 6. The block's acc, f32 [QPK][HD], over its K stages.
-  float(&accs)[QPK][HD] = *reinterpret_cast<float(*)[QPK][HD]>(&sm.k[0][0][0]);
-  static_assert(sizeof(float) * QPK * HD <= sizeof(sm.k), "acc staging");
+  // Step 6. The block's acc, f32 [qpk][HD], over its K stages.
+  float(&accs)[NQ][HD] = *reinterpret_cast<float(*)[NQ][HD]>(&sm.k[0][0][0]);
+  static_assert(sizeof(float) * NQ * HD <= sizeof(sm.k), "acc staging");
   if constexpr (F32) {
-    if (tid < HD)
 #pragma unroll
-      for (int h = 0; h < QPK; ++h) accs[h][tid] = acc[h][0];
+    for (int u = 0; u < DPT; ++u) {
+      const int d = tid + u * THREADS;
+      if (d < HD)
+#pragma unroll
+        for (int h = 0; h < NQ; ++h) accs[h][d] = acc[h][u];
+    }
   } else {
     const int warp = tid / 32;
-    const int h = (lane % 4) * 2;
 #pragma unroll
-    for (int i = 0; i < HD / 64; ++i) {
-      const int d = (warp + WARPS * i) * 16 + lane / 4;
-      if (h < QPK) {
-        accs[h][d] = acc[i][0];
-        accs[h][d + 8] = acc[i][2];
-      }
-      if (h + 1 < QPK) {
-        accs[h + 1][d] = acc[i][1];
-        accs[h + 1][d + 8] = acc[i][3];
+    for (int nt = 0; nt < NT; ++nt) {
+      const int h = nt * 8 + (lane % 4) * 2;
+#pragma unroll
+      for (int i = 0; i < HD / 64; ++i) {
+        const int d = (warp + WARPS * i) * 16 + lane / 4;
+        if (h < qpk) {
+          accs[h][d] = acc[nt][i][0];
+          accs[h][d + 8] = acc[nt][i][2];
+        }
+        if (h + 1 < qpk) {
+          accs[h + 1][d] = acc[nt][i][1];
+          accs[h + 1][d + 8] = acc[nt][i][3];
+        }
       }
     }
   }
   cluster.sync();                      // every block's state is in place
-  for (int o = rank * THREADS + tid; o < QPK * HD; o += CL * THREADS) {
+  for (int o = rank * THREADS + tid; o < qpk * HD; o += CL * THREADS) {
     const int h = o / HD, d = o % HD;
     float mr[CL], lr[CL], ar[CL];      // every rank's state, loads batched
 #pragma unroll
     for (int r = 0; r < CL; ++r) {
-      const Smem<T, HD, QPK>* rs = cluster.map_shared_rank(&sm, r);
+      const S* rs = cluster.map_shared_rank(&sm, r);
       mr[r] = rs->m[h];
       lr[r] = rs->l[h];
-      ar[r] = (*reinterpret_cast<const float(*)[QPK][HD]>(
+      ar[r] = (*reinterpret_cast<const float(*)[NQ][HD]>(
           &rs->k[0][0][0]))[h][d];
     }
     float mx = NEG_INF;
@@ -526,30 +615,37 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
   cluster.sync();                      // no block leaves while read
 }
 
-// Call f(T{}, integral_constant<HD>, integral_constant<QPK>) for the
-// supported instantiations; dtype 0 = float32, 1 = bfloat16.
-// cudaErrorInvalidValue for an unsupported shape.
+// Call f(T{}, integral_constant<HD>, integral_constant<NH>) for the
+// instantiation that serves (dtype, hd, qpk): dtype 0 = float32, 1 =
+// bfloat16; hd 64, 128 or 192; qpk 1-16 padded to NH = 8 or 16 in bf16,
+// 4, 8 or 16 in f32. cudaErrorInvalidValue for an unsupported shape.
 template <typename F>
 cudaError_t dispatch(int dtype, int hd, int qpk, F&& f) {
-  auto by_qpk = [&](auto t, auto d) -> cudaError_t {
-    switch (qpk) {
-      case 1: return f(t, d, std::integral_constant<int, 1>{});
-      case 2: return f(t, d, std::integral_constant<int, 2>{});
-      case 4: return f(t, d, std::integral_constant<int, 4>{});
-      case 8: return f(t, d, std::integral_constant<int, 8>{});
-      default: return cudaErrorInvalidValue;
+  if (qpk < 1 || qpk > MAX_QPK) return cudaErrorInvalidValue;
+  auto by_nt = [&](auto t, auto d) -> cudaError_t {
+    if constexpr (std::is_same<decltype(t), float>::value) {
+      if (qpk <= 4) return f(t, d, std::integral_constant<int, 4>{});
     }
+    if (qpk <= 8) return f(t, d, std::integral_constant<int, 8>{});
+    return f(t, d, std::integral_constant<int, 16>{});
   };
   auto by_hd = [&](auto t) -> cudaError_t {
     switch (hd) {
-      case 64: return by_qpk(t, std::integral_constant<int, 64>{});
-      case 128: return by_qpk(t, std::integral_constant<int, 128>{});
+      case 64: return by_nt(t, std::integral_constant<int, 64>{});
+      case 128: return by_nt(t, std::integral_constant<int, 128>{});
+      case 192: return by_nt(t, std::integral_constant<int, 192>{});
       default: return cudaErrorInvalidValue;
     }
   };
   if (dtype == 0) return by_hd(float{});
   if (dtype == 1) return by_hd(__nv_bfloat16{});
   return cudaErrorInvalidValue;
+}
+
+// The query heads per kv head of an (H, Hkv) pair, or 0 when H is not a
+// multiple of Hkv.
+inline int q_per_kv(int H, int Hkv) {
+  return Hkv > 0 && H % Hkv == 0 ? H / Hkv : 0;
 }
 
 // The wrapper's item count must be the one this build derives from the
@@ -560,16 +656,16 @@ inline bool items_ok(int n_items, int extent) {
   return n_items == want && (n_items + CL - 1) / CL <= MAX_ITEMS;
 }
 
-// Launch `kernel` in clusters of CL blocks along x, with Smem<T, HD, QPK>
+// Launch `kernel` in clusters of CL blocks along x, with Smem<T, HD, NH>
 // of dynamic shared memory. The function's shared-memory limit (above 48
 // KB) belongs to the current device, so it is raised once per
 // instantiation and device. `launch` has internal linkage, so the record
 // of that stays in this library even where another one holds the same
 // instantiation.
-template <typename T, int HD, int QPK, typename... KArgs, typename... Args>
+template <typename T, int HD, int NH, typename... KArgs, typename... Args>
 static cudaError_t launch(void (*kernel)(KArgs...), dim3 grid,
                           cudaStream_t stream, Args... args) {
-  constexpr int smem = sizeof(Smem<T, HD, QPK>);
+  constexpr int smem = sizeof(Smem<T, HD, NH>);
   constexpr int MAX_DEVICES = 64;
   static std::atomic<bool> raised[MAX_DEVICES];
   int dev = 0;
@@ -603,13 +699,13 @@ extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Dynamic shared memory of one block of an instantiation (0 if there is
-// none), for the build report.
+// Dynamic shared memory of one block of the instantiation that serves
+// (dtype, hd, qpk) (0 if there is none), for the build report.
 extern "C" int decode_smem_bytes(int dtype, int hd, int qpk) {
   int bytes = 0;
-  decode::dispatch(dtype, hd, qpk, [&](auto t, auto d, auto q) {
+  decode::dispatch(dtype, hd, qpk, [&](auto t, auto d, auto nh) {
     bytes = sizeof(decode::Smem<decltype(t), decltype(d)::value,
-                                decltype(q)::value>);
+                                decltype(nh)::value>);
     return cudaSuccess;
   });
   return bytes;

@@ -21,7 +21,8 @@
 //      flight;
 //   3. a token's 256-byte head row is copied whole by 16 lanes, so every
 //      sector fetched is used; masked tokens are never loaded; the scores
-//      and P.V run on the tensor cores in bf16 (mma.sync);
+//      and P.V run on the tensor cores in bf16 (mma.sync), P as a bf16
+//      hi/lo pair, so P.V keeps the reference's f32 weights;
 //   4. the 8 blocks of a cluster merge their states through distributed
 //      shared memory in the same launch, in rank order: no second launch
 //      and no partials in device memory.
@@ -29,19 +30,19 @@
 
 namespace {
 
-template <typename T, int HD, int QPK>
+template <typename T, int HD, int NH>
 __global__ void __launch_bounds__(decode::THREADS)
     gqa_decode_cluster(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v,
                        const uint8_t* __restrict__ valid,
                        const uint8_t* __restrict__ active, T* __restrict__ out,
-                       int S, int H, int64_t kv_sb, int64_t kv_ss, int n_items,
-                       float scale) {
+                       int S, int H, int qpk, int64_t kv_sb, int64_t kv_ss,
+                       int n_items, float scale) {
   const int row = blockIdx.z;
   const uint8_t* vrow = valid + (int64_t)row * S;
   const int64_t base = (int64_t)row * kv_sb + (int64_t)blockIdx.y * HD;
-  decode::attend<T, HD, QPK>(
-      q, k, v, active, out, n_items, H, scale, [&](int t) -> int64_t {
+  decode::attend<T, HD, NH>(
+      q, k, v, active, out, n_items, H, qpk, scale, [&](int t) -> int64_t {
         return t < S && vrow[t] ? base + t * kv_ss : -1;
       });
 }
@@ -54,19 +55,20 @@ extern "C" int gqa_decode_launch(const void* q, const void* k, const void* v,
                                  int HD, int64_t kv_sb, int64_t kv_ss,
                                  int n_items, float scale, int dtype,
                                  void* stream_ptr) {
-  if (!decode::items_ok(n_items, S))
+  const int qpk = decode::q_per_kv(H, Hkv);
+  if (!decode::items_ok(n_items, S) || qpk == 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const dim3 grid(decode::CL, Hkv, B);
   return (int)decode::dispatch(
-      dtype, HD, H / Hkv, [&](auto t_tag, auto hd_tag, auto qpk_tag) {
+      dtype, HD, qpk, [&](auto t_tag, auto hd_tag, auto nh_tag) {
         using T = decltype(t_tag);
         constexpr int D = decltype(hd_tag)::value;
-        constexpr int Q = decltype(qpk_tag)::value;
-        return decode::launch<T, D, Q>(
-            gqa_decode_cluster<T, D, Q>, grid, stream,
+        constexpr int N = decltype(nh_tag)::value;
+        return decode::launch<T, D, N>(
+            gqa_decode_cluster<T, D, N>, grid, stream,
             static_cast<const T*>(q), static_cast<const T*>(k),
             static_cast<const T*>(v), valid, active, static_cast<T*>(out), S,
-            H, kv_sb, kv_ss, n_items, scale);
+            H, qpk, kv_sb, kv_ss, n_items, scale);
       });
 }

@@ -27,22 +27,22 @@
 
 namespace {
 
-template <typename T, int HD, int QPK>
+template <typename T, int HD, int NH>
 __global__ void __launch_bounds__(decode::THREADS)
     paged_decode_cluster(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v,
                          const int32_t* __restrict__ block_tables,
                          const int32_t* __restrict__ seq_lens,
                          const uint8_t* __restrict__ active,
-                         T* __restrict__ out, int H, int P, int BS, int NB,
-                         int64_t p_sp, int64_t p_ss, int n_items,
+                         T* __restrict__ out, int H, int qpk, int P, int BS,
+                         int NB, int64_t p_sp, int64_t p_ss, int n_items,
                          float scale) {
   const int row = blockIdx.z;
   const int32_t* bt = block_tables + (int64_t)row * NB;
   const int64_t head = (int64_t)blockIdx.y * HD;
   const int end = min(seq_lens[row], NB * BS);
-  decode::attend<T, HD, QPK>(
-      q, k, v, active, out, n_items, H, scale, [&](int t) -> int64_t {
+  decode::attend<T, HD, NH>(
+      q, k, v, active, out, n_items, H, qpk, scale, [&](int t) -> int64_t {
         if (t >= end) return -1;
         const int phys = min(max(bt[t / BS], 0), P - 1);
         return (int64_t)phys * p_sp + (t % BS) * p_ss + head;
@@ -59,19 +59,21 @@ extern "C" int paged_decode_launch(const void* q, const void* k,
                                    int NB, int64_t p_sp, int64_t p_ss,
                                    int n_items, float scale, int dtype,
                                    void* stream_ptr) {
-  if (!decode::items_ok(n_items, NB * BS))
+  const int qpk = decode::q_per_kv(H, Hkv);
+  if (!decode::items_ok(n_items, NB * BS) || qpk == 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const dim3 grid(decode::CL, Hkv, B);
   return (int)decode::dispatch(
-      dtype, HD, H / Hkv, [&](auto t_tag, auto hd_tag, auto qpk_tag) {
+      dtype, HD, qpk, [&](auto t_tag, auto hd_tag, auto nh_tag) {
         using T = decltype(t_tag);
         constexpr int D = decltype(hd_tag)::value;
-        constexpr int Q = decltype(qpk_tag)::value;
-        return decode::launch<T, D, Q>(
-            paged_decode_cluster<T, D, Q>, grid, stream,
+        constexpr int N = decltype(nh_tag)::value;
+        return decode::launch<T, D, N>(
+            paged_decode_cluster<T, D, N>, grid, stream,
             static_cast<const T*>(q), static_cast<const T*>(k),
             static_cast<const T*>(v), block_tables, seq_lens, active,
-            static_cast<T*>(out), H, P, BS, NB, p_sp, p_ss, n_items, scale);
+            static_cast<T*>(out), H, qpk, P, BS, NB, p_sp, p_ss, n_items,
+            scale);
       });
 }

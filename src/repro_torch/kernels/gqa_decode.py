@@ -8,7 +8,10 @@ valid token once and skips masked tokens and inactive rows before loading
 their K/V. The token axis is cut into 64-token work items, dealt round
 robin to the ``CLUSTER`` blocks of one thread-block cluster per (row, kv
 head), so a live row spreads over many SMs whatever its length, and the
-cluster merges its blocks' states in the same launch.
+cluster merges its blocks' states in the same launch. In bf16 the scores
+and P.V run on the tensor cores, the softmax weights P as a bf16 hi/lo
+pair, so P.V carries the f32 weights of the reference. Head dims 64, 128
+and 192 and 1-16 query heads per kv head are served.
 
 ``gqa_decode_plain`` is the function both compute: ``kernels/ref.py``'s
 ``gqa_decode_ref`` plus exact zeros for inactive rows. Callers go
@@ -25,8 +28,10 @@ import torch
 from repro_torch.kernels.build import CudaKernel
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
-Q_PER_KV = (1, 2, 4, 8)
+# csrc/decode_common.cuh's instantiations: head dims, and query heads per
+# kv head (padded to one n8 MMA tile up to 8, two up to 16)
+HEAD_DIMS = (64, 128, 192)
+Q_PER_KV = tuple(range(1, 17))
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -116,7 +121,7 @@ def check_kv(q, k, v, what: str) -> None:
     hkv = k.shape[2]
     if q.shape[1] % hkv or q.shape[1] // hkv not in Q_PER_KV:
         raise ValueError(f"{what}: H={q.shape[1]}, Hkv={hkv}: q_per_kv "
-                         f"must be one of {Q_PER_KV}")
+                         f"must be {Q_PER_KV[0]}-{Q_PER_KV[-1]}")
 
 
 def gqa_decode_cuda(q, k_cache, v_cache, valid, active: Optional[torch.Tensor]

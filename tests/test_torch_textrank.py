@@ -23,6 +23,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro_torch.core import compression as TC
 from repro_torch.kernels import ops
@@ -161,17 +163,30 @@ def test_compressor_selects_like_jax_pallas(jax_textrank, which):
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
-@pytest.mark.gpu
-@pytest.mark.parametrize("n,zero_col", [(1, None), (64, None), (64, 7),
-                                        (1024, None), (1500, 3)],
-                         ids=["1", "64", "64-zero-column", "1024",
-                              "1500-zero-column"])
-def test_textrank_kernel_matches_plain(n, zero_col):
-    """Staged (N <= 239) and L2-read (larger N) paths of the kernel."""
+def _require_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run with -m gpu on the card)")
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,zero_col", [(1, None), (64, None), (64, 7),
+                                        (1024, None), (1500, 3), (239, None),
+                                        (240, None), (512, None), (96, None),
+                                        (97, None), (2000, 5)],
+                         ids=["1", "64", "64-zero-column", "1024",
+                              "1500-zero-column", "239", "240", "512", "96",
+                              "97", "2000-zero-column"])
+def test_textrank_kernel_matches_plain(n, zero_col):
+    """One block up to N = 96, a grid of blocks above, its rows staged in
+    shared memory up to 1500 of these sizes and read from global memory
+    every step at 2000; one launch per call, and two calls give the same
+    bits."""
+    _require_cuda()
     sim = torch.from_numpy(_sim(n, zero_col=zero_col)).cuda()
+    plan = TR.device_plan(n, sim.device)
+    assert (plan.grid == 1) == (n <= 96)
+    assert TR.block(plan, sim.device.index).staged == (n <= 1500)
     before = TR.KERNEL.launches
     got = TR.textrank_cuda(sim)
     torch.cuda.synchronize()
@@ -180,6 +195,91 @@ def test_textrank_kernel_matches_plain(n, zero_col):
     assert torch.isfinite(got).all()
     err = (got - ref).abs().max().item()
     assert err <= F32_TOL * ref.abs().max().item()
+    assert torch.equal(got, TR.textrank_cuda(sim))
     host = ops.textrank_scores(sim.cpu().numpy(), device="cuda",
                                stream=torch.cuda.Stream())
     assert np.array_equal(host, got.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,grid", [(300, 1), (1024, 4), (1024, 128),
+                                    (1500, 7), (64, 64), (1024, 1)],
+                         ids=["300-one-block-unstaged", "1024-4-unstaged",
+                              "1024-128", "1500-7-unstaged", "64-64",
+                              "1024-one-block-unstaged"])
+def test_textrank_kernel_any_plan(n, grid):
+    """Every plan (staged or rows read from global memory every step, one
+    block or a grid, one row a block) computes the same function."""
+    _require_cuda()
+    sim = torch.from_numpy(_sim(n, zero_col=n // 3)).cuda()
+    plan = TR.plan_for(n, grid)
+    got = TR._launch(sim, plan)
+    ref = TR.textrank_plain(sim)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= F32_TOL * ref.abs().max().item()
+    assert torch.equal(got, TR._launch(sim, plan))
+
+
+@pytest.mark.gpu
+def test_textrank_library_shared_memory_and_refusals():
+    """The library stages a block's rows in shared memory where they fit
+    and reads them from global memory where they do not, every block
+    fits an SM, and it refuses a plan that skips or repeats rows."""
+    _require_cuda()
+    index = torch.cuda.current_device()
+    for n, grid, staged in ((64, 1, True), (300, 1, False),
+                            (1024, 128, True), (1024, 4, False)):
+        blk = TR.block(TR.plan_for(n, grid), index)
+        assert blk.staged == staged and blk.per_sm >= 1
+        assert blk.smem <= 232448
+    sim = torch.ones(100, 100, device="cuda")
+    out = torch.empty(100, device="cuda")
+    scratch = torch.empty(20 * 100, device="cuda")
+    fn = TR.KERNEL.function()
+    stream = torch.cuda.current_stream().cuda_stream
+    for rows, grid in ((10, 9), (10, 11), (9, 11)):   # short, empty, short
+        assert fn(sim.data_ptr(), 100, 100, rows, grid, 320, 0.85, 30,
+                  scratch.data_ptr(), scratch.data_ptr() + 4 * 1500,
+                  out.data_ptr(), stream) != 0
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the launch plan (host side, no card)
+# ---------------------------------------------------------------------------
+@given(n=st.integers(1, TR.MAX_N), sms=st.integers(1, 264),
+       per_sm=st.integers(1, 4))
+@settings(max_examples=300, deadline=None)
+def test_grid_plan_partitions_rows(n, sms, per_sm):
+    """Every row belongs to exactly one block, no block is empty, the
+    grid never exceeds the SM count, and a block's threads fit what the
+    card gives."""
+    plan = TR.grid_plan(n, sms, lambda plan: per_sm)
+    owned = [min(n, (g + 1) * plan.rows) - g * plan.rows
+             for g in range(plan.grid)]
+    assert plan.n == n and sum(owned) == n and min(owned) >= 1
+    assert 1 <= plan.grid <= sms
+    assert plan.threads % 32 == 0 and 128 <= plan.threads <= 1024
+    assert plan.grid == 1 or plan.grid >= min(TR.MIN_GRID, sms) \
+        or plan.rows > TR.ROWS
+    if n <= TR.SINGLE_MAX:
+        assert plan.grid == 1
+
+
+def test_grid_plan_follows_occupancy():
+    """A grid the occupancy query cannot hold at once is halved until it
+    fits (a grid barrier needs every block resident); a block that fits
+    no SM raises."""
+    full = TR.grid_plan(1024, 132, lambda plan: 1)
+    assert (full.grid, full.rows) == (32, 32)
+    seen = []
+
+    def tight(plan):
+        seen.append(plan.grid)
+        return 1 if plan.grid <= 16 else 0
+    plan = TR.grid_plan(1500, 132, tight)
+    assert seen == [47, 23, 11] and plan.grid == 11 and plan.rows == 137
+    with pytest.raises(RuntimeError, match="fits"):
+        TR.grid_plan(64, 132, lambda *a: 0)
+    with pytest.raises(ValueError, match="sentences"):
+        TR.grid_plan(TR.MAX_N + 1, 132, lambda *a: 1)
