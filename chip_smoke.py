@@ -69,6 +69,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
    8192 - 64 tokens with the kernel scorer and the numpy scorer; prints
    the kept-set agreement, compression_ms of each and the split between
    tfidf_matrix, the similarity product and TextRank.
+7. speculation and overload survival, minitron-8b bf16 at full width
+   unless said otherwise; the launch counts are reset before each part.
+   (b) the phase-5 fleet, paged, with ``--spec-k 4`` against spec_k 1
+   (random weights: drafts mostly rejected): every request completes;
+   both runs log the logits behind each emitted token, which may differ
+   by at most BF16_DRIFT_ULPS wherever the histories agree, and tokens
+   are equal but where the plain run's preference at the first
+   divergence is a bf16 near-tie (BF16_GAP_ULPS). (a) the agent-loop
+   weights (``agent_loop_params``: new tensors beside the random ones),
+   one dense and one paged engine (n_max 4, c_max 4096, decode_k 4) at
+   spec_k 1, 2 and 4 on in-cycle prompts: acceptance 1.0, kappa ==
+   spec_k, the same tokens bitwise; decode tokens/s and ms per dispatch.
+   (c) reduced minitron-8b f32 on the card against the CPU (phase 4's
+   rule): spec_k 4, and swap- and recompute-resume of a preempted
+   request, dense and paged, decode_k 1 and 4. (d) the paged long pool
+   (c_max 4096, n_max 4) with 320 blocks under 8 requests of 1,000-2,500
+   tokens (64 new each) and preemption: a swap out and in at least, every
+   request completes, each swapped block's bits restored exactly, the
+   host tier empty and the block invariants holding at idle, tokens equal
+   an unloaded run's (the near-tie rule); preempt / swap / recompute
+   counts and swap ms per block. Then the same stream with queue-wait
+   shedding: shed + completed = submitted. (e) lout_reservation on that
+   pool (84 blocks, agent-loop weights, EOS in the cycle): peak admitted
+   concurrency above the worst-case run's, a breach that preempts and
+   never runs out of blocks, the same tokens; then lout_routing through
+   the fleet: an over-claiming request routed short by its predicted
+   output length, its budget clamped to that pool, completes.
 
 Then it prints the ``kernels`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -77,6 +104,7 @@ JAX and nothing of the JAX package.
 import contextlib
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -139,6 +167,37 @@ def template_prompt(n_tokens: int, tokenizer, topic: str) -> str:
     while tokenizer.count(prompt(n + 1, topic)) <= n_tokens:
         n += 1
     return prompt(n, topic)
+
+
+AGENT_CYCLE = 48          # agent-loop period, > the longest draft walk K*W-1
+
+
+def agent_loop_params(cfg, params, cycle: int = AGENT_CYCLE):
+    """Parameters whose greedy continuation is a pure token cycle, the
+    torch twin of ``benchmarks/bench_speculative.py::agent_loop_model``:
+    ``attn.wo`` and ``mlp.down`` zeroed make every residual block a
+    no-op, so the last hidden state is the embedding of the last token
+    alone, and ``lm_head`` maps cycle token t to t+1 mod ``cycle`` by its
+    rms-normed, unit-length embedding (x4). Every n-gram draft copied from
+    an in-cycle history is then right: acceptance 1.0 by construction.
+    Returns a new dict: the changed leaves are new tensors (the zeroed
+    stacks broadcast one zero layer), the others are ``params``'s own."""
+    import torch
+    attn, mlp = params["layers"]["attn"], params["layers"]["mlp"]
+
+    def zeros(a):
+        return torch.zeros_like(a[:1]).expand_as(a)
+    emb = params["embed"][:cycle].float()
+    h = emb / torch.sqrt((emb ** 2).mean(-1, keepdim=True) + 1e-5) \
+        * params["final_ln"].float()
+    u = h / torch.linalg.vector_norm(h, dim=-1, keepdim=True)
+    head = torch.zeros((cfg.d_model, cfg.vocab_size),
+                       dtype=params["embed"].dtype, device=emb.device)
+    nxt = (torch.arange(cycle, device=emb.device) + 1) % cycle
+    head[:, nxt] = (u * 4.0).T.to(head.dtype)
+    layers = dict(params["layers"], attn=dict(attn, wo=zeros(attn["wo"])),
+                  mlp=dict(mlp, down=zeros(mlp["down"])))
+    return dict(params, layers=layers, lm_head=head)
 
 
 def fail(msg: str) -> None:
@@ -965,31 +1024,46 @@ def _prefix_cache_parity(cfg, params, cpu_params):
 
 
 # ----------------------------------------------------------------- phase 5
+def fleet_args(**over):
+    """``launch.serve``'s arguments for the full-width minitron-8b K=2
+    fleet on the card (azure plan, decode_k 4, 64 new tokens)."""
+    import argparse
+    kw = dict(arch="minitron-8b", reduced=False, fleet=2, workload="azure",
+              lam=1000.0, paged=False, prefix_cache=False, decode_k=4,
+              spec_k=1, preemption=False, max_queue_wait=None,
+              new_tokens=64, device="cuda")
+    return argparse.Namespace(**dict(kw, **over))
+
+
 @contextlib.contextmanager
-def _decode_timer(log):
-    """Time every decode-only dispatch on the host clock, the device
-    synchronised on both ends (the dispatch itself ends in a sync)."""
+def _decode_timer(log, methods=("_run_decode_scan",)):
+    """Time every decode-only dispatch (the engine's ``methods``) on the
+    host clock, the device synchronised on both ends (the dispatch itself
+    ends in a sync)."""
     import torch
     from repro_torch.serving.engine import InferenceEngine
-    orig = InferenceEngine._run_decode_scan
+    origs = {m: getattr(InferenceEngine, m) for m in methods}
 
-    def timed(self, mask):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        before = self.decode_tokens_emitted
-        orig(self, mask)
-        torch.cuda.synchronize()
-        log.append((time.perf_counter() - t0,
-                    self.decode_tokens_emitted - before))
-    InferenceEngine._run_decode_scan = timed
+    def wrap(orig):
+        def timed(self, mask):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            before = self.decode_tokens_emitted
+            orig(self, mask)
+            torch.cuda.synchronize()
+            log.append((time.perf_counter() - t0,
+                        self.decode_tokens_emitted - before))
+        return timed
+    for m, orig in origs.items():
+        setattr(InferenceEngine, m, wrap(orig))
     try:
         yield
     finally:
-        InferenceEngine._run_decode_scan = orig
+        for m, orig in origs.items():
+            setattr(InferenceEngine, m, orig)
 
 
 def phase_fleet():
-    import argparse
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -997,10 +1071,7 @@ def phase_fleet():
     tokens = {}
     launches = {}
     for paged, kernel in ((False, ops.KERNELS[0]), (True, ops.KERNELS[1])):
-        args = argparse.Namespace(arch="minitron-8b", reduced=False, fleet=2,
-                                  workload="azure", lam=1000.0, paged=paged,
-                                  prefix_cache=False, decode_k=4,
-                                  new_tokens=64, device="cuda")
+        args = fleet_args(paged=paged)
         torch.cuda.reset_peak_memory_stats()
         decode_log = []
         for kk in ops.KERNELS:
@@ -1123,17 +1194,13 @@ def _session_turn(rt, req, log):
 
 def phase_gateway():
     """Returns the TextRank launches of the gateway path."""
-    import argparse
     import numpy as np
     import torch
     from repro_torch.core.compression import ExtractiveCompressor
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.serving.pools import GatewayRequest
-    args = argparse.Namespace(arch="minitron-8b", reduced=False, fleet=2,
-                              workload="azure", lam=1000.0, paged=False,
-                              prefix_cache=True, decode_k=4, new_tokens=64,
-                              device="cuda")
+    args = fleet_args(prefix_cache=True)
     torch.cuda.reset_peak_memory_stats()
     runs = []
     t0 = time.perf_counter()
@@ -1337,6 +1404,641 @@ def phase_compressor_paper_size():
           f"{len(PAPER_PROMPT_TOKENS)}")
 
 
+# ----------------------------------------------------------------- phase 7
+# Full-width bf16 token comparisons of two paths (verify windows vs plain
+# decode; loaded vs unloaded batches, other prefill buckets) hold exactly
+# only where the bits are provably the same. Elsewhere both runs log the
+# logits behind every token they emit (_logit_log), and the path run is
+# held to the plain run's logits: wherever the two have the same history,
+# the path's logits may differ from the plain run's by at most
+# BF16_DRIFT_ULPS bf16 ulps of the plain top logit, over the whole
+# vocabulary; a first divergence passes only where the plain run prefers
+# its own token to the path's by at most BF16_GAP_ULPS = twice that (each
+# of the two logits moved by the drift bound, in opposite directions).
+# The largest drift read on an H100 80GB HBM3 (700 W) was 4.38 ulps in
+# (b) and 3.29 in (d) (PERF.md section 6); 9 is 4.38 with a factor 2 of
+# margin. A wrong history moves the logits by far more: the smoke prints
+# the least drift between consecutive positions of one plain request.
+BF16_DRIFT_ULPS = 9
+BF16_GAP_ULPS = 2 * BF16_DRIFT_ULPS
+DEVICE = "cuda"
+SPEC_KS = (1, 2, 4)
+AGENT_PROMPT, AGENT_NEW = 200, 64        # in-cycle prompts; 64 = 16 x 4
+OVERLOAD_LENS, OVERLOAD_NEW = (1000, 2500), 64
+OVERLOAD_BLOCKS = 320                    # 5120 tokens: ~2 worst cases fit
+LOUT_PROMPT, LOUT_CLAIM, LOUT_HINT = 310, 1024, 16
+LOUT_BLOCKS = 84          # one worst case (84 blocks) or four hints (21)
+# the model's step functions the engine dispatches emit tokens from, with
+# the names of their (fed tokens, positions, rows' window lengths) inputs
+_STEP_ARGS = {"decode_step": ("token", "pos", "active"),
+              "paged_decode_step": ("token", "pos", "active"),
+              "mixed_step": ("decode_tokens", "pos", "decode_active"),
+              "paged_mixed_step": ("decode_tokens", "pos", "decode_active"),
+              "verify_step": ("tokens", "start_pos", "lengths"),
+              "paged_verify_step": ("tokens", "start_pos", "lengths")}
+_DISPATCHES = ("_run_decode", "_run_decode_scan", "_run_spec_scan",
+               "_run_mixed")
+
+
+def _bf16_ulp(x: float) -> float:
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def _full_width():
+    """minitron-8b at full width (bf16) and random weights from seed 0 on
+    the card."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("minitron-8b")
+    return cfg, M.init_params(cfg, seed=0, device=DEVICE)
+
+
+@contextlib.contextmanager
+def _logit_log(log):
+    """Log the logits behind every token a serving run emits: ``log[rid]
+    [j]`` is an f32 copy, on the card, of the logits the request's output
+    token ``j`` was the argmax of. Patches the model's step functions to
+    keep each call's (fed tokens, positions, window lengths, logits) and
+    the engine's dispatches to assign them to requests after the
+    dispatch's own host sync (outside _decode_timer's clock when entered
+    after it). A verify-window position counts only where the drafts fed
+    before it are the tokens the run emitted there."""
+    import inspect
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import InferenceEngine
+    calls, live = [], [False]
+    fns = {n: getattr(M, n) for n in _STEP_ARGS}
+    disp = {m: getattr(InferenceEngine, m) for m in _DISPATCHES}
+
+    def wrap_step(fn, names):
+        sig = inspect.signature(fn)
+
+        def step(*a, **kw):
+            logits, cache = fn(*a, **kw)
+            if live[0]:
+                b = sig.bind(*a, **kw).arguments
+                toks, pos, lens = (b.get(n) for n in names)
+                if lens is None:            # decode_step's default
+                    lens = torch.ones_like(pos)
+                calls.append((toks, pos, lens.long(), logits if
+                              logits.dim() == 3 else logits[:, None]))
+            return logits, cache
+        return step
+
+    def wrap_dispatch(orig):
+        def dispatch(self, *a, **kw):
+            rows = {s: (self.slot_req[s].rid, self.slot_out[s],
+                        len(self.slot_out[s]), int(self.slot_pos[s]))
+                    for s in range(self.n_max) if self.slot_req[s] is not None}
+            live[0] = True
+            try:
+                res = orig(self, *a, **kw)
+            finally:
+                live[0] = False
+            for toks, pos, lens, logits in calls:
+                toks, pos, lens = (t.cpu().tolist() for t in (toks, pos, lens))
+                for s, (rid, out, j0, p0) in rows.items():
+                    for i in range(lens[s]):
+                        j = j0 + pos[s] - p0 + i
+                        if j >= len(out) or toks[s][1:i + 1] != out[j - i:j]:
+                            break
+                        log.setdefault(rid, {})[j] = logits[s, i].to(
+                            torch.float32, copy=True)
+            calls.clear()
+            return res
+        return dispatch
+    for n, fn in fns.items():
+        setattr(M, n, wrap_step(fn, _STEP_ARGS[n]))
+    for m, orig in disp.items():
+        setattr(InferenceEngine, m, wrap_dispatch(orig))
+    try:
+        yield
+    finally:
+        for n, fn in fns.items():
+            setattr(M, n, fn)
+        for m, orig in disp.items():
+            setattr(InferenceEngine, m, orig)
+
+
+def _logged(log, rid, j, tok, what):
+    """The logged logits of ``rid``'s output token ``j``; fails unless
+    ``tok`` is their argmax (the log is the run's own)."""
+    v = log.get(rid, {}).get(j)
+    if v is None or v[tok] != v.max():
+        fail(f"{what}: the logit log does not hold rid {rid} token {j}")
+    return v
+
+
+def _bf16_flips(plain_log, path_log, want, got, what) -> int:
+    """Hold a full-width bf16 run (``got`` tokens, ``path_log``) against
+    the plain run (``want``, ``plain_log``) by the drift and near-tie rule
+    above. Prints the plain run's top-2 gap over every emitted position,
+    the largest drift where the histories agree, and each first divergence
+    with the plain run's preference there. Returns the divergences."""
+    import torch
+    gaps, drift, n_drift, flips = [], 0.0, 0, 0
+    for rid, toks in want.items():
+        for j, t in enumerate(toks):
+            top = torch.topk(_logged(plain_log, rid, j, t, what), 2).values
+            top = top.tolist()
+            gaps.append((top[0] - top[1]) / _bf16_ulp(top[0]))
+        mine = got[rid]
+        n = min(len(mine), len(toks))
+        d = next((i for i in range(n) if mine[i] != toks[i]), n)
+        if d == n and len(mine) != len(toks):
+            fail(f"{what}: rid {rid} stopped at {len(mine)} tokens, the "
+                 f"plain run at {len(toks)}")
+        for j in range(min(d + 1, n)):        # the same history up to d
+            p = _logged(plain_log, rid, j, toks[j], what)
+            q = _logged(path_log, rid, j, mine[j], what)
+            ulps = float((q - p).abs().max()) / _bf16_ulp(float(p.max()))
+            drift, n_drift = max(drift, ulps), n_drift + 1
+        if d < n:
+            p = plain_log[rid][d]
+            pref = float(p[toks[d]] - p[mine[d]])
+            lim = BF16_GAP_ULPS * _bf16_ulp(float(p.max()))
+            print(f"[spec/overload] {what}: rid {rid} step {d}: {mine[d]} vs "
+                  f"{toks[d]}; the plain run prefers its token by "
+                  f"{pref:.5f} (near-tie limit {lim:.5f}), top-2 gap "
+                  f"{gaps[len(gaps) - len(toks) + d]:.2f} ulps")
+            if pref > lim:
+                fail(f"{what}: tokens differ away from a bf16 near-tie (rid "
+                     f"{rid}, step {d}, {pref:.5f} > {lim:.5f})")
+            flips += 1
+    # for scale: the drift a one-token shift of the history causes
+    shift = sorted(float((v[j] - v[j - 1]).abs().max()) / _bf16_ulp(
+        float(v[j].max())) for v in plain_log.values() for j in v
+        if j - 1 in v)
+    gaps.sort()
+    q = lambda f: gaps[min(len(gaps) - 1, int(f * len(gaps)))]  # noqa
+    print(f"[spec/overload] {what}: largest |logit - plain logit| over "
+          f"{n_drift} positions with the plain run's history: {drift:.2f} "
+          f"bf16 ulps of the top logit (limit {BF16_DRIFT_ULPS}; a shift "
+          f"of the plain history by one position: least {shift[0]:.2f}, "
+          f"median {shift[len(shift) // 2]:.2f}); "
+          f"plain top-2 gap over {len(gaps)} emitted positions, in ulps: min "
+          f"{gaps[0]:.2f}, p10 {q(.1):.2f}, p25 {q(.25):.2f}, median "
+          f"{q(.5):.2f}, p90 {q(.9):.2f}, max {gaps[-1]:.2f}; "
+          f"{sum(g <= BF16_GAP_ULPS for g in gaps)}/{len(gaps)} within the "
+          f"near-tie limit ({BF16_GAP_ULPS} ulps)")
+    if drift > BF16_DRIFT_ULPS:
+        fail(f"{what}: logits drift {drift:.2f} ulps from the plain run's "
+             f"where the histories agree (limit {BF16_DRIFT_ULPS})")
+    return flips
+
+
+def _reset_launches():
+    from repro_torch.kernels import ops
+    for k in ops.KERNELS:
+        k.launches = 0
+
+
+def _launch_counts(need=(), what=""):
+    from repro_torch.kernels import ops
+    counts = {k.name: k.launches for k in ops.KERNELS}
+    for name in need:
+        if counts[name] == 0:
+            fail(f"{what}: the path never launched {name}")
+    return counts
+
+
+def _drain(eng, requests, on_step=None):
+    """Submit ``requests`` (ServeRequest kwargs) and step to idle;
+    ``on_step(eng)`` after every step. Returns the tokens by rid."""
+    from repro_torch.serving.engine import ServeRequest
+    for r in requests:
+        eng.submit(ServeRequest(**r))
+    while eng.busy():
+        eng.step()
+        if on_step is not None:
+            on_step(eng)
+        if eng.iteration > 100_000:
+            fail("engine did not drain")
+    return {rid: r.output_tokens for rid, r in sorted(eng.results.items())}
+
+
+def phase_spec_overload():
+    """Phase 7: speculation, overload survival and output-length-aware
+    reservation on the card (module docstring)."""
+    import torch
+    t0 = time.perf_counter()
+    _spec_fleet()
+    cfg, base = _full_width()
+    _spec_agent_loop(cfg, base)
+    _reduced_parity()
+    _overload(cfg, base)
+    _lout(cfg, base)
+    del base
+    torch.cuda.empty_cache()
+    print(f"[spec/overload] phase 7: {time.perf_counter() - t0:.1f} s")
+
+
+@contextlib.contextmanager
+def _request_log(log):
+    """Record every ServeRequest an engine takes: rid -> prompt ids."""
+    from repro_torch.serving.engine import InferenceEngine
+    orig = InferenceEngine.submit
+
+    def logged(self, req):
+        log[req.rid] = list(req.tokens)
+        return orig(self, req)
+    InferenceEngine.submit = logged
+    try:
+        yield
+    finally:
+        InferenceEngine.submit = orig
+
+
+def _spec_fleet():
+    """(b) ``launch.serve --fleet 2 --paged --decode-k 4 --spec-k 4`` at
+    full width with random weights (drafts mostly rejected) against the
+    same fleet at spec_k 1."""
+    import torch
+    from repro_torch.launch import serve
+    out, launches, logs = {}, {}, {}
+    for sk in (1, 4):
+        _reset_launches()
+        log, logs[sk] = [], {}
+        with _decode_timer(log, ("_run_decode_scan", "_run_spec_scan")), \
+                _logit_log(logs[sk]):
+            rt, results, secs = serve.serve_fleet(
+                fleet_args(paged=True, spec_k=sk, device=DEVICE),
+                slots_per_pool=4,
+                c_chunk=256, long_ctx=4096)
+        launches[sk] = _launch_counts(("paged_decode",), f"fleet spec_k={sk}")
+        for rid, res in results.items():
+            if res.timed_out or not res.output_tokens:
+                fail(f"fleet spec_k={sk}: request {rid} did not complete")
+        out[sk] = {rid: r.output_tokens for rid, r in results.items()}
+        dec_s, dec_tok = sum(t for t, _ in log), sum(n for _, n in log)
+        spec = {n: (round(e.spec_kappa(), 4),
+                    round(e.spec_acceptance_rate(), 4),
+                    dict(e.spec_stats)) for n, e in rt.engines.items()}
+        print(f"[spec/overload] (b) fleet minitron-8b bf16 full width, paged,"
+              f" decode_k=4, spec_k={sk}: {len(results)} requests, "
+              f"{sum(map(len, out[sk].values()))} tokens in {secs:.2f} s "
+              f"(logit log included); "
+              f"decode-only {dec_tok} tokens in {len(log)} dispatches "
+              f"({dec_tok / max(dec_s, 1e-9):.1f} tokens/s, "
+              f"{1e3 * dec_s / max(1, len(log)):.2f} ms per dispatch); "
+              f"kappa / acceptance / stats {spec}; launches {launches[sk]}")
+        del rt, results
+    flips = _bf16_flips(logs[1], logs[4], out[1], out[4],
+                        "(b) fleet spec_k=4 vs 1")
+    same = sum(out[4][r] == out[1][r] for r in out[1])
+    print(f"[spec/overload] (b) fleet spec_k=4 vs spec_k=1: {same}/"
+          f"{len(out[1])} requests equal, {flips} first divergences at "
+          f"bf16 near-ties")
+    del logs
+    torch.cuda.empty_cache()
+
+
+def _cycle_requests(cycle, starts, l_in, max_new, **extra):
+    return [dict(rid=i, tokens=[(s + j) % cycle for j in range(l_in)],
+                 max_new_tokens=max_new, **extra)
+            for i, s in enumerate(starts)]
+
+
+def _spec_agent_loop(cfg, base):
+    """(a) The agent-loop weights at full width: acceptance 1, kappa ==
+    spec_k, tokens equal the spec_k = 1 run's bitwise, dense and paged."""
+    import torch
+    from repro_torch.serving.engine import InferenceEngine
+    params = agent_loop_params(cfg, base)
+    reqs = _cycle_requests(AGENT_CYCLE, (0, 11, 23, 37), AGENT_PROMPT,
+                           AGENT_NEW)
+    want = {r["rid"]: [(r["tokens"][-1] + 1 + j) % AGENT_CYCLE
+                       for j in range(AGENT_NEW)] for r in reqs}
+    for paged in (False, True):
+        outs = {}
+        for sk in SPEC_KS:
+            _reset_launches()
+            eng = InferenceEngine(cfg, params, n_max=4, c_max=4096,
+                                  c_chunk=256, decode_k=4, spec_k=sk,
+                                  paged=paged, eos_id=None)
+            log = []
+            with _decode_timer(log, ("_run_decode_scan", "_run_spec_scan")):
+                outs[sk] = _drain(eng, reqs)
+            counts = _launch_counts()
+            kappa, acc = eng.spec_kappa(), eng.spec_acceptance_rate()
+            if outs[sk] != want:
+                fail(f"(a) agent loop spec_k={sk} paged={paged}: tokens are "
+                     f"not the cycle")
+            if sk > 1 and (acc != 1.0 or kappa != sk):
+                fail(f"(a) agent loop spec_k={sk} paged={paged}: acceptance "
+                     f"{acc}, kappa {kappa}; stats {eng.spec_stats}")
+            dec_s, dec_tok = sum(t for t, _ in log), sum(n for _, n in log)
+            print(f"[spec/overload] (a) agent loop minitron-8b bf16 full "
+                  f"width, paged={paged}, n_max 4, c_max 4096, decode_k 4, "
+                  f"spec_k={sk}: acceptance {acc:.4f}, kappa {kappa:.4f}, "
+                  f"{dec_tok} decode tokens in {len(log)} dispatches: "
+                  f"{dec_tok / dec_s:.1f} tokens/s, "
+                  f"{1e3 * dec_s / len(log):.2f} ms per dispatch; stats "
+                  f"{eng.spec_stats}; launches {counts}")
+            del eng
+        if not (outs[1] == outs[2] == outs[4]):
+            fail(f"(a) agent loop paged={paged}: spec_k runs differ")
+    del params
+    torch.cuda.empty_cache()
+
+
+def _drive_preempt(eng, reqs, preempt_at, mode):
+    """Drain ``reqs``, preempting the last decoding slot at the first
+    step from ``preempt_at`` on that has one."""
+    def on_step(e):
+        if e.iteration >= preempt_at and not e.overload_stats["preempted"]:
+            decoding = [s for s in range(e.n_max) if e.slot_req[s]
+                        is not None and not e.slot_prefill_left[s]]
+            if decoding:
+                e.preempt_slot(decoding[-1], mode=mode)
+    out = _drain(eng, reqs, on_step)
+    st = eng.overload_stats
+    if st["preempted"] != 1 or eng.host_tier_blocks() != 0:
+        fail(f"(c) {mode}: overload stats {st}")
+    return out
+
+
+def _reduced_parity():
+    """(c) Reduced minitron-8b f32 on the card against the CPU (phase 4's
+    rule): spec_k 4 vs plain, and swap / recompute resume vs an unloaded
+    run, dense and paged, decode_k 1 and 4."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import InferenceEngine
+    cfg = dataclasses.replace(get_config("minitron-8b").reduced(),
+                              dtype="float32")
+    params = M.init_params(cfg, seed=0, device=DEVICE)
+    cpu_params = _to_cpu(params)
+    reqs = _stream()
+    _reset_launches()
+    n_cases = flips = 0
+    for paged in (False, True):
+        kw = dict(n_max=3, c_max=128, c_chunk=16, eos_id=7)
+        if paged:
+            kw.update(paged=True, block_size=16)
+        cpu = _drain(InferenceEngine(cfg, cpu_params, **kw), reqs)
+        for dk in (1, 4):
+            got = _drain(InferenceEngine(cfg, params, decode_k=dk, spec_k=4,
+                                         **kw), reqs)
+            flips += _near_tie_flips(cfg, cpu_params, reqs, got, cpu,
+                                     f"(c) spec_k=4 decode_k={dk} "
+                                     f"paged={paged}")
+            for mode in ("swap", "recompute"):
+                eng = InferenceEngine(cfg, params, decode_k=dk, **kw)
+                got = _drive_preempt(eng, reqs, 6, mode)
+                flips += _near_tie_flips(cfg, cpu_params, reqs, got, cpu,
+                                         f"(c) {mode} decode_k={dk} "
+                                         f"paged={paged}")
+            n_cases += 3
+    counts = _launch_counts(("gqa_decode", "paged_decode"), "(c)")
+    print(f"[spec/overload] (c) reduced minitron-8b f32, card vs CPU: "
+          f"{n_cases} runs (spec_k 4; swap and recompute resume; dense and "
+          f"paged; decode_k 1 and 4) equal the CPU's unloaded plain tokens "
+          f"({flips} near-tie flips); launches {counts}")
+    del params
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _swap_probe(log):
+    """Check each swap on the card: the host copy equals the device
+    blocks it left (read by plain indexing before the swap-out), and
+    after the swap-in the fresh blocks hold those bits; logs (direction,
+    blocks, seconds) with the device synchronised around each call."""
+    import torch
+    from repro_torch.serving.engine import InferenceEngine
+    out_orig, in_orig = InferenceEngine._swap_out, InferenceEngine._swap_in
+
+    def swap_out(self, s):
+        before = {k: a[:, self._slot_blocks[s]].clone()
+                  for k, a in self.cache["kv"].items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = out_orig(self, s)
+        torch.cuda.synchronize()
+        log.append(("out", len(self._slot_blocks[s]),
+                    time.perf_counter() - t0))
+        if not all(torch.equal(host[k].to(a.device), a)
+                   for k, a in before.items()):
+            fail("(d) swap-out: the host copy differs from the device blocks")
+        return host
+
+    def swap_in(self, s, qi, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = in_orig(self, s, qi, state)
+        torch.cuda.synchronize()
+        if res == "admitted":
+            log.append(("in", state.n_blocks, time.perf_counter() - t0))
+            blocks = self._slot_blocks[s]
+            for k, a in self.cache["kv"].items():
+                if not torch.equal(a[:, blocks].cpu(), state.host_kv[k]):
+                    fail("(d) swap-in: restored blocks differ from the bits "
+                         "swapped out")
+        return res
+    InferenceEngine._swap_out, InferenceEngine._swap_in = swap_out, swap_in
+    try:
+        yield
+    finally:
+        InferenceEngine._swap_out, InferenceEngine._swap_in = out_orig, in_orig
+
+
+def _overload(cfg, base):
+    """(d) The paged long pool at full width under 8 requests of
+    1,000-2,500 tokens that its blocks cannot all reserve: preemption
+    swaps, every request completes with the unloaded run's tokens (bf16
+    near-tie rule), the swapped bits come back exactly; then the same
+    stream with queue-wait shedding."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.engine import InferenceEngine
+    rng = np.random.default_rng(17)
+    reqs = [dict(rid=i, tokens=[int(t) for t in rng.integers(
+        1, cfg.vocab_size, int(rng.integers(*OVERLOAD_LENS)))],
+        max_new_tokens=OVERLOAD_NEW) for i in range(8)]
+    prompts = {r["rid"]: r["tokens"] for r in reqs}
+    kw = dict(n_max=4, c_max=4096, c_chunk=256, paged=True, decode_k=4,
+              eos_id=None)
+    plain_log, path_log = {}, {}
+    with _logit_log(plain_log):
+        unloaded = _drain(InferenceEngine(cfg, base, **kw), reqs)
+    _reset_launches()
+    swaps = []
+    eng = InferenceEngine(cfg, base, num_blocks=OVERLOAD_BLOCKS,
+                          preemption=True, **kw)
+    worst = sum(eng._worst_case_blocks(r) for r in map(_as_req, reqs))
+    t0 = time.perf_counter()
+    with _swap_probe(swaps), _logit_log(path_log):
+        got = _drain(eng, reqs, lambda e: e.assert_block_invariants())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _launch_counts(("paged_decode",), "(d)")
+    st = eng.overload_stats
+    if st["swapped_out"] < 1 or st["swapped_in"] < 1:
+        fail(f"(d) no swap at full width: {st}")
+    if sorted(got) != list(range(8)) or not all(map(len, got.values())):
+        fail(f"(d) not every request completed: {sorted(got)}")
+    if eng.host_tier_blocks() != 0:
+        fail("(d) the host tier is not drained at idle")
+    try:
+        eng.assert_block_invariants()
+    except AssertionError as e:
+        fail(f"(d) block invariants at idle: {e}")
+    flips = _bf16_flips(plain_log, path_log, unloaded, got,
+                        "(d) overload vs unloaded")
+    del plain_log, path_log
+    per = {d: [1e3 * t / n for dd, n, t in swaps if dd == d and n]
+           for d in ("out", "in")}
+    med = lambda v: sorted(v)[len(v) // 2] if v else float("nan")  # noqa
+    print(f"[spec/overload] (d) overload, minitron-8b bf16 full width, paged"
+          f" long pool (c_max 4096, n_max 4, {OVERLOAD_BLOCKS} blocks of 16 "
+          f"for {worst} worst-case blocks), 8 requests of "
+          f"{min(map(len, prompts.values()))}-"
+          f"{max(map(len, prompts.values()))} tokens, 64 new each, "
+          f"decode_k 4: preempted {st['preempted']} (swapped out "
+          f"{st['swapped_out']}, in {st['swapped_in']}, recomputed "
+          f"{st['recomputed']}, {st['swapped_blocks']} blocks), hol_bypass "
+          f"{st['hol_bypass']}; {secs:.2f} s (swap probe, block checks and "
+          f"logit log included); swap ms per block (pageable copies) out "
+          f"median {med(per['out']):.3f} over {len(per['out'])} "
+          f"swaps ({sum(n for d, n, _ in swaps if d == 'out')} blocks), in "
+          f"median {med(per['in']):.3f} over {len(per['in'])}; swapped "
+          f"blocks bitwise restored; 8/8 complete; tokens vs unloaded: "
+          f"{sum(got[r] == unloaded[r] for r in got)}/8 equal, {flips} "
+          f"near-tie divergences; launches {counts}")
+    # the same stream with shedding: four at once, the rest after the
+    # first completion, when the queue-wait estimate exceeds 1 iteration
+    eng = InferenceEngine(cfg, base, num_blocks=OVERLOAD_BLOCKS,
+                          preemption=True, max_queue_wait=1.0, **kw)
+    accepted = [eng.submit(_as_req(r)) for r in reqs[:4]]
+    while not eng.results:
+        eng.step()
+    accepted += [eng.submit(_as_req(r)) for r in reqs[4:]]
+    eng.run_to_completion()
+    shed = [r for r in eng.results.values() if r.shed]
+    done = [r for r in eng.results.values() if not r.shed
+            and len(r.output_tokens) == OVERLOAD_NEW]
+    if not shed or len(shed) + len(done) != len(reqs) \
+            or accepted.count(False) != len(shed) \
+            or any(r.output_tokens for r in shed):
+        fail(f"(d) shedding: {len(shed)} shed + {len(done)} completed != "
+             f"{len(reqs)} submitted (accepted {accepted})")
+    print(f"[spec/overload] (d) with max_queue_wait 1.0: {len(shed)} shed + "
+          f"{len(done)} completed = {len(reqs)} submitted; overload "
+          f"{eng.utilization_snapshot(detail=True)}")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def _as_req(r):
+    from repro_torch.serving.engine import ServeRequest
+    return ServeRequest(**r)
+
+
+def _lout(cfg, base):
+    """(e) lout_reservation on the same pool: requests that claim 1,024
+    new tokens, hint 16, and stop at an EOS of the agent-loop cycle after
+    4-32: the hints admit more at once than the worst case, the overruns
+    preempt and never run the pool dry, and the tokens equal the
+    worst-case run's."""
+    import torch
+    from repro_torch.serving.engine import InferenceEngine
+    params = agent_loop_params(cfg, base)
+    eos = 5
+    # the four admitted first stop after 32, 28, 24 and 20 tokens: the
+    # two past 336 positions outgrow their 21 blocks with no headroom
+    # left; then 16, 12, 8 and 4
+    reqs = _cycle_requests(AGENT_CYCLE, (0, 4, 8, 12, 16, 20, 24, 28),
+                           LOUT_PROMPT, LOUT_CLAIM, l_out_hint=LOUT_HINT)
+    runs = {}
+    for lout in (False, True):
+        _reset_launches()
+        eng = InferenceEngine(cfg, params, n_max=4, c_max=4096, c_chunk=256,
+                              paged=True, num_blocks=LOUT_BLOCKS,
+                              preemption=True, lout_reservation=lout,
+                              decode_k=4, eos_id=eos)
+        peak = [0]
+
+        def on_step(e):
+            peak[0] = max(peak[0], sum(r is not None for r in e.slot_req))
+        got = _drain(eng, reqs, on_step)
+        counts = _launch_counts(("paged_decode",), f"(e) lout={lout}")
+        try:
+            eng.assert_block_invariants()
+        except AssertionError as e:
+            fail(f"(e) block invariants at idle: {e}")
+        if not all(t and t[-1] == eos for t in got.values()):
+            fail(f"(e) lout={lout}: a request did not stop at its EOS")
+        runs[lout] = (got, peak[0], dict(eng.overload_stats))
+        print(f"[spec/overload] (e) lout_reservation={lout}, agent loop "
+              f"minitron-8b bf16 full width, {LOUT_BLOCKS} blocks, 8 requests "
+              f"of {LOUT_PROMPT} tokens claiming {LOUT_CLAIM} (hint "
+              f"{LOUT_HINT}), outputs {sorted(map(len, got.values()))}: peak "
+              f"concurrent admitted {peak[0]}; overload {runs[lout][2]}; "
+              f"launches {counts}")
+        del eng
+    (worst, c_worst, _), (hint, c_hint, st) = runs[False], runs[True]
+    if c_hint <= c_worst:
+        fail(f"(e) hints admitted {c_hint} at once, worst case {c_worst}")
+    if st["reservation_breach"] < 1 or st["preempted"] < 1:
+        fail(f"(e) no breach preemption under the hints: {st}")
+    if hint != worst:
+        fail("(e) lout_reservation changed the tokens")
+    print(f"[spec/overload] (e) peak concurrency {c_hint} with hints vs "
+          f"{c_worst} worst case; {st['reservation_breach']} breaches, "
+          f"{st['preempted']} preemptions, never out of blocks; tokens equal")
+    del params
+    torch.cuda.empty_cache()
+    _lout_routing(cfg, base)
+
+
+def _lout_routing(cfg, base):
+    """(e) lout_routing through the phase-5 fleet (random weights): a
+    450-token prompt claiming 2,000 new tokens goes long by its worst
+    case, short by its predicted output length, with the budget clamped
+    to the short pool's context and the prediction as its hint; it
+    completes there."""
+    import torch
+    from repro_torch.core.planner import plan_k_pool
+    from repro_torch.core.workload import get_workload
+    from repro_torch.serving.config import ServingConfig
+    from repro_torch.serving.pools import FleetRuntime, GatewayRequest
+    plan = plan_k_pool(get_workload("azure"), lam=1000.0, t_slo=0.5, k=2)
+    seen, pools = {}, {}
+    for lout in (False, True):
+        rt = FleetRuntime.from_plan(
+            cfg, base, plan, slots_per_pool=4, c_chunk=256,
+            ctx_scale=4096 / plan.pools[-1].c_max,
+            config=ServingConfig(paged=True, preemption=True, decode_k=4,
+                                 lout_routing=lout, lout_reservation=lout))
+        text = template_prompt(450, rt.tokenizer, "lout")
+        with _request_log(seen):
+            pools[lout] = rt.submit(GatewayRequest(0, text, 2000)).pool
+        if lout:
+            _reset_launches()
+            short = rt.engines[pools[lout]]
+            req = short.waiting[0]
+            res = rt.run(max_iters=20_000)[0]
+            counts = _launch_counts(("paged_decode",), "(e) lout_routing")
+            if res.timed_out or res.shed or not res.output_tokens \
+                    or len(req.tokens) + req.max_new_tokens > short.c_max \
+                    or len(res.output_tokens) > req.max_new_tokens:
+                fail(f"(e) lout_routing: {res} for {len(req.tokens)} + "
+                     f"{req.max_new_tokens} tokens in c_max {short.c_max}")
+        del rt
+    if pools != {False: "long", True: "short"}:
+        fail(f"(e) lout_routing: pools {pools}")
+    print(f"[spec/overload] (e) lout_routing through the fleet: "
+          f"{len(seen[0])}-token prompt claiming 2000 goes long worst case, "
+          f"short by prediction with max_new {req.max_new_tokens} (short "
+          f"c_max {short.c_max}) and hint {req.l_out_hint}; "
+          f"{len(res.output_tokens)} tokens; launches {counts}")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -1363,6 +2065,7 @@ def main() -> int:
     launches = phase_fleet()
     launches["textrank"] = phase_gateway()
     phase_compressor_paper_size()
+    phase_spec_overload()
     sources = {"gqa_decode": ("src/repro_torch/kernels/csrc/gqa_decode.cu",
                               "src/repro/kernels/gqa_decode.py:29"),
                "paged_decode": ("src/repro_torch/kernels/csrc/paged_decode.cu",

@@ -258,4 +258,6 @@ def _ensure_loaded() -> None:
     if _REGISTRY:
         return
     # import registers
-    from repro_torch.configs import llama3_70b, minitron_8b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        nemotron_4_340b, minitron_8b, qwen1_5_32b, nemotron_4_15b,
+        llama3_70b)

@@ -14,6 +14,12 @@ mixed prompt batch through the C&R gateway and drain it.
   PYTHONPATH=src python -m repro_torch.launch.serve --fleet 2 --reduced \
       --decode-k 4 --prefix-cache --device cpu
 
+  # self-speculative decoding (verify windows of 4) with preemption and
+  # queue-wait shedding; prints kappa / acceptance and the overload line
+  PYTHONPATH=src python -m repro_torch.launch.serve --fleet 2 --reduced \
+      --paged --decode-k 4 --spec-k 4 --preemption --max-queue-wait 8 \
+      --device cpu
+
 The port of ``repro/launch/serve.py``'s ``--fleet`` mode. Runs on
 ``--device cuda`` (the default) and raises when no card is present;
 ``--device cpu`` runs the plain PyTorch versions of the kernels.
@@ -64,9 +70,11 @@ def build_fleet_runtime(args, *, slots_per_pool: int = 2, c_chunk: int = 16,
     if args.reduced:
         cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
     params = M.init_params(cfg, seed=0, device=device)
-    scfg = ServingConfig(paged=args.paged or args.prefix_cache,
-                         prefix_cache=args.prefix_cache,
-                         decode_k=args.decode_k)
+    scfg = ServingConfig(
+        paged=args.paged or args.prefix_cache or args.preemption,
+        prefix_cache=args.prefix_cache, decode_k=args.decode_k,
+        spec_k=args.spec_k, preemption=args.preemption,
+        max_queue_wait=args.max_queue_wait)
     rt = FleetRuntime.from_plan(cfg, params, plan,
                                 slots_per_pool=slots_per_pool,
                                 c_chunk=c_chunk,
@@ -153,6 +161,15 @@ def serve_fleet(args, **build_kw):
     print(f"engine hot path: decode_k={args.decode_k} "
           f"{disp} dispatches / {dtok} decode tokens "
           f"({disp / max(1, dtok):.3f} dispatches/token)")
+    if args.spec_k > 1:
+        for name, eng in rt.engines.items():
+            st = eng.spec_stats
+            if st["verify_windows"]:
+                print(f"  {name}: spec_k={args.spec_k} "
+                      f"kappa={eng.spec_kappa():.2f} "
+                      f"acceptance={eng.spec_acceptance_rate():.2f} "
+                      f"({st['accepted_tokens']}/{st['proposed_tokens']} "
+                      f"draft tokens over {st['verify_windows']} windows)")
     if args.prefix_cache:
         for name, eng in rt.engines.items():
             st = eng.prefix_stats
@@ -161,6 +178,15 @@ def serve_fleet(args, **build_kw):
                       f"({st['hit_tokens']} tokens), "
                       f"{st['allocated_blocks']} allocated, "
                       f"{st['registered_blocks']} registered")
+    if args.preemption or args.max_queue_wait is not None:
+        for name, eng in rt.engines.items():
+            snap = eng.utilization_snapshot(detail=True)
+            print(f"  {name}: overload preempted={snap['preempted']} "
+                  f"(swap={snap['swapped_out']} "
+                  f"recompute={snap['recomputed']}) shed={snap['shed']} "
+                  f"hol_bypass={snap['hol_bypass']} "
+                  f"queue_wait_est={snap['queue_wait_est_iters']:.1f} it "
+                  f"mu={snap['service_rate_per_iter']:.3f}/it")
     return rt, results, dt
 
 
@@ -183,6 +209,18 @@ def main(argv=None):
     ap.add_argument("--decode-k", type=int, default=1, metavar="K",
                     help="decode iterations per dispatch (on-device "
                          "micro-loop)")
+    ap.add_argument("--spec-k", type=int, default=1, metavar="W",
+                    help="self-speculative verify window: 1 carried token "
+                         "+ up to W-1 n-gram draft tokens per decode "
+                         "iteration (1 = off)")
+    ap.add_argument("--preemption", action="store_true",
+                    help="overload survival: preempt (swap / recompute) "
+                         "the newest decoding slot when paged admission "
+                         "would defer (implies --paged)")
+    ap.add_argument("--max-queue-wait", type=float, default=None,
+                    metavar="ITERS",
+                    help="shed arrivals whose estimated queue wait "
+                         "exceeds this many iterations")
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda)")

@@ -341,6 +341,35 @@ def gather_pages(pages, block_tables):
     return pages[bt].reshape(b, nb * bs, *pages.shape[2:])
 
 
+def gather_blocks(pages, idx):
+    """Swap-out half of the host KV tier: exactly the named physical
+    blocks of an engine-level pool leaf, (L, P+1, BLOCK_S, ...) x (NB,)
+    -> (L, NB, BLOCK_S, ...), a new tensor (``index_select``). The
+    blocks are copied verbatim, so a later swap-in restores identical
+    bits whatever physical blocks it lands in."""
+    return pages.index_select(1, idx)
+
+
+def scatter_blocks(pages, vals, idx):
+    """Swap-in half: write (L, NB, BLOCK_S, ...) block contents into the
+    pool in place at freshly allocated physical indices ``idx`` (NB,),
+    which no other slot references."""
+    return pages.index_copy_(1, idx, vals.to(pages.dtype))
+
+
+def gather_slot_row(leaf, s: int):
+    """Dense-cache analog of :func:`gather_blocks`: a copy of slot ``s``'s
+    cache row, (L, B, S, ...) -> (L, S, ...)."""
+    return leaf[:, s].clone()
+
+
+def scatter_slot_row(leaf, row, s: int):
+    """Dense-cache analog of :func:`scatter_blocks`: write a swapped row
+    back into (possibly another) slot ``s``, in place."""
+    leaf[:, s].copy_(row)
+    return leaf
+
+
 def paged_decode_attention(p: Params, cfg: ModelConfig, x, kv, block_tables,
                            pos, decode_impl: str = "kernel", active=None,
                            idx=None):

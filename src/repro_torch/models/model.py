@@ -8,6 +8,7 @@ API and layouts:
   init_paged_cache(cfg, num_blocks, block_size, device)    -> cache
   decode_step / prefill_chunk / mixed_step                 -> (logits, cache)
   paged_decode_step / paged_prefill_chunk / paged_mixed_step
+  verify_step / paged_verify_step          -> (logits (B, L, V), cache)
 
 Parameters are a nested dict of tensors whose per-layer leaves stay
 stacked along a leading layer axis, as in the JAX pytree; layer ``i`` is
@@ -222,9 +223,12 @@ def prefill_chunk(params: Params, cfg: ModelConfig, tokens, cache: Params,
                                 lengths)
 
 
-def _prefill_chunk_fused(params, cfg, tokens, cache, start_pos, lengths):
+def _prefill_chunk_fused(params, cfg, tokens, cache, start_pos, lengths,
+                         all_logits: bool = False):
     """Write the chunk's K/V into the cache in place, then attend the
-    chunk's queries over (cache prefix + chunk) causally."""
+    chunk's queries over (cache prefix + chunk) causally. ``all_logits``
+    (the speculative verify path) returns the LM head over every chunk
+    position, (B, L, V), instead of each row's last."""
     ks, vs = cache["kv"]["k"].unbind(0), cache["kv"]["v"].unbind(0)
     x, start_pos, lengths, rope, valid = _chunk_inputs(
         params, cfg, tokens, start_pos, lengths, ks[0].shape[1])
@@ -237,11 +241,17 @@ def _prefill_chunk_fused(params, cfg, tokens, cache, start_pos, lengths):
             return kc, vc
         x = _mlp_residual(lp, cfg, _chunk_attention(lp, cfg, x, rope, valid,
                                                     kv_view))
-    return _last_logits(params, cfg, x, lengths), cache
+    return _chunk_logits(params, cfg, x, lengths, all_logits), cache
+
+
+def _chunk_logits(params, cfg, x, lengths, all_logits: bool):
+    return _head(params, cfg, x) if all_logits \
+        else _last_logits(params, cfg, x, lengths)
 
 
 def paged_prefill_chunk(params: Params, cfg: ModelConfig, tokens,
-                        cache: Params, block_tables, start_pos, lengths
+                        cache: Params, block_tables, start_pos, lengths,
+                        all_logits: bool = False
                         ) -> Tuple[torch.Tensor, Params]:
     """Paged analog of :func:`prefill_chunk`: the chunk's K/V go through
     the block table, and the queries attend the gathered pages."""
@@ -261,7 +271,34 @@ def paged_prefill_chunk(params: Params, cfg: ModelConfig, tokens,
                     L.gather_pages(vc[:p_blocks], block_tables))
         x = _mlp_residual(lp, cfg, _chunk_attention(lp, cfg, x, rope, valid,
                                                     kv_view))
-    return _last_logits(params, cfg, x, lengths), cache
+    return _chunk_logits(params, cfg, x, lengths, all_logits), cache
+
+
+def verify_step(params: Params, cfg: ModelConfig, tokens, cache: Params,
+                start_pos, lengths) -> Tuple[torch.Tensor, Params]:
+    """Speculative multi-token verify: advance every row by its
+    [last_tok, draft_1..draft_w] window in one call and return the logits
+    at EVERY window position, so the caller can accept the longest draft
+    prefix matching the model's own greedy argmax. It is the fused
+    :func:`prefill_chunk` (the port runs dense full attention only) with
+    the LM head over all L positions; ``lengths == 0`` rows stay bitwise
+    no-ops, and a rejected position's K/V is overwritten by the next
+    write there. tokens: (B, L); start_pos/lengths: (B,). Returns (logits
+    (B, L, V), cache); positions past ``lengths`` and idle rows hold
+    garbage the caller masks."""
+    check_supported(cfg)
+    return _prefill_chunk_fused(params, cfg, tokens, cache, start_pos,
+                                lengths, all_logits=True)
+
+
+def paged_verify_step(params: Params, cfg: ModelConfig, tokens,
+                      cache: Params, block_tables, start_pos, lengths
+                      ) -> Tuple[torch.Tensor, Params]:
+    """Paged analog of :func:`verify_step`: the
+    :func:`paged_prefill_chunk` pass with the LM head over all window
+    positions. Returns (logits (B, L, V), cache)."""
+    return paged_prefill_chunk(params, cfg, tokens, cache, block_tables,
+                               start_pos, lengths, all_logits=True)
 
 
 def mixed_step(params: Params, cfg: ModelConfig, tokens, cache: Params, pos,

@@ -31,10 +31,7 @@ import dataclasses
 from typing import Any, Optional
 
 from repro_torch.core.profiles import DEFAULT_KV_BLOCK
-
-# n-gram order of the self-speculative draft proposer (serving/draft.py
-# in the JAX package; speculative decoding is a later slice of the port)
-DEFAULT_SPEC_NGRAM = 3
+from repro_torch.serving.draft import DEFAULT_NGRAM as DEFAULT_SPEC_NGRAM
 
 # legacy kwarg spellings accepted by the constructor shims
 _ALIASES = {"kv_block_size": "block_size"}

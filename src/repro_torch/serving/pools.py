@@ -11,8 +11,12 @@ target pool's KV cache. ``TwoPoolRuntime`` is the paper's K=2 case;
 
 Every engine shares the ONE parameter set it is given (one copy on the
 card). The compressor's TextRank runs on that card too, through the
-CUDA kernel (``kernels/textrank.py``). Live re-provisioning
-(``reprovision``) is a later slice.
+CUDA kernel (``kernels/textrank.py``). One ServingConfig reaches every
+engine: speculation, overload survival (preemption, the host KV tier,
+queue-wait shedding) and output-length-aware reservation included; with
+``lout_routing`` the gateway bands by predicted output length and clamps
+the generation budget to the chosen pool's context. Live
+re-provisioning (``reprovision``) is a later slice.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ from repro_torch.core.compression import ExtractiveCompressor
 from repro_torch.core.naming import pool_names
 from repro_torch.core.planner import FleetPlan
 from repro_torch.core.router import GatewayRouter, RoutingDecision
-from repro_torch.core.workload import OutputLenPredictor, Request
+from repro_torch.core.workload import (OutputLenPredictor, Request,
+                                       get_workload)
 from repro_torch.kernels import ops
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.engine import (InferenceEngine, ServeRequest,
@@ -96,8 +101,13 @@ class FleetRuntime:
                     "compressed requests could overflow the KV cache")
         self.cfg = cfg
         self.tokenizer = ByteChunkTokenizer(cfg.vocab_size)
-        # per-category output-length model, fed by record_completion
+        # per-category output-length model, fed by record_completion;
+        # lout_routing / lout_reservation default to the lmsys calibration
         self.lout_predictor = lout_predictor
+        if self.lout_predictor is None and (scfg.lout_routing
+                                            or scfg.lout_reservation):
+            self.lout_predictor = OutputLenPredictor.from_workload(
+                get_workload("lmsys"))
         # C&R scores sentences with TextRank on the params' device: the
         # CUDA kernel on its own stream on the card, the plain version
         # on the CPU
@@ -108,7 +118,9 @@ class FleetRuntime:
                                    stream=self.gateway_stream)
         self.router = GatewayRouter(
             boundaries=boundaries, gammas=gammas,
-            compressor=ExtractiveCompressor(textrank_fn=scorer))
+            compressor=ExtractiveCompressor(textrank_fn=scorer),
+            lout_predictor=(self.lout_predictor
+                            if scfg.lout_routing else None))
         names = pool_names(k)
         self.engines: Dict[str, InferenceEngine] = {
             names[i]: InferenceEngine(cfg, params, n_maxes[i], c_maxes[i],
@@ -149,7 +161,12 @@ class FleetRuntime:
 
     def submit(self, req: GatewayRequest) -> RoutingDecision:
         """Route one request through the gateway and enqueue it on the
-        chosen pool's engine. Returns the routing decision."""
+        chosen pool's engine. Returns the routing decision.
+
+        With ``lout_routing`` the router banded by PREDICTED output
+        length, so the generation budget is clamped to what the chosen
+        pool's context holds. With ``lout_reservation`` the engine request
+        carries the prediction as its KV reservation hint."""
         prompt_tokens = self.tokenizer.count(req.text)
         r = Request(l_total=prompt_tokens + req.max_output_tokens,
                     l_in=prompt_tokens, l_out=req.max_output_tokens,
@@ -159,9 +176,18 @@ class FleetRuntime:
                                      session=req.session)
         text = decision.compressed_text if decision.compressed else req.text
         ids = self.tokenizer.encode(text)
+        max_new = req.max_output_tokens
+        if self.config.lout_routing:
+            budget = self.engines[decision.pool].c_max - len(ids)
+            max_new = max(1, min(max_new, budget))
+        hint = None
+        if self.config.lout_reservation:
+            hint = self.lout_predictor.predict(len(ids),
+                                               category=req.category,
+                                               cap=max_new)
         self.engines[decision.pool].submit(ServeRequest(
-            rid=req.rid, tokens=ids, max_new_tokens=req.max_output_tokens,
-            category=req.category))
+            rid=req.rid, tokens=ids, max_new_tokens=max_new,
+            category=req.category, l_out_hint=hint))
         self._decisions[req.rid] = decision
         self._categories[req.rid] = req.category
         # feed the bytes-per-token EMA with the true tokenizer count
@@ -203,10 +229,11 @@ class FleetRuntime:
 
     def run(self, max_iters: int = 100_000) -> Dict[int, GatewayResponse]:
         """Drive all pools to completion, interleaving their lockstep
-        iterations. Finished requests are consumed (:meth:`release`);
-        requests still in flight at the iteration cap come back as
-        ``timed_out=True`` responses with their partial tokens and stay
-        live on their engines."""
+        iterations. Finished requests are consumed (:meth:`release`), shed
+        ones included (``shed=True``, no tokens); requests still in flight
+        at the iteration cap, preempted ones in the host tier included,
+        come back as ``timed_out=True`` responses with their partial
+        tokens and stay live on their engines."""
         out: Dict[int, GatewayResponse] = {}
         busy = True
         while busy:
@@ -223,7 +250,9 @@ class FleetRuntime:
         for eng in self.engines.values():
             live = [(eng.slot_req[s], list(eng.slot_out[s]))
                     for s in range(eng.n_max) if eng.slot_req[s] is not None]
-            live += [(req, []) for req in eng.waiting]
+            for req in eng.waiting:
+                st = eng._preempted.get(req.rid)
+                live.append((req, list(st.out) if st else []))
             for req, toks in live:
                 if req.rid in out:
                     continue
@@ -231,7 +260,8 @@ class FleetRuntime:
                     rid=req.rid, output_tokens=toks,
                     prefill_iters=eng._prefill_iters.get(req.rid, 0),
                     decode_iters=len(toks),
-                    queue_iters=eng._queue_iters.get(req.rid, 0)),
+                    queue_iters=eng._queue_iters.get(req.rid, 0),
+                    preemptions=eng._rid_preemptions.get(req.rid, 0)),
                     timed_out=True)
         return out
 

@@ -60,9 +60,12 @@ ROOT = Path(__file__).resolve().parent.parent
 SRC = ROOT / "src"
 
 VERBATIM = ["configs/minitron_8b.py", "configs/llama3_70b.py",
+            "configs/nemotron_4_15b.py", "configs/nemotron_4_340b.py",
+            "configs/qwen1_5_32b.py",
             "core/naming.py", "core/workload.py", "core/queueing.py",
             "core/profiles.py", "core/planner.py", "core/compression.py",
-            "core/router.py", "serving/tokenizer.py"]
+            "core/router.py", "core/cost.py", "serving/tokenizer.py",
+            "serving/draft.py", "sim/__init__.py", "sim/des.py"]
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
@@ -75,7 +78,8 @@ def test_copied_module_matches_original(rel):
 
 
 def test_config_copies_match():
-    for name in ("minitron-8b", "llama3-70b"):
+    for name in ("minitron-8b", "llama3-70b", "nemotron-4-15b",
+                 "nemotron-4-340b", "qwen1.5-32b"):
         a, b = jax_get_config(name), get_config(name)
         assert dataclasses.asdict(a) == dataclasses.asdict(b)
         assert dataclasses.asdict(a.reduced()) == \
@@ -238,7 +242,7 @@ def test_fleet_rejects_later_slice_knobs():
                                dtype="float32")
     with pytest.raises(NotImplementedError, match="not ported"):
         TPools.FleetRuntime(tcfg, {}, (64,), (1.5,), (1, 1), (64, 128),
-                            lout_routing=True)
+                            autoscale=True)
 
 
 def test_port_imports_no_jax():
@@ -263,3 +267,6 @@ def test_port_imports_no_jax():
                          text=True, env=env, cwd=str(ROOT), timeout=300)
     assert out.returncode == 0, out.stderr + out.stdout
     assert "repro_torch.launch.serve" in mods and len(mods) >= 20
+    assert {"repro_torch.sim", "repro_torch.sim.des",
+            "repro_torch.serving.draft", "repro_torch.core.cost",
+            "repro_torch.configs.qwen1_5_32b"} <= set(mods)
