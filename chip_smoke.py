@@ -96,6 +96,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    never runs out of blocks, the same tokens; then lout_routing through
    the fleet: an over-claiming request routed short by its predicted
    output length, its budget clamped to that pool, completes.
+8. forward, prefill and the batch launcher (``launch.serve`` without
+   ``--fleet``), bf16 at full width unless said otherwise; the launch
+   counts are reset before each launcher run, and a kernel run must
+   launch ``gqa_decode`` exactly once per layer per decode step (a
+   torch-path run, never). (a) minitron-8b, batch 8, prompt 2048, 64 new
+   tokens, decode through the kernel against the torch path on the same
+   prompts: tokens equal or held by phase 7's drift and near-tie rule;
+   prefill ms, decode tokens/s, launches (32 x 63). (b) ``forward`` over
+   prompt + emitted tokens: its logits at every generated position
+   within BF16_DRIFT_ULPS of the decode logits. (d) ``--int8-kv`` on the
+   same prompts, the kernel against the torch path on the same
+   dequantized int8 cache by the drift and near-tie rule (launches
+   32 x 63); then int8 prefill + decode fed the bf16 run's tokens,
+   the last-token logits within 0.05 of max|logit| of the bf16 cache's
+   (the JAX package's bound); both caches' bytes. (c) one prompt of 8192:
+   ``forward`` through ``_flash_causal`` (all 32 layers) against the same
+   forward with ``_sdpa`` forced, over the last 64 positions, by the
+   drift rule; then prefill 8192 (flash) and 8 decode steps, kernel
+   against the torch path, and the prefill's logits against the flash
+   forward's. (e) reduced minitron-8b f32, card against CPU: ``forward``
+   logits within 1e-5 of max|logit|, ``prefill`` caches (fp and int8)
+   alike, the launcher's tokens equal, fp and int8. (f) nemotron-4-15b
+   (31.3 GB of weights, q_per_kv 6) after minitron's tensors are freed:
+   batch 4, prompt 1024, 32 new, kernel against the torch path (launches
+   32 x 31).
 
 Then it prints the ``kernels`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -1031,7 +1056,7 @@ def fleet_args(**over):
     kw = dict(arch="minitron-8b", reduced=False, fleet=2, workload="azure",
               lam=1000.0, paged=False, prefix_cache=False, decode_k=4,
               spec_k=1, preemption=False, max_queue_wait=None,
-              new_tokens=64, device="cuda")
+              new_tokens=64, device="cuda", int8_kv=False)
     return argparse.Namespace(**dict(kw, **over))
 
 
@@ -1530,7 +1555,8 @@ def _logged(log, rid, j, tok, what):
     return v
 
 
-def _bf16_flips(plain_log, path_log, want, got, what) -> int:
+def _bf16_flips(plain_log, path_log, want, got, what,
+                tag="spec/overload") -> int:
     """Hold a full-width bf16 run (``got`` tokens, ``path_log``) against
     the plain run (``want``, ``plain_log``) by the drift and near-tie rule
     above. Prints the plain run's top-2 gap over every emitted position,
@@ -1558,7 +1584,7 @@ def _bf16_flips(plain_log, path_log, want, got, what) -> int:
             p = plain_log[rid][d]
             pref = float(p[toks[d]] - p[mine[d]])
             lim = BF16_GAP_ULPS * _bf16_ulp(float(p.max()))
-            print(f"[spec/overload] {what}: rid {rid} step {d}: {mine[d]} vs "
+            print(f"[{tag}] {what}: rid {rid} step {d}: {mine[d]} vs "
                   f"{toks[d]}; the plain run prefers its token by "
                   f"{pref:.5f} (near-tie limit {lim:.5f}), top-2 gap "
                   f"{gaps[len(gaps) - len(toks) + d]:.2f} ulps")
@@ -1572,7 +1598,7 @@ def _bf16_flips(plain_log, path_log, want, got, what) -> int:
         if j - 1 in v)
     gaps.sort()
     q = lambda f: gaps[min(len(gaps) - 1, int(f * len(gaps)))]  # noqa
-    print(f"[spec/overload] {what}: largest |logit - plain logit| over "
+    print(f"[{tag}] {what}: largest |logit - plain logit| over "
           f"{n_drift} positions with the plain run's history: {drift:.2f} "
           f"bf16 ulps of the top logit (limit {BF16_DRIFT_ULPS}; a shift "
           f"of the plain history by one position: least {shift[0]:.2f}, "
@@ -2039,6 +2065,346 @@ def _lout_routing(cfg, base):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------- phase 8
+# full-width shapes of the batch launcher (sized by the transient scores:
+# below FLASH_MIN_SEQ _sdpa holds (B, H, S, S) f32, 4.3 GB a layer at 8 x
+# 2048; _flash_causal's chunk scores at 8192 are 0.54 GB)
+BATCH_SHAPE = (8, 2048, 64)              # batch, prompt, new tokens
+FLASH_SHAPE = (1, 8192, 8)
+NEMOTRON_SHAPE = (4, 1024, 32)
+INT8_REL = 0.05               # tests/test_perf_opts.py::test_int8_kv_decode_close
+FLASH_TAIL = 64               # last positions compared, flash vs _sdpa
+
+
+def batch_args(arch, shape, int8=False, reduced=False):
+    """``launch.serve``'s batch-launcher arguments (no ``--fleet``)."""
+    from repro_torch.launch import serve
+    b, p, n = shape
+    return serve.parse_args(
+        ["--arch", arch, "--batch", str(b), "--prompt-len", str(p),
+         "--new-tokens", str(n), "--device", DEVICE]
+        + ["--int8-kv"] * int8 + ["--reduced"] * reduced)
+
+
+def _serve_batch(args, params, tokens=None, need=(), impl="kernel"):
+    """One batch-launcher run (decode attention through ``impl``) with the
+    launch counts reset just before; fails unless each kernel in ``need``
+    launched exactly once per layer per decode step, and nothing else
+    launched."""
+    from repro_torch.launch import serve
+    _reset_launches()
+    run = serve.serve_batch(args, params=params, tokens=tokens,
+                            decode_impl=impl)
+    counts = _launch_counts(need, f"batch launcher {args.arch}")
+    want = {k: 0 for k in counts}
+    want.update({k: run.cfg.num_layers * (args.new_tokens - 1)
+                 for k in need})
+    if counts != want:
+        fail(f"batch launcher {args.arch}: launches {counts}, expected "
+             f"{want}")
+    return run, counts
+
+
+def _run_log(run):
+    """``_bf16_flips``' inputs from a batch run: row -> emitted tokens, and
+    row -> {j: the f32 logits token j is the argmax of}."""
+    import torch
+    toks = {b: row for b, row in enumerate(run.tokens.tolist())}
+    log = {b: {j: lg[b].to(torch.float32) for j, lg in enumerate(run.logits)}
+           for b in toks}
+    return toks, log
+
+
+def _ulps(got, ref) -> float:
+    """Largest |got - ref| over rows in bf16 ulps of each row's top ref
+    logit."""
+    return max(float((g.float() - r.float()).abs().max())
+               / _bf16_ulp(float(r.float().max()))
+               for g, r in zip(got.reshape(-1, got.shape[-1]),
+                               ref.reshape(-1, ref.shape[-1])))
+
+
+def _kernel_vs_torch(arch, params, shape, smi, what, prompt=None,
+                     int8=False):
+    """The batch launcher through the decode kernel and through the torch
+    path on the same weights and prompts (``prompt``, or the launcher's
+    own draw) and the same cache type (``int8``: the dequantized int8
+    cache): the kernel launches once per layer per decode step, and the
+    tokens agree under the drift and near-tie rule. Returns the kernel
+    run and its launch counts."""
+    args = batch_args(arch, shape, int8=int8)
+    kern, counts = _serve_batch(args, params, tokens=prompt,
+                                need=("gqa_decode",))
+    plain, _ = _serve_batch(args, params, tokens=kern.prompt, impl="torch")
+    want, plain_log = _run_log(plain)
+    got, path_log = _run_log(kern)
+    flips = _bf16_flips(plain_log, path_log, want, got, f"{what} kernel vs "
+                        "torch path", tag="forward")
+    print(f"[forward] {what}: batch {shape[0]}, prompt {shape[1]}, "
+          f"{shape[2]} new tokens; kernel: prefill {kern.prefill_ms:.2f} ms, "
+          f"decode {kern.decode_tok_s:.1f} tokens/s; torch path: prefill "
+          f"{plain.prefill_ms:.2f} ms, decode {plain.decode_tok_s:.1f} "
+          f"tokens/s; gqa_decode launches {counts['gqa_decode']} "
+          f"(= {kern.cfg.num_layers} x {shape[2] - 1}); {flips} near-tie "
+          f"divergences ({smi})")
+    del plain, plain_log, path_log
+    return kern, counts
+
+
+def _teacher_forced(cfg, params, run):
+    """(b) forward over prompt + emitted tokens: its logits at each
+    generated position against the decode logits behind each token."""
+    import torch
+    from repro_torch.models import model as M
+    p = run.prompt.shape[1]
+    seq = torch.cat([run.prompt, run.tokens[:, :-1]], dim=1)
+    logits = M.forward(params, cfg, {"tokens": seq})[0][:, p - 1:].clone()
+    dec = torch.stack(run.logits, dim=1)
+    drift = _ulps(dec, logits)
+    agree = float((logits.argmax(-1) == run.tokens).float().mean())
+    print(f"[forward] (b) teacher-forced forward over {seq.shape[1]} tokens "
+          f"x {seq.shape[0]} rows vs the decode logits at every generated "
+          f"position: largest |decode - forward| {drift:.2f} bf16 ulps of "
+          f"the top logit (limit {BF16_DRIFT_ULPS}); forward's argmax is the "
+          f"emitted token at {100 * agree:.2f}% of positions")
+    if drift > BF16_DRIFT_ULPS:
+        fail(f"(b) decode logits drift {drift:.2f} ulps from the "
+             f"teacher-forced forward (limit {BF16_DRIFT_ULPS})")
+
+
+@contextlib.contextmanager
+def _count_flash(calls):
+    """Count calls of layers._flash_causal."""
+    from repro_torch.models import layers as L
+    orig = L._flash_causal
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return orig(*a, **kw)
+    L._flash_causal = counted
+    try:
+        yield
+    finally:
+        L._flash_causal = orig
+
+
+def _flash(cfg, params, smi):
+    """(c) one prompt of FLASH_SHAPE[1] tokens: forward through
+    _flash_causal against the same forward with _sdpa forced, at the last
+    positions; then prefill (flash) and decode through the kernel against
+    the torch path."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    b, s, n = FLASH_SHAPE
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1)
+    prompt = torch.randint(1, cfg.vocab_size, (b, s), generator=gen,
+                           device=DEVICE)
+    calls = []
+    with _count_flash(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flash = M.forward(params, cfg, {"tokens": prompt})[0]
+        torch.cuda.synchronize()
+        t_flash = time.perf_counter() - t0
+        flash = flash[:, -FLASH_TAIL:].clone()
+        if len(calls) != cfg.num_layers:
+            fail(f"(c) forward at S={s} took _flash_causal {len(calls)} "
+                 f"times, expected {cfg.num_layers}")
+        floor, L.FLASH_MIN_SEQ = L.FLASH_MIN_SEQ, 1 << 62
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            dense = M.forward(params, cfg, {"tokens": prompt})[0]
+            torch.cuda.synchronize()
+            t_dense = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        finally:
+            L.FLASH_MIN_SEQ = floor
+        dense = dense[:, -FLASH_TAIL:].clone()
+        if len(calls) != cfg.num_layers:
+            fail("(c) the forced _sdpa forward took _flash_causal")
+        drift = _ulps(flash, dense)
+        print(f"[forward] (c) forward at S={s}: _flash_causal (chunk "
+              f"{L.FLASH_CHUNK}) {1e3 * t_flash:.1f} ms vs _sdpa forced "
+              f"{1e3 * t_dense:.1f} ms (peak {peak:.2f} GiB); largest "
+              f"|flash - sdpa| over the last {FLASH_TAIL} positions "
+              f"{drift:.2f} bf16 ulps of the top logit (limit "
+              f"{BF16_DRIFT_ULPS}); argmax equal at "
+              f"{100 * float((flash.argmax(-1) == dense.argmax(-1)).float().mean()):.1f}%"
+              f" ({smi})")
+        if drift > BF16_DRIFT_ULPS:
+            fail(f"(c) flash forward drifts {drift:.2f} ulps from _sdpa")
+        calls.clear()
+        kern, counts = _kernel_vs_torch(cfg.name, params, FLASH_SHAPE, smi,
+                                        f"(c) prefill {s} + decode", prompt)
+        if len(calls) != 2 * cfg.num_layers:
+            fail(f"(c) the two prefills at S={s} took _flash_causal "
+                 f"{len(calls)} times, expected {2 * cfg.num_layers}")
+        last = _ulps(kern.logits[0], flash[:, -1])
+        print(f"[forward] (c) prefill's last-token logits vs the flash "
+              f"forward's at position {s - 1}: {last:.2f} bf16 ulps")
+        if last > BF16_DRIFT_ULPS:
+            fail(f"(c) prefill logits drift {last:.2f} ulps from forward's")
+    del flash, dense, kern
+    return counts
+
+
+def _nbytes(tree) -> int:
+    """Bytes of every tensor in a nested dict."""
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _int8_cache(cfg, params, ref, smi):
+    """(d) the launcher with --int8-kv beside the bf16-cache run ``ref``:
+    the kernel against the torch path on the same int8 cache under the
+    drift and near-tie rule; then int8 prefill + decode fed ``ref``'s
+    tokens: the last-token logits within INT8_REL of max|logit| of
+    ``ref``'s."""
+    import dataclasses
+    from repro_torch.models import model as M
+    run, counts = _kernel_vs_torch(cfg.name, params, BATCH_SHAPE, smi,
+                                   "(d) minitron-8b int8 cache", ref.prompt,
+                                   int8=True)
+    same = float((run.tokens == ref.tokens).float().mean())
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    b, p, n = BATCH_SHAPE
+    logits, cache = M.prefill(params, cfg8, {"tokens": ref.prompt,
+                                             "cache_len": p + n})
+    rel = []
+    for t in range(n):
+        want = ref.logits[t].float()
+        rel.append(float((logits.float() - want).abs().max()
+                         / want.abs().max()))
+        if t < n - 1:
+            logits, cache = M.decode_step(params, cfg8, ref.tokens[:, t:t + 1],
+                                          cache, p + t)
+    print(f"[forward] (d) int8 KV cache, batch {b}, prompt {p}: launcher "
+          f"prefill {run.prefill_ms:.2f} ms, decode {run.decode_tok_s:.1f} "
+          f"tokens/s, gqa_decode launches {counts['gqa_decode']}, tokens "
+          f"equal to the bf16-cache run's at {100 * same:.2f}% of positions; "
+          f"cache {_nbytes(run.cache)} B int8 vs "
+          f"{_nbytes(ref.cache)} B {cfg.dtype}; fed the bf16 run's "
+          f"tokens, "
+          f"last-token max|dlogit| / max|logit| {rel[-1]:.4f} (largest over "
+          f"the {n} positions {max(rel):.4f}; limit {INT8_REL}) ({smi})")
+    if rel[-1] >= INT8_REL:
+        fail(f"(d) int8 last-token logits {rel[-1]:.4f} of max|logit| from "
+             f"the bf16 cache's (limit {INT8_REL})")
+    return counts
+
+
+def _reduced_card_vs_cpu():
+    """(e) reduced minitron-8b f32, card vs CPU: forward logits within
+    1e-5 of max|logit|, prefill caches alike, launcher tokens equal (fp
+    and int8; a flip only at a CPU top-2 gap under 1e-5)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("minitron-8b").reduced(),
+                              dtype="float32")
+    params = M.init_params(cfg, seed=0, device=DEVICE)
+    cpu_params = _to_cpu(params)
+    shape = (4, 96, 16)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(2)
+    toks = torch.randint(1, cfg.vocab_size, shape[:2], generator=gen,
+                         device=DEVICE)
+    card = M.forward(params, cfg, {"tokens": toks})[0].cpu()
+    cpu = M.forward(cpu_params, cfg, {"tokens": toks.cpu()})[0]
+    err = float((card - cpu).abs().max() / cpu.abs().max())
+    if err > 1e-5:
+        fail(f"(e) forward logits card vs CPU {err:.3g} of max|logit|")
+    flips, worst = 0, 0.0
+    for int8 in (False, True):
+        c = dataclasses.replace(cfg, kv_cache_dtype="int8" if int8 else "")
+        batch = {"tokens": toks, "cache_len": 128}
+        _, kc = M.prefill(params, c, batch)
+        _, cc = M.prefill(cpu_params, c, dict(batch, tokens=toks.cpu()))
+        for leaf, t in kc["kv"].items():
+            got, ref = t.cpu(), cc["kv"][leaf]
+            if leaf in ("k", "v") and int8:
+                bad = int((got.int() - ref.int()).abs().max())
+                if bad > 1:
+                    fail(f"(e) int8 prefill cache {leaf}: values {bad} apart")
+                continue
+            d = float((got.float() - ref.float()).abs().max()
+                      / ref.float().abs().max())
+            worst = max(worst, d)
+            if d > 1e-5:
+                fail(f"(e) prefill cache {leaf} (int8={int8}) card vs CPU "
+                     f"{d:.3g} of max")
+        args = batch_args("minitron-8b", shape, int8=int8, reduced=True)
+        _reset_launches()
+        got = serve.serve_batch(args, params=params, tokens=toks)
+        _launch_counts(("gqa_decode",), "(e)")
+        args.device = "cpu"
+        want = serve.serve_batch(args, params=cpu_params, tokens=toks.cpu())
+        flips += _batch_flips(got, want, f"(e) int8={int8}")
+    print(f"[forward] (e) reduced minitron-8b f32, card vs CPU: forward "
+          f"logits {err:.3g} of max|logit|, prefill caches within "
+          f"{worst:.3g} of max (int8 values within 1), launcher tokens equal "
+          f"fp and int8 ({flips} near-tie flips)")
+    del params
+    torch.cuda.empty_cache()
+
+
+def _batch_flips(got, want, what) -> int:
+    """Rows whose tokens differ between two batch runs; fails unless each
+    first difference sits at a top-2 gap under 1e-5 in ``want``'s logits."""
+    import torch
+    flips = 0
+    for b, (g, w) in enumerate(zip(got.tokens.tolist(),
+                                   want.tokens.tolist())):
+        if g == w:
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(g, w)) if x != y)
+        top = torch.topk(want.logits[j][b].float(), 2).values.tolist()
+        print(f"[forward] {what}: row {b} step {j}: {g[j]} vs {w[j]}; "
+              f"top-2 logits {top}")
+        if top[0] - top[1] >= 1e-5:
+            fail(f"{what}: tokens differ away from a near-tie (row {b})")
+        flips += 1
+    return flips
+
+
+def phase_forward(smi):
+    """Phase 8: forward, prefill and the batch launcher (module
+    docstring). Returns the launch counts of (a)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    cfg, params = _full_width()
+    ref, counts = _kernel_vs_torch(cfg.name, params, BATCH_SHAPE, smi,
+                                   "(a) minitron-8b bf16")
+    _teacher_forced(cfg, params, ref)
+    _int8_cache(cfg, params, ref, smi)
+    del ref
+    _flash(cfg, params, smi)
+    del params
+    torch.cuda.empty_cache()
+    _reduced_card_vs_cpu()
+    cfg = get_config("nemotron-4-15b")
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, seed=0, device=DEVICE)
+    run, _ = _kernel_vs_torch(cfg.name, params, NEMOTRON_SHAPE, smi,
+                              f"(f) nemotron-4-15b bf16 "
+                              f"({_nbytes(params) / 1e9:.2f} "
+                              f"GB of weights, q_per_kv {cfg.q_per_kv})")
+    print(f"[forward] (f) max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+    del params, run
+    torch.cuda.empty_cache()
+    print(f"[forward] phase 8: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -2066,6 +2432,7 @@ def main() -> int:
     launches["textrank"] = phase_gateway()
     phase_compressor_paper_size()
     phase_spec_overload()
+    phase_forward(smi)
     sources = {"gqa_decode": ("src/repro_torch/kernels/csrc/gqa_decode.cu",
                               "src/repro/kernels/gqa_decode.py:29"),
                "paged_decode": ("src/repro_torch/kernels/csrc/paged_decode.cu",

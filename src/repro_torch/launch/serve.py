@@ -1,9 +1,19 @@
-"""Offline fleet serving on the GPU: plan a K-pool fleet with the
-FleetOpt planner, build one gateway-routed engine per pool, route a
-mixed prompt batch through the C&R gateway and drain it.
+"""Serving on the GPU: the batch launcher (prefill a batch of prompts,
+then greedy decode) and, with ``--fleet K``, offline fleet serving (plan
+a K-pool fleet with the FleetOpt planner, build one gateway-routed
+engine per pool, route a mixed prompt batch through the C&R gateway and
+drain it).
+
+  # batch launcher: full-width minitron-8b (bf16), 8 prompts of 64
+  # tokens, 16 new tokens each, decode through the CUDA kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve
+
+  # the same with the int8 KV cache, reduced (f32) on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --int8-kv \
+      --batch 2 --prompt-len 16 --new-tokens 4 --device cpu
 
   # reduced model (f32), 2 pools, decode micro-loop of 4, paged KV
-  PYTHONPATH=src python -m repro_torch.launch.serve --fleet 2 --reduced \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --fleet 2 --reduced \
       --decode-k 4 --paged
 
   # full-width minitron-8b (bf16) on the card
@@ -20,13 +30,15 @@ mixed prompt batch through the C&R gateway and drain it.
       --paged --decode-k 4 --spec-k 4 --preemption --max-queue-wait 8 \
       --device cpu
 
-The port of ``repro/launch/serve.py``'s ``--fleet`` mode. Runs on
-``--device cuda`` (the default) and raises when no card is present;
-``--device cpu`` runs the plain PyTorch versions of the kernels.
+The port of ``repro/launch/serve.py`` without its HTTP gateway and
+sharding. Runs on ``--device cuda`` (the default) and raises when no
+card is present; ``--device cpu`` runs the plain PyTorch versions of the
+kernels.
 """
 import argparse
 import dataclasses
 import time
+from typing import Any, Dict, List
 
 import torch
 
@@ -52,6 +64,96 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
+def model_config(args):
+    """The launcher's model: ``--arch``, reduced in f32 with
+    ``--reduced``, with the int8 KV cache under ``--int8-kv``."""
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
+    if args.int8_kv:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    return cfg
+
+
+@dataclasses.dataclass
+class BatchRun:
+    """What :func:`serve_batch` served. ``prompt``: (B, prompt_len) ids;
+    ``tokens``: (B, new_tokens) greedy tokens; ``logits[j]``: the (B, V)
+    logits token ``j`` is the argmax of; ``cache``: the KV cache after
+    the last step; host-clock prefill milliseconds and decode tokens per
+    second (the device synchronised around each)."""
+    cfg: Any
+    prompt: torch.Tensor
+    tokens: torch.Tensor
+    logits: List[torch.Tensor]
+    cache: Dict[str, Any]
+    prefill_ms: float
+    decode_tok_s: float
+
+
+def serve_batch(args, params=None, tokens=None,
+                decode_impl: str = "kernel") -> BatchRun:
+    """The batch launcher: prefill ``--batch`` prompts of
+    ``--prompt-len`` tokens into a cache of prompt + ``--new-tokens``,
+    then ``new_tokens - 1`` greedy decode steps at the uniform position
+    ``prompt_len + t``. ``params`` / ``tokens`` default to
+    ``init_params(seed=0)`` and prompt ids drawn from a generator seeded
+    with 0 on the device; a caller may pass its own (the tests pass the
+    JAX launcher's). ``decode_impl``: decode attention through the CUDA
+    kernel (its plain version on the CPU) or the torch ``_sdpa`` path,
+    which a caller may ask for to hold the kernel against it."""
+    if args.mesh not in ("", "1x1"):
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: sharded serving is a later slice of the "
+            "PyTorch port (one device only: --mesh 1x1)")
+    device = resolve_device(args.device)
+    cfg = model_config(args)
+    if params is None:
+        params = M.init_params(cfg, seed=0, device=device)
+    if tokens is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        tokens = torch.randint(1, cfg.vocab_size,
+                               (args.batch, args.prompt_len), generator=gen,
+                               device=device)
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(params, cfg, {
+        "tokens": tokens, "cache_len": args.prompt_len + args.new_tokens})
+    nxt = logits.argmax(-1)[:, None]
+    sync()
+    t1 = time.perf_counter()
+    out, steps = [nxt], [logits]
+    for t in range(args.new_tokens - 1):
+        logits, cache = M.decode_step(params, cfg, nxt, cache,
+                                      args.prompt_len + t,
+                                      decode_impl=decode_impl)
+        nxt = logits.argmax(-1)[:, None]
+        out.append(nxt)
+        steps.append(logits)
+    sync()
+    t2 = time.perf_counter()
+    out = torch.cat(out, dim=1)
+    n_dec = args.batch * (args.new_tokens - 1)
+    run = BatchRun(cfg, tokens, out, steps, cache, 1e3 * (t1 - t0),
+                   n_dec / (t2 - t1) if n_dec else 0.0)
+    print(f"arch={cfg.name} mesh 1x1 batch={args.batch} "
+          f"prompt={args.prompt_len} -> {args.new_tokens} new tokens "
+          f"in {t2 - t0:.1f}s ({args.batch * args.new_tokens / (t2 - t0):.1f}"
+          f" tok/s)")
+    print("first sequence:", out[0].tolist())
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
+    print(f"prefill: {run.prefill_ms:.2f} ms ({args.batch} x "
+          f"{args.prompt_len} tokens, {where})")
+    print(f"decode: {run.decode_tok_s:.1f} tokens/s ({n_dec} tokens, "
+          f"decode_impl={decode_impl}, kv cache "
+          f"{cfg.kv_cache_dtype or cfg.dtype}, {where})")
+    return run
+
+
 def build_fleet_runtime(args, *, slots_per_pool: int = 2, c_chunk: int = 16,
                         long_ctx: int = 512):
     """Plan K pools from the workload CDF and make the plan executable:
@@ -66,9 +168,7 @@ def build_fleet_runtime(args, *, slots_per_pool: int = 2, c_chunk: int = 16,
         print(f"  {pp.name}: c_max={pp.c_max} n_gpus={pp.n_gpus} "
               f"rho={pp.utilization:.3f} ttft_p99={pp.ttft_p99_s*1e3:.0f}ms")
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
+    cfg = model_config(args)
     params = M.init_params(cfg, seed=0, device=device)
     scfg = ServingConfig(
         paged=args.paged or args.prefix_cache or args.preemption,
@@ -190,13 +290,23 @@ def serve_fleet(args, **build_kw):
     return rt, results, dt
 
 
-def main(argv=None):
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="minitron-8b")
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--fleet", type=int, default=2, metavar="K",
+    ap.add_argument("--mesh", default="",
+                    help="device mesh DxM; one device only ('' or 1x1)")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="batch launcher: prompts in the batch")
+    ap.add_argument("--prompt-len", type=int, default=64,
+                    help="batch launcher: tokens per prompt")
+    ap.add_argument("--int8-kv", action="store_true",
+                    help="batch launcher: int8 KV cache with per-token "
+                         "scales")
+    ap.add_argument("--fleet", type=int, default=0, metavar="K",
                     help="plan a K-pool fleet and serve through the "
-                         "C&R gateway")
+                         "C&R gateway (K engines) instead of the batch "
+                         "launcher")
     ap.add_argument("--workload", default="azure",
                     help="workload CDF for fleet planning")
     ap.add_argument("--lam", type=float, default=1000.0,
@@ -225,9 +335,17 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda)")
     args = ap.parse_args(argv)
-    if args.fleet < 1:
-        ap.error("--fleet must be >= 1")
-    serve_fleet(args)
+    if args.fleet < 0:
+        ap.error("--fleet must be >= 0")
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.fleet:
+        serve_fleet(args)
+    else:
+        serve_batch(args)
 
 
 if __name__ == "__main__":

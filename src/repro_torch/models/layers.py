@@ -1,8 +1,10 @@
 """Transformer building blocks of the dense GQA decoder, in PyTorch.
 
 The dense-GQA subset of ``repro/models/layers.py``: norms, rotary
-embedding, MLP, attention (prefill ``_sdpa`` and single-token decode),
-and the dense and paged KV caches with their masked writes. Layouts
+embedding, MLP, attention (full-sequence ``attention`` with its
+block-causal ``_flash_causal`` above ``FLASH_MIN_SEQ``, the chunk path's
+``_sdpa`` and single-token decode), the int8 KV quantizer, and the dense
+(fp or int8) and paged (fp) KV caches with their masked writes. Layouts
 match the JAX package at every public function: activations
 ``(B, S, D)``, heads ``(B, S, H, hd)``, caches token-major.
 
@@ -134,16 +136,24 @@ def mlp(p: Params, cfg: ModelConfig, x):
 # attention
 # ---------------------------------------------------------------------------
 def _qkv(p, cfg: ModelConfig, x, x_kv):
-    hd = cfg.resolved_head_dim
     q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    q = q.reshape(*x.shape[:-1], cfg.num_heads, cfg.resolved_head_dim)
+    return (q, *_kv(p, cfg, x_kv))
+
+
+def _kv(p, cfg: ModelConfig, x_kv):
+    """The K/V half of :func:`_qkv` (prefill's cache fill recomputes only
+    these)."""
+    hd = cfg.resolved_head_dim
     k = x_kv @ p["wk"]
     v = x_kv @ p["wv"]
-    if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(*x.shape[:-1], cfg.num_heads, hd)
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
     k = k.reshape(*x_kv.shape[:-1], cfg.num_kv_heads, hd)
     v = v.reshape(*x_kv.shape[:-1], cfg.num_kv_heads, hd)
-    return q, k, v
+    return k, v
 
 
 def _sdpa(q, k, v, mask, q_per_kv: int):
@@ -162,6 +172,94 @@ def _sdpa(q, k, v, mask, q_per_kv: int):
     return out.reshape(b, s, h * hd)
 
 
+def causal_mask(s: int, t: int, window: int = 0, offset: int = 0,
+                device=None):
+    """(s, t) boolean mask; query i attends key j iff j <= i+offset and,
+    with a window, i+offset - j < window."""
+    qi = torch.arange(s, device=device)[:, None] + offset
+    kj = torch.arange(t, device=device)[None, :]
+    m = kj <= qi
+    if window > 0:
+        m &= (qi - kj) < window
+    return m
+
+
+# Block-causal "flash" prefill: at or above FLASH_MIN_SEQ tokens (and a
+# multiple of FLASH_CHUNK), causal self-attention runs chunked with an
+# online softmax over the lower-triangle chunk pairs only, so no (B, H,
+# S, S) f32 scores exist. Module globals read at call time (tests patch
+# them), as in the JAX package.
+FLASH_MIN_SEQ = 8192
+FLASH_CHUNK = 2048
+
+
+def attention(p: Params, cfg: ModelConfig, x, positions=None,
+              window: Optional[int] = None):
+    """Full (or sliding-window) causal self-attention over a sequence.
+    x: (B, S, D); positions: (B, S) or None (0..S-1)."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = _qkv(p, cfg, x, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    w = cfg.attention_window if window is None else window
+    if s >= FLASH_MIN_SEQ and s % FLASH_CHUNK == 0:
+        out = _flash_causal(q, k, v, cfg.q_per_kv, w)
+    else:
+        mask = causal_mask(s, s, w, device=x.device)[None]
+        out = _sdpa(q, k, v, mask, cfg.q_per_kv)
+    return out @ p["wo"]
+
+
+def _flash_causal(q, k, v, q_per_kv: int, window: int = 0,
+                  chunk: int = 0):
+    """Chunked causal attention with online softmax.
+
+    q/k/v: (B, S, H|Hkv, hd). An outer loop over query chunks, an inner
+    loop over only the key chunks each query chunk can see
+    (block-lower-triangle, window-clipped); the running max, sum and
+    accumulator are f32, the scores are taken in the inputs' dtype and
+    P goes into P.V in v's dtype, as in the JAX package."""
+    b, s, h, hd = q.shape
+    chunk = chunk or min(FLASH_CHUNK, s)   # module var read at call time
+    hkv, hd_v = k.shape[2], v.shape[-1]
+    assert s % chunk == 0, (s, chunk)
+    qg = q.reshape(b, s, hkv, q_per_kv, hd)
+    scale = 1.0 / math.sqrt(hd)
+    ar = torch.arange(chunk, device=q.device)
+    outs = []
+    for i in range(s // chunk):
+        qi = qg[:, i * chunk:(i + 1) * chunk]
+        m = torch.full((b, hkv, q_per_kv, chunk), NEG_INF,
+                       dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, hkv, q_per_kv, chunk, hd_v),
+                          dtype=torch.float32, device=q.device)
+        lo = max(0, (i * chunk - window) // chunk) if window > 0 else 0
+        for j in range(lo, i + 1):
+            kj = k[:, j * chunk:(j + 1) * chunk]
+            vj = v[:, j * chunk:(j + 1) * chunk]
+            sco = (torch.einsum("bqgpd,bkgd->bgpqk", qi, kj) * scale).float()
+            qpos, kpos = i * chunk + ar, j * chunk + ar
+            valid = kpos[None, :] <= qpos[:, None]
+            if window > 0:
+                valid &= (qpos[:, None] - kpos[None, :]) < window
+            sco = torch.where(valid, sco, NEG_INF)
+            m_new = torch.maximum(m, sco.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            pij = torch.exp(sco - m_new[..., None])
+            l = l * alpha + pij.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bgpqk,bkgd->bgpqd", pij.to(vj.dtype), vj).float()
+            m = m_new
+        out_i = acc / torch.clamp(l, min=1e-30)[..., None]
+        # (b, hkv, qpk, chunk, hd_v) -> (b, chunk, h*hd_v)
+        outs.append(out_i.movedim(3, 1).reshape(b, chunk, h * hd_v)
+                    .to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
 def _positions(pos, b: int, device) -> torch.Tensor:
     """Per-row int64 positions (B,) from a scalar or a (B,) array."""
     pos = torch.as_tensor(pos, device=device).long()
@@ -172,16 +270,43 @@ def _positions(pos, b: int, device) -> torch.Tensor:
 def init_kv_cache(cfg: ModelConfig, n_layers: int, batch: int, max_seq: int,
                   dtype=None, device="cuda") -> Params:
     """Contiguous KV cache, (n_layers, batch, max_seq, Hkv, hd) per leaf.
-    fp only: the int8 cache is a later slice."""
-    if cfg.kv_cache_dtype:
-        raise NotImplementedError(
-            f"kv_cache_dtype={cfg.kv_cache_dtype!r}: the quantized KV cache "
-            "is a later slice of the port (other model families)")
+    With cfg.kv_cache_dtype == "int8" the values are int8 and each
+    (layer, row, token, kv head) has a scale in ``dtype``: leaves "k",
+    "v" and "k_scale", "v_scale" of shape (n_layers, batch, max_seq,
+    Hkv)."""
     dtype = dtype or torch_dtype(cfg.dtype)
     shape = (n_layers, batch, max_seq, cfg.num_kv_heads,
              cfg.resolved_head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], dtype=dtype,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:-1], dtype=dtype,
+                                       device=device)}
+    if cfg.kv_cache_dtype:
+        raise NotImplementedError(
+            f"kv_cache_dtype={cfg.kv_cache_dtype!r}: the port quantizes the "
+            "KV cache to int8 only, as the JAX package does")
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def quantize_kv(x):
+    """x: (..., hd) -> (int8 values, scales (...,) in x's dtype). The
+    scale is max|x| / 127 in f32, floored at 1e-8; x is divided by that
+    f32 scale, rounded half to even and clipped to +-127, and only then
+    is the scale cast to x's dtype (the JAX package's order: dividing by
+    the cast scale would change bits)."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(x.dtype)
+
+
+def dequantize_kv(q, scale):
+    """int8 values times their scales, in the scales' dtype."""
+    return q.to(scale.dtype) * scale[..., None]
 
 
 @dataclasses.dataclass
@@ -209,23 +334,29 @@ class DecodeIndex:
     seq_lens: Optional[torch.Tensor] = None
 
 
-def _masked_write_idx(slot, s_max: int, active=None):
+def _masked_write_idx(slot, s_max: int, active=None, uniform=False):
     """Dense write targets for one new entry per row (the JAX package's
     ``_masked_write_idx`` + ``_scatter_slot``): row b at slot[b] clamped
     to S-1, and whether the write is live. A row that is masked
     (active=False) or whose slot is past S, which the JAX package's
-    ``mode="drop"`` discards, writes its old value back."""
+    ``mode="drop"`` discards, writes its old value back. A ``uniform``
+    step (one scalar position, no mask) is the JAX package's
+    ``dynamic_update_slice``, which clamps its start and never drops:
+    every row writes, at S-1 when the slot is past S."""
     live = slot < s_max
-    if active is not None:
+    if uniform:
+        live = torch.ones_like(live)
+    elif active is not None:
         live = live & active
     return torch.clamp(slot, max=s_max - 1), live
 
 
 def _scatter_slot(cache, new, idx: DecodeIndex):
-    """cache[b, slots[b]] = new[b] where live, else its own old bits."""
+    """cache[b, slots[b]] = new[b] where live, else its own old bits.
+    cache: (B, S, ...) values or scales; new: (B, ...)."""
     old = cache[idx.rows, idx.slots]
-    cache[idx.rows, idx.slots] = torch.where(idx.live[:, None, None],
-                                             new.to(cache.dtype), old)
+    live = idx.live.view(-1, *(1,) * (new.dim() - 1))
+    cache[idx.rows, idx.slots] = torch.where(live, new.to(cache.dtype), old)
     return cache
 
 
@@ -233,10 +364,11 @@ def decode_index(cfg: ModelConfig, pos, kv, active=None) -> DecodeIndex:
     """Per-step quantities of dense decode over a cache shaped like
     ``kv["k"]``, one layer's (B, S, Hkv, hd)."""
     b, s_max = kv["k"].shape[0], kv["k"].shape[1]
+    uniform = torch.as_tensor(pos).dim() == 0 and active is None
     pos = _positions(pos, b, kv["k"].device)
     cos, sin = rope_tables(pos[:, None], cfg.resolved_head_dim,
                            cfg.rope_theta)
-    slots, live = _masked_write_idx(pos, s_max, active)
+    slots, live = _masked_write_idx(pos, s_max, active, uniform)
     valid = torch.arange(s_max, device=pos.device)[None, :] <= pos[:, None]
     return DecodeIndex(pos, cos, sin, valid,
                        rows=torch.arange(b, device=pos.device), slots=slots,
@@ -271,19 +403,29 @@ def _decode_qkv(p, cfg, x, idx: DecodeIndex):
 def decode_attention(p: Params, cfg: ModelConfig, x, kv, pos,
                      decode_impl: str = "kernel", active=None, idx=None):
     """Single-token decode against one layer's dense cache (full
-    attention, fp cache). x: (B,1,D); kv: {"k","v"} (B, S, Hkv, hd);
-    pos: (B,) or scalar absolute position of the new
-    token; ``idx``: the step's :func:`decode_index` when the caller
-    shares it across layers. Rows with active=False leave their cache
-    row bit-identical. The kernel gets ``valid = j <= pos``. Returns
-    (out, kv)."""
+    attention). x: (B,1,D); kv: {"k","v"} (B, S, Hkv, hd), plus int8
+    "k_scale"/"v_scale" (B, S, Hkv) for a quantized cache; pos: (B,) or
+    scalar absolute position of the new token; ``idx``: the step's
+    :func:`decode_index` when the caller shares it across layers. Rows
+    with active=False leave their cache row bit-identical, scales
+    included. An int8 cache takes the new token quantized, and the whole
+    cache is dequantized for the attention, as in the JAX package. The
+    kernel gets ``valid = j <= pos``. Returns (out, kv)."""
     b = x.shape[0]
     if idx is None:
         idx = decode_index(cfg, pos, kv, active)
     q, k, v = _decode_qkv(p, cfg, x, idx)
-    _scatter_slot(kv["k"], k[:, 0], idx)
-    _scatter_slot(kv["v"], v[:, 0], idx)
-    k_cache, v_cache = kv["k"], kv["v"]
+    if "k_scale" in kv:
+        for name, new in (("k", k[:, 0]), ("v", v[:, 0])):
+            vals, scale = quantize_kv(new)
+            _scatter_slot(kv[name], vals, idx)
+            _scatter_slot(kv[name + "_scale"], scale, idx)
+        k_cache = dequantize_kv(kv["k"], kv["k_scale"])
+        v_cache = dequantize_kv(kv["v"], kv["v_scale"])
+    else:
+        _scatter_slot(kv["k"], k[:, 0], idx)
+        _scatter_slot(kv["v"], v[:, 0], idx)
+        k_cache, v_cache = kv["k"], kv["v"]
     if decode_impl == "kernel":
         from repro_torch.kernels import ops as kops
         out = kops.gqa_decode(q[:, 0].contiguous(), k_cache, v_cache,

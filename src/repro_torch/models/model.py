@@ -4,7 +4,9 @@ The DENSE branch of ``repro/models/model.py``, with the same functional
 API and layouts:
 
   init_params(cfg, seed, device)                           -> params
+  forward(params, cfg, batch)                    -> (logits (B, S, V), aux)
   init_cache(cfg, batch, cache_len, device)                -> cache
+  prefill(params, cfg, batch)                    -> (last logits, cache)
   init_paged_cache(cfg, num_blocks, block_size, device)    -> cache
   decode_step / prefill_chunk / mixed_step                 -> (logits, cache)
   paged_decode_step / paged_prefill_chunk / paged_mixed_step
@@ -13,15 +15,18 @@ API and layouts:
 Parameters are a nested dict of tensors whose per-layer leaves stay
 stacked along a leading layer axis, as in the JAX pytree; layer ``i`` is
 ``layers[...][i]``. The layer loop is a Python loop (JAX scans it).
-Caches are updated in place and returned (models/layers.py). Other
-families, MLA, sliding windows and the int8 KV cache raise
-NotImplementedError: they are later slices of the port.
+Caches are updated in place and returned (models/layers.py). The int8
+dense KV cache is taken by forward, prefill, init_cache and decode_step;
+the chunk, mixed, verify and paged paths refuse it. Other families, MLA
+and sliding windows raise NotImplementedError everywhere: they are later
+slices of the port.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import DENSE, ModelConfig
 from repro_torch.models import layers as L
@@ -29,9 +34,11 @@ from repro_torch.models import layers as L
 Params = Dict[str, Any]
 
 
-def check_supported(cfg: ModelConfig) -> None:
+def check_supported(cfg: ModelConfig, int8_cache: bool = False) -> None:
     """Raise NotImplementedError for what this slice of the port does not
-    run: anything but a dense, full-attention, fp-cache decoder."""
+    run: anything but a dense, full-attention decoder, and an int8 KV
+    cache on an entry point that does not take one (``int8_cache``:
+    forward, prefill, init_cache and decode_step do)."""
     if cfg.family != DENSE:
         raise NotImplementedError(
             f"family {cfg.family!r}: the port runs dense decoders; the other "
@@ -39,11 +46,17 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.mla is not None:
         raise NotImplementedError("MLA is a later slice of the port")
     if cfg.attention_window:
-        raise NotImplementedError("sliding-window attention is a later "
-                                  "slice of the port")
-    if cfg.kv_cache_dtype:
-        raise NotImplementedError(f"kv_cache_dtype={cfg.kv_cache_dtype!r} "
-                                  "is a later slice of the port")
+        raise NotImplementedError(
+            "sliding-window attention (the ring-buffer KV cache) is a later "
+            "slice of the port, with the MoE block")
+    if cfg.kv_cache_dtype and not int8_cache:
+        raise NotImplementedError(
+            f"kv_cache_dtype={cfg.kv_cache_dtype!r} on the engine and its "
+            "chunk, mixed, verify and paged paths is a later slice of the "
+            "port, the int8-engine slice (the engine's int8 chunk writes "
+            "and the host tier's scale movers; the paged pool is fp-only "
+            "in the JAX package too): forward, prefill, init_cache and "
+            "decode_step take the int8 dense cache")
 
 
 # ===========================================================================
@@ -55,7 +68,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     norms at one), drawn from a ``torch.Generator`` seeded with ``seed``
     on ``device``. The numbers differ from JAX's for the same seed; the
     tests carry JAX's parameters across with params.from_jax_numpy."""
-    check_supported(cfg)
+    check_supported(cfg, int8_cache=True)
     dtype = L.torch_dtype(cfg.dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -113,12 +126,47 @@ def _mlp_residual(lp, cfg, x):
 
 
 # ===========================================================================
+# forward (teacher forcing)
+# ===========================================================================
+def _decoder_block(lp, cfg: ModelConfig, x, positions):
+    h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    x = x + L.attention(lp["attn"], cfg, h, positions)
+    return _mlp_residual(lp, cfg, x)
+
+
+def _run_decoder_stack(stacked, cfg: ModelConfig, x, positions):
+    for lp in _unstack(stacked):
+        x = _decoder_block(lp, cfg, x, positions)
+    return x
+
+
+def _seq_inputs(params, tokens):
+    """Embeddings and (B, S) positions 0..S-1 of a full sequence."""
+    b, s = tokens.shape
+    x = params["embed"][tokens.long()]
+    return x, torch.arange(s, device=x.device).expand(b, s)
+
+
+def forward(params: Params, cfg: ModelConfig, batch: Dict
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forcing full-sequence pass. batch: {"tokens": (B, S) int}.
+    Returns (logits (B, S, V), aux): aux is the MoE load-balancing loss,
+    a 0-d f32 zero for the dense decoder."""
+    check_supported(cfg, int8_cache=True)
+    x, positions = _seq_inputs(params, batch["tokens"])
+    x = _run_decoder_stack(params["layers"], cfg, x, positions)
+    return _head(params, cfg, x), torch.zeros((), dtype=torch.float32,
+                                               device=x.device)
+
+
+# ===========================================================================
 # caches
 # ===========================================================================
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device="cuda") -> Params:
-    """Dense KV cache for ``batch`` slots of ``cache_len`` tokens."""
-    check_supported(cfg)
+    """Dense KV cache for ``batch`` slots of ``cache_len`` tokens (int8
+    values with per-token scales when cfg.kv_cache_dtype == "int8")."""
+    check_supported(cfg, int8_cache=True)
     return {"kv": L.init_kv_cache(cfg, cfg.num_layers, batch, cache_len,
                                   device=device)}
 
@@ -135,21 +183,64 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
 # ===========================================================================
 # decode / prefill
 # ===========================================================================
+def prefill(params: Params, cfg: ModelConfig, batch: Dict
+            ) -> Tuple[torch.Tensor, Params]:
+    """Full-prompt prefill. batch: {"tokens": (B, S) int, optional
+    "cache_len" >= S (default S)}. Returns (last-token logits (B, V), a
+    new dense cache of ``cache_len`` tokens holding the prompt's K/V)."""
+    check_supported(cfg, int8_cache=True)
+    tokens = batch["tokens"]
+    cache_len = batch.get("cache_len", tokens.shape[1])
+    if cache_len < tokens.shape[1]:
+        raise NotImplementedError(
+            f"cache_len {cache_len} < prompt length {tokens.shape[1]}: "
+            "keeping the last cache_len entries in ring layout is the "
+            "ring-buffer KV cache, a later slice of the port")
+    cache = init_cache(cfg, tokens.shape[0], cache_len,
+                       device=params["embed"].device)
+    x = _fill_cache(params, cfg, tokens, cache)
+    return _head(params, cfg, x[:, -1:])[:, 0], cache
+
+
+def _fill_cache(params, cfg, tokens, cache):
+    """Run the stack, storing each layer's K/V into the cache: K/V are
+    recomputed from the hidden state entering the block (one extra K/V
+    product per layer, as in the JAX package), zero-padded to the cache
+    length and, for an int8 cache, quantized after the padding (padding
+    tokens get values 0 and the floor scale). Returns the final hidden
+    state."""
+    x, positions = _seq_inputs(params, tokens)
+    pad = cache["kv"]["k"].shape[2] - tokens.shape[1]
+    for lp, kv in zip(_unstack(params["layers"]), _unstack(cache["kv"])):
+        h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        k, v = L._kv(lp["attn"], cfg, h)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+        for name, t in (("k", k), ("v", v)):
+            t = F.pad(t, (0, 0, 0, 0, 0, pad))
+            if "k_scale" in kv:
+                t, scale = L.quantize_kv(t)
+                kv[name + "_scale"].copy_(scale)
+            kv[name].copy_(t)           # the cache's own layer view
+        x = _decoder_block(lp, cfg, x, positions)
+    return x
+
+
 def decode_step(params: Params, cfg: ModelConfig, token, cache: Params, pos,
                 decode_impl: str = "kernel", active=None
                 ) -> Tuple[torch.Tensor, Params]:
     """token: (B,1) int; pos: scalar or (B,) per-row positions; active:
     optional (B,) bool — rows with active=False leave the cache
-    bit-identical and get garbage logits. Returns (logits (B,V), cache)."""
-    check_supported(cfg)
+    bit-identical and get garbage logits. The cache may be fp or int8
+    (init_cache, prefill). Returns (logits (B,V), cache)."""
+    check_supported(cfg, int8_cache=True)
     x = params["embed"][token.long()]
-    ks, vs = cache["kv"]["k"].unbind(0), cache["kv"]["v"].unbind(0)
-    idx = L.decode_index(cfg, pos, {"k": ks[0]}, active)
-    for lp, k, v in zip(_unstack(params["layers"]), ks, vs):
+    layer_kv = _unstack(cache["kv"])
+    idx = L.decode_index(cfg, pos, layer_kv[0], active)
+    for lp, kv in zip(_unstack(params["layers"]), layer_kv):
         h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        a, _ = L.decode_attention(lp["attn"], cfg, h, {"k": k, "v": v},
-                                  idx.pos, decode_impl=decode_impl,
-                                  active=active, idx=idx)
+        a, _ = L.decode_attention(lp["attn"], cfg, h, kv, idx.pos,
+                                  decode_impl=decode_impl, active=active,
+                                  idx=idx)
         x = _mlp_residual(lp, cfg, x + a)
     return _head(params, cfg, x)[:, 0], cache
 

@@ -129,6 +129,13 @@ class FleetRuntime:
         self.params = params
         self._decisions: Dict[int, RoutingDecision] = {}
         self._categories: Dict[int, str] = {}
+        # per-pool GPU counts of the plan this fleet was provisioned from
+        # (from_plan sets it): the re-planner's hysteresis baseline
+        self.plan_pool_gpus: Optional[List[int]] = None
+        # demo tokens per datacenter token when from_plan shrank the
+        # boundaries (1.0 = native scale): the re-planner plans at
+        # datacenter scale, where the hardware profiles are calibrated
+        self.ctx_scale = 1.0
 
     @classmethod
     def from_plan(cls, cfg: ModelConfig, params, plan: FleetPlan,
@@ -155,9 +162,12 @@ class FleetRuntime:
         c_maxes = tuple(bounds) + (c_top,)
         n_maxes = tuple(min(slots_per_pool, max(1, pp.n_max))
                         for pp in plan.pools)
-        return cls(cfg, params, tuple(bounds), plan.gammas, n_maxes,
-                   c_maxes, c_chunk, config=config,
-                   lout_predictor=lout_predictor, **overrides)
+        rt = cls(cfg, params, tuple(bounds), plan.gammas, n_maxes,
+                 c_maxes, c_chunk, config=config,
+                 lout_predictor=lout_predictor, **overrides)
+        rt.ctx_scale = scale
+        rt.plan_pool_gpus = [pp.n_gpus for pp in plan.pools]
+        return rt
 
     def submit(self, req: GatewayRequest) -> RoutingDecision:
         """Route one request through the gateway and enqueue it on the

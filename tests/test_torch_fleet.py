@@ -199,6 +199,22 @@ def test_fleet_runtime_matches_jax(reduced_models):
         assert rt.router.stats.per_pool == rj.router.stats.per_pool
 
 
+def test_from_plan_records_scale_and_plan_gpus(reduced_models):
+    """from_plan keeps what the re-planner reads off a runtime: the
+    context scale the boundaries were shrunk by and the plan's per-pool
+    GPU counts, equal to the JAX runtime's on the same plan."""
+    cfg, jp, tcfg, tp = reduced_models
+    plan_j, plan_t, scale = _azure_plans()
+    kw = dict(slots_per_pool=2, c_chunk=16, ctx_scale=scale)
+    rj = JPools.FleetRuntime.from_plan(cfg, jp, plan_j, **kw)
+    rt = TPools.FleetRuntime.from_plan(tcfg, tp, plan_t, **kw)
+    assert rt.ctx_scale == rj.ctx_scale == scale
+    assert rt.plan_pool_gpus == rj.plan_pool_gpus
+    assert rt.plan_pool_gpus == [pp.n_gpus for pp in plan_t.pools]
+    bare = TPools.FleetRuntime(tcfg, tp, (64,), (1.5,), (1, 1), (64, 128))
+    assert (bare.ctx_scale, bare.plan_pool_gpus) == (1.0, None)
+
+
 def test_in_band_request_compresses_like_jax(reduced_models):
     """One in-band borderline request (B < L_total <= gamma * B, rag)
     through both runtimes: the same C&R decision, compressed text and
