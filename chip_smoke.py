@@ -121,6 +121,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (31.3 GB of weights, q_per_kv 6) after minitron's tensors are freed:
    batch 4, prompt 1024, 32 new, kernel against the torch path (launches
    32 x 31).
+9. live re-provisioning and crash recovery on phase 5's fleet (full-width
+   minitron-8b bf16, 4 slots a pool, contexts 512 / 4096, c_chunk 256,
+   decode_k 4), dense and paged; eight requests through
+   ``FleetRuntime.submit`` (five short-band, two long, one in-band for
+   C&R; 32 new tokens each), every run driven round by round and held
+   against an uninterrupted run of the same stream by phase 7's rules
+   (both runs' logits logged). (a) after 3 rounds the short pool is
+   reprovisioned to n_max 2, c_max 768, then, once both long requests
+   decode, the long pool to c_max 6144: every request completes, none
+   rerouted, ``reprovision_stats`` as done; each call's wall ms (device
+   synchronised) split into ``drain_checkpoint``, the engine build and
+   ``_adopt_state`` (host checkpoints fitted to the new geometry), device
+   memory before, at peak and after (the old cache freed), and
+   the drive rounds against the uninterrupted run; the long pool's
+   tokens exact (swap restore at an unchanged n_max). (b) every swap-in
+   read back from the new engine equals its host copy bitwise, a dense
+   row's padded tail exactly zero; swap ms per MiB. (c) dense: the short
+   pool killed, its device KV set to NaN, ``recover_pool`` with a 1 s
+   blackout moves its requests to the long pool; a submission inside
+   the blackout raises PoolDownError (retry_after > 0), after it the
+   same prompt and an in-band one (TextRank) are served by the short
+   pool; then the long pool is wedged, found by HealthPolicy(patience=2)
+   and rebuilt in place. (d) paged: the same with the short pool's
+   allocator exhausted instead of a kill. (e) the engines built in
+   (a)-(d) must have launched the layout's decode kernel, and in (a)-(d)
+   the kernel's first launch at each shape, the rebuilt pools' (2, 768)
+   and (4, 6144) included, is held against its plain version on the same
+   live inputs (TOL and one bf16 ulp, as phase 3); phase 9's launches are
+   added to the ``kernels`` line. Prints its duration.
 
 Then it prints the ``kernels`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -1828,6 +1857,22 @@ def _reduced_parity():
     torch.cuda.empty_cache()
 
 
+def _check_restored(eng, s, state, what, pad_from=None):
+    """The KV just swapped into slot ``s`` of ``eng``, read back from the
+    card, equals the host copy ``state.host_kv`` bitwise (paged: the
+    slot's fresh blocks; dense: its row); a dense row's tail past
+    ``pad_from`` tokens, where the host copy was zero-padded, is zero."""
+    import torch
+    for k, a in eng.cache["kv"].items():
+        got = (a[:, eng._slot_blocks[s]] if eng.paged else a[:, s]).cpu()
+        if not torch.equal(got, state.host_kv[k]):
+            fail(f"{what}: the KV restored for rid {state.req.rid} differs "
+                 f"from the bits swapped out ({k})")
+        if pad_from is not None and not eng.paged and got[:, pad_from:].any():
+            fail(f"{what}: rid {state.req.rid}'s padded tail past "
+                 f"{pad_from} is not zero ({k})")
+
+
 @contextlib.contextmanager
 def _swap_probe(log):
     """Check each swap on the card: the host copy equals the device
@@ -1859,11 +1904,7 @@ def _swap_probe(log):
         torch.cuda.synchronize()
         if res == "admitted":
             log.append(("in", state.n_blocks, time.perf_counter() - t0))
-            blocks = self._slot_blocks[s]
-            for k, a in self.cache["kv"].items():
-                if not torch.equal(a[:, blocks].cpu(), state.host_kv[k]):
-                    fail("(d) swap-in: restored blocks differ from the bits "
-                         "swapped out")
+            _check_restored(self, s, state, "(d) swap-in")
         return res
     InferenceEngine._swap_out, InferenceEngine._swap_in = swap_out, swap_in
     try:
@@ -2405,6 +2446,543 @@ def phase_forward(smi):
     return counts
 
 
+# ----------------------------------------------------------------- phase 9
+P9_NEW = 32                              # new tokens a request
+P9_SHORT = (300, 420, 360, 390, 330)     # prompt tokens: L_total <= B = 512
+P9_LONG = (1500, 2500)                   # > gamma * B = 1024: the long pool
+P9_INBAND = 700                          # B < L_total <= gamma * B: C&R
+P9_EVENT_ROUND = 3                       # drive rounds before the event
+P9_SHORT_TO = dict(n_max=2, c_max=768)   # (a): the short pool, >= B
+P9_LONG_TO = dict(c_max=6144)            # (a): the long pool, n_max kept
+P9_BLACKOUT_S = 1.0
+
+
+def _p9_fleet(cfg, params, paged):
+    """Phase 5's fleet (``fleet_args``' azure plan, 4 slots a pool,
+    c_chunk 256, contexts 512 / 4096, decode_k 4) over ``params``, as
+    ``launch.serve.build_fleet_runtime`` builds it, without drawing a
+    second set of weights."""
+    from repro_torch.core.planner import plan_k_pool
+    from repro_torch.core.workload import get_workload
+    from repro_torch.serving.config import ServingConfig
+    from repro_torch.serving.pools import FleetRuntime
+    a = fleet_args(paged=paged)
+    plan = plan_k_pool(get_workload(a.workload), lam=a.lam, t_slo=0.5,
+                       k=a.fleet)
+    return FleetRuntime.from_plan(
+        cfg, params, plan, slots_per_pool=4, c_chunk=256,
+        ctx_scale=4096 / plan.pools[-1].c_max,
+        config=ServingConfig(paged=paged, decode_k=a.decode_k))
+
+
+def _p9_requests(tokenizer):
+    """Five short-band prompts (they keep the short pool's 4 slots full),
+    two long ones and one in-band prompt for C&R; rids 0-4, 10-11, 20."""
+    import numpy as np
+    from repro_torch.serving.pools import GatewayRequest
+    rng = np.random.default_rng(9)
+    reqs = [GatewayRequest(i, varied_prompt(rng, n, tokenizer), P9_NEW)
+            for i, n in enumerate(P9_SHORT)]
+    reqs += [GatewayRequest(10 + i, varied_prompt(rng, n, tokenizer), P9_NEW)
+             for i, n in enumerate(P9_LONG)]
+    reqs.append(GatewayRequest(20, varied_prompt(rng, P9_INBAND, tokenizer),
+                               P9_NEW, category="rag"))
+    return reqs
+
+
+def _p9_round(rt, event, rebuilt, rebuilt_counts):
+    """One drive round: step every busy engine once. An engine that raises
+    EngineDead goes to ``event.on_dead``; launches made by the steps of
+    engines built mid-run (``rebuilt``, a WeakSet) are added up apart."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import EngineDead
+    for name in list(rt.engines):
+        eng = rt.engines[name]
+        if not eng.busy():
+            continue
+        before = [k.launches for k in ops.KERNELS]
+        try:
+            eng.step()
+        except EngineDead:
+            if not hasattr(event, "on_dead"):
+                fail(f"reprovision: pool {name} died unprompted")
+            event.on_dead(rt, name, rebuilt)
+        if eng in rebuilt:
+            for k, b in zip(ops.KERNELS, before):
+                rebuilt_counts[k.name] += k.launches - b
+
+
+def _p9_serve(cfg, params, paged, log, event=None, health=False):
+    """Serve phase 9's stream on a new fleet, logging the logits behind
+    every emitted token, driving round by round (each busy engine stepped
+    once a round) until it drains. ``event.on_round(rt, rounds, rebuilt)``
+    runs after every round; with ``health`` a HealthPolicy(patience=2)
+    hands the pools it finds wedged to ``event.on_wedged``. Returns the
+    run's tokens, rounds, launches and stats; keeps no engine."""
+    import weakref
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving.reconfigure import HealthPolicy
+    rt = _p9_fleet(cfg, params, paged)
+    short, long_ = rt.router.names[0], rt.router.names[-1]
+    _reset_launches()
+    rebuilt = weakref.WeakSet()
+    rebuilt_counts = {k.name: 0 for k in ops.KERNELS}
+    for r in _p9_requests(rt.tokenizer):
+        d = rt.submit(r)
+        want = (long_ if r.rid >= 10 and r.rid < 20 else short,
+                r.rid == 20)
+        if (d.pool, d.compressed) != want:
+            fail(f"reprovision: request {r.rid} routed to {d.pool} "
+                 f"(compressed={d.compressed}), not {want}")
+    policy = HealthPolicy(patience=2) if health else None
+    done_round, rounds = {}, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _logit_log(log):
+        while True:
+            if any(e.busy() for e in rt.engines.values()):
+                _p9_round(rt, event, rebuilt, rebuilt_counts)
+                rounds += 1
+                # (a comprehension: no loop variable keeps an engine alive)
+                for rid in [rid for e in rt.engines.values()
+                            for rid in e.results]:
+                    done_round.setdefault(rid, rounds)
+            elif event is not None and event.pending():
+                time.sleep(max(0.0, event.wait_s()))
+            else:
+                break
+            if event is not None:
+                event.on_round(rt, rounds, rebuilt)
+            if policy is not None:
+                for name in policy.check(rt):
+                    event.on_wedged(rt, name, rebuilt)
+            if rounds > 2000:
+                fail("reprovision: the fleet did not drain")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    res = rt.run(max_iters=1)
+    for rid, r in res.items():
+        if r.timed_out or r.shed or len(r.output_tokens) != P9_NEW:
+            fail(f"reprovision: request {rid} did not complete "
+                 f"({len(r.output_tokens)} tokens, timed_out="
+                 f"{r.timed_out}, shed={r.shed})")
+    out = dict(tokens={rid: r.output_tokens for rid, r in sorted(
+        res.items())}, rounds=rounds, done_round=done_round, secs=secs,
+        stats=dict(rt.reprovision_stats), counts=_launch_counts(),
+        rebuilt_counts=rebuilt_counts)
+    del rt
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _split_timer(split):
+    """Seconds of ``drain_checkpoint``, of the engine build and of
+    ``_adopt_state`` (fitting each host checkpoint to the new geometry: a
+    dense row padded on the host) inside a reprovision call, the device
+    synchronised around each."""
+    import torch
+    from repro_torch.serving import reconfigure
+    from repro_torch.serving.engine import InferenceEngine
+    drain, build = InferenceEngine.drain_checkpoint, reconfigure.InferenceEngine
+    adopt = reconfigure._adopt_state
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            split[key] = split.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+    InferenceEngine.drain_checkpoint = timed(drain, "drain")
+    reconfigure.InferenceEngine = timed(build, "build")
+    reconfigure._adopt_state = timed(adopt, "adopt")
+    try:
+        yield
+    finally:
+        InferenceEngine.drain_checkpoint = drain
+        reconfigure.InferenceEngine = build
+        reconfigure._adopt_state = adopt
+
+
+@contextlib.contextmanager
+def _live_kernel_hold(held):
+    """Hold each decode kernel against its plain version on the live
+    inputs of its first launch at every (B, S) the run gives it (S the
+    dense cache's length, or blocks_per_slot x BLOCK_S), the rebuilt
+    pools' shapes among them, under phase 3's TOL and one-bf16-ulp rule.
+    The launch held is the path's own, checked before the next layer
+    writes the cache; the plain version launches nothing.
+    ``held[(kernel, (B, S))]`` gets (max_abs_err, max|plain|)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gqa_decode import gqa_decode_plain
+    from repro_torch.kernels.paged_decode import paged_gqa_decode_plain
+    dense, paged = ops.gqa_decode, ops.paged_gqa_decode
+
+    def hold(kname, shape, plain, q, args, out, active):
+        key = (kname, shape)
+        if key in held:
+            return
+        if active is None:
+            active = torch.ones(q.shape[0], dtype=torch.bool, device=q.device)
+        ref = plain(q, *args, active)
+        held[key] = _check(kname, str(q.dtype).split(".")[1], out, ref,
+                           active, f"live B={shape[0]} S={shape[1]}")
+
+    def dense_call(q, k, v, valid, active=None):
+        out = dense(q, k, v, valid, active)
+        hold("gqa_decode", (q.shape[0], k.shape[1]), gqa_decode_plain, q,
+             (k, v, valid), out, active)
+        return out
+
+    def paged_call(q, kp, vp, tables, seq, active=None):
+        out = paged(q, kp, vp, tables, seq, active)
+        hold("paged_decode", (q.shape[0], tables.shape[1] * kp.shape[1]),
+             paged_gqa_decode_plain, q, (kp, vp, tables, seq), out, active)
+        return out
+    ops.gqa_decode, ops.paged_gqa_decode = dense_call, paged_call
+    try:
+        yield
+    finally:
+        ops.gqa_decode, ops.paged_gqa_decode = dense, paged
+
+
+@contextlib.contextmanager
+def _restore_probe(log, pad_from):
+    """(b) Time every swap (device synchronised around it) and check every
+    swap-in by ``_check_restored``, a dense row's tail past the context it
+    was taken at (``pad_from[engine]``) included. Logs (direction, bytes,
+    seconds)."""
+    import torch
+    from repro_torch.serving.engine import InferenceEngine
+    out_orig, in_orig = InferenceEngine._swap_out, InferenceEngine._swap_in
+
+    def swap_out(self, s):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = out_orig(self, s)
+        log.append(("out", _nbytes(host), time.perf_counter() - t0))
+        return host
+
+    def swap_in(self, s, qi, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = in_orig(self, s, qi, state)
+        torch.cuda.synchronize()
+        if res != "admitted":
+            return res
+        dt = time.perf_counter() - t0
+        _check_restored(self, s, state, "(b) swap-in", pad_from.get(self))
+        log.append(("in", _nbytes(state.host_kv), dt))
+        return res
+    InferenceEngine._swap_out, InferenceEngine._swap_in = swap_out, swap_in
+    try:
+        yield
+    finally:
+        InferenceEngine._swap_out, InferenceEngine._swap_in = out_orig, in_orig
+
+
+class _Reprovision:
+    """(a) After P9_EVENT_ROUND rounds the short pool goes to n_max 2 and
+    c_max 768; then, once both long requests decode, the long pool to
+    c_max 6144 (n_max kept). Each call is timed, split, and read for
+    device memory."""
+
+    def __init__(self, pad_from, swaps, smi):
+        self.pad_from, self.swaps, self.smi = pad_from, swaps, smi
+        self.calls = []
+
+    def pending(self):
+        return False
+
+    def on_round(self, rt, rounds, rebuilt):
+        long_ = rt.engines[rt.router.names[-1]]
+        decoding = sum(r is not None for r in long_.slot_req) == 2 \
+            and not any(long_.slot_prefill_left) and not long_.waiting
+        del long_
+        if rounds == P9_EVENT_ROUND and not self.calls:
+            self._call(rt, rt.router.names[0], P9_SHORT_TO, rebuilt)
+        elif len(self.calls) == 1 and decoding:
+            self._call(rt, rt.router.names[-1], P9_LONG_TO, rebuilt)
+
+    def _call(self, rt, pool, to, rebuilt):
+        import torch
+        old = rt.engines[pool]
+        old_c, old_bytes = old.c_max, _nbytes(old.cache)
+        del old
+        n_swaps, split = len(self.swaps), {}
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with _split_timer(split):
+            t0 = time.perf_counter()
+            info = rt.reprovision(pool, **to)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        peak, mem1 = torch.cuda.max_memory_allocated(), \
+            torch.cuda.memory_allocated()
+        new = rt.engines[pool]
+        new_bytes = _nbytes(new.cache)
+        self.pad_from[new] = old_c
+        rebuilt.add(new)
+        del new
+        # the old engine is gone: what is left is its cache's bytes freed
+        # and the new cache's allocated (to the engines' small state)
+        if abs((mem1 - mem0) - (new_bytes - old_bytes)) > 2 ** 20:
+            fail(f"(a) {pool}: device memory moved by {mem1 - mem0} B, the "
+                 f"caches by {new_bytes - old_bytes} B: the old engine's "
+                 f"cache was not freed")
+        if info["rerouted"] or info["migrated"] < info["checkpointed"] \
+                or not info["checkpointed"]:
+            fail(f"(a) {pool}: {info}")
+        outs = [(b, t) for d, b, t in self.swaps[n_swaps:] if d == "out"]
+        gib = 2.0 ** 30
+        self.calls.append(dict(info, wall_ms=1e3 * wall,
+                               drain_ms=1e3 * split["drain"],
+                               build_ms=1e3 * split["build"],
+                               adopt_ms=1e3 * split.get("adopt", 0.0)))
+        print(f"[reprovision] (a) {pool} -> {to}: checkpointed "
+              f"{info['checkpointed']}, migrated {info['migrated']}, "
+              f"rerouted {info['rerouted']}; {1e3 * wall:.2f} ms (device "
+              f"synchronised), of which drain_checkpoint "
+              f"{1e3 * split['drain']:.2f} ms ({len(outs)} swap-outs of "
+              f"{sum(b for b, _ in outs) / 2 ** 20:.0f} MiB, "
+              f"{1e3 * sum(t for _, t in outs):.2f} ms), the engine build "
+              f"{1e3 * split['build']:.2f} ms and _adopt_state "
+              f"{1e3 * split.get('adopt', 0.0):.2f} ms (host checkpoints "
+              f"fitted to c_max {info['c_max']}); device memory allocated "
+              f"before {mem0 / gib:.3f} GiB, peak {peak / gib:.3f}, after "
+              f"{mem1 / gib:.3f} (cache {old_bytes / gib:.3f} -> "
+              f"{new_bytes / gib:.3f} GiB; old cache freed) ({self.smi})")
+
+
+class _Crash:
+    """(c) dense: FaultInjector.kill the short pool after P9_EVENT_ROUND
+    rounds; (d) paged: exhaust its allocator instead. Either way the dead
+    engine's device KV is filled with NaN before ``recover_pool`` (salvage
+    reads host mirrors only), a new short-band submission inside the
+    blackout must raise PoolDownError, and after it the same prompt and
+    an in-band prompt (compressed by C&R through TextRank) are served.
+    Three rounds after the recovery the long pool is wedged, for the
+    HealthPolicy to find and ``recover_pool`` to rebuild in place."""
+
+    def __init__(self, paged, texts):
+        self.paged, self.texts = paged, texts
+        self.recoveries, self.deadline, self.resubmitted = [], None, False
+        self.recovered_at = self.wedged_at = None
+        self.rounds = 0
+        self.retry_after = self.textrank = None
+
+    def pending(self):
+        return self.deadline is not None and not self.resubmitted
+
+    def wait_s(self):
+        return self.deadline - time.monotonic()
+
+    def on_round(self, rt, rounds, rebuilt):
+        from repro_torch.kernels import ops
+        from repro_torch.serving.pools import GatewayRequest
+        from repro_torch.serving.reconfigure import FaultInjector
+        self.rounds = rounds
+        inj = FaultInjector(rt)
+        if rounds == P9_EVENT_ROUND and not self.recoveries:
+            (inj.exhaust_allocator if self.paged else inj.kill)(
+                rt.router.names[0])
+        if self.pending() and time.monotonic() >= self.deadline:
+            self.resubmitted = True
+            tr = ops.KERNELS[2].launches
+            for rid, (text, cat) in ((30, self.texts[0]),
+                                     (31, self.texts[20])):
+                d = rt.submit(GatewayRequest(rid, text, P9_NEW, category=cat))
+                if d.pool != rt.router.names[0] or d.compressed != (rid == 31):
+                    fail(f"(c) after the blackout: request {rid} went to "
+                         f"{d.pool} (compressed={d.compressed})")
+            self.textrank = ops.KERNELS[2].launches - tr
+            if self.textrank < 1:
+                fail("(c) after the blackout the in-band request was not "
+                     "scored by the TextRank kernel")
+        if self.recovered_at is not None and self.wedged_at is None \
+                and rounds >= self.recovered_at + 3:
+            long_ = rt.router.names[-1]
+            if not rt.engines[long_].busy():
+                fail("(d) the long pool drained before the wedge")
+            inj.wedge(long_)
+            self.wedged_at = rounds
+
+    def _recover(self, rt, name, rebuilt, blackout_s):
+        import torch
+        from repro_torch.serving.reconfigure import recover_pool
+        for a in rt.engines[name].cache["kv"].values():
+            a.fill_(float("nan"))             # salvage must not read it
+        info = recover_pool(rt, name, blackout_s=blackout_s)
+        rebuilt.add(rt.engines[name])
+        if rt.reprovision_stats["engine_restarts"] != len(
+                self.recoveries) + 1:
+            fail(f"recover {name}: stats {rt.reprovision_stats}")
+        self.recoveries.append((self.rounds, info))
+        torch.cuda.synchronize()
+        return info
+
+    def on_dead(self, rt, name, rebuilt):
+        from repro_torch.serving.pools import GatewayRequest
+        from repro_torch.serving.reconfigure import PoolDownError
+        info = self._recover(rt, name, rebuilt, P9_BLACKOUT_S)
+        if info["rerouted_to"] != rt.router.names[-1]:
+            fail(f"(c) recovery of {name}: {info}")
+        self.recovered_at = self.rounds
+        text, cat = self.texts[0]
+        try:
+            rt.submit(GatewayRequest(29, text, P9_NEW, category=cat))
+        except PoolDownError as e:
+            if e.pool != name or not e.retry_after > 0:
+                fail(f"(c) blackout: {e.pool}, retry_after {e.retry_after}")
+            self.retry_after = e.retry_after
+        else:
+            fail("(c) a submission inside the blackout was accepted")
+        self.deadline = rt.pool_down_until[name]
+
+    def on_wedged(self, rt, name, rebuilt):
+        if self.wedged_at is None or name != rt.router.names[-1]:
+            fail(f"(d) HealthPolicy judged {name} wedged, unprompted")
+        self._recover(rt, name, rebuilt, 0.0)
+
+
+def _p9_layout(cfg, params, paged, smi):
+    """Phase 9 on one KV layout: the uninterrupted run, then (a)+(b) and
+    (c) or (d), each held against it. Returns the launches of its runs."""
+    import weakref
+    from repro_torch.serving.tokenizer import ByteChunkTokenizer
+    kname = "paged_decode" if paged else "gqa_decode"
+    lay = "paged" if paged else "dense"
+    base_log = {}
+    base = _p9_serve(cfg, params, paged, base_log)
+    texts = {r.rid: (r.text, r.category)
+             for r in _p9_requests(ByteChunkTokenizer(cfg.vocab_size))}
+    want = base["tokens"]
+    print(f"[reprovision] {lay} uninterrupted: {len(want)} requests, "
+          f"{base['rounds']} rounds, {base['secs']:.2f} s (logit log "
+          f"included); launches {base['counts']}")
+    # (a) + (b)
+    swaps, pad_from, log, held = [], weakref.WeakKeyDictionary(), {}, {}
+    ev = _Reprovision(pad_from, swaps, smi)
+    with _restore_probe(swaps, pad_from), _live_kernel_hold(held):
+        got = _p9_serve(cfg, params, paged, log, ev)
+    for to in (P9_SHORT_TO, dict(n_max=4, **P9_LONG_TO)):
+        if (kname, (to["n_max"], to["c_max"])) not in held:
+            fail(f"(a) {lay}: {kname} never launched at the rebuilt pool's "
+                 f"B={to['n_max']}, S={to['c_max']}")
+    if len(ev.calls) != 2:
+        fail(f"(a) {lay}: {len(ev.calls)} reprovision calls, not 2 (the "
+             f"long requests never all decoded?)")
+    st = got["stats"]
+    if st != dict(st, rebuilds=2, engine_restarts=0, rerouted_requests=0,
+                  migrated_requests=sum(c["migrated"] for c in ev.calls)):
+        fail(f"(a) {lay}: reprovision_stats {st} after {ev.calls}")
+    if set(got["tokens"]) != set(want):
+        fail(f"(a) {lay}: completed {sorted(got['tokens'])}, not "
+             f"{sorted(want)}")
+    for rid in (10, 11):              # swap restore at an unchanged n_max
+        if got["tokens"][rid] != want[rid]:
+            fail(f"(a) {lay}: long-pool rid {rid} restored at n_max 4 "
+                 f"differs from the uninterrupted run")
+    flips = _bf16_flips(base_log, log, want, got["tokens"],
+                        f"(a) {lay} reprovision vs uninterrupted",
+                        tag="reprovision")
+    del log
+    ins = [(b, t) for d, b, t in swaps if d == "in"]
+    outs = [(b, t) for d, b, t in swaps if d == "out"]
+    if not ins or len(ins) != len(outs):
+        fail(f"(b) {lay}: {len(outs)} swap-outs, {len(ins)} checked "
+             f"swap-ins")
+    late = {rid: got["done_round"][rid] - base["done_round"][rid]
+            for rid in (10, 11)}
+    ms_mib = lambda v: 1e3 * sum(t for _, t in v) / (  # noqa: E731
+        sum(b for b, _ in v) / 2 ** 20)
+    print(f"[reprovision] (a) {lay}: {len(want)}/{len(want)} complete, none "
+          f"timed out or shed, rerouted 0; stats {st}; {got['rounds']} "
+          f"rounds against {base['rounds']} uninterrupted (+"
+          f"{got['rounds'] - base['rounds']}: the short pool serves 6 "
+          f"requests on 2 slots after the call); long requests finish "
+          f"{late} rounds later; tokens equal "
+          f"{sum(got['tokens'][r] == want[r] for r in want)}/{len(want)} "
+          f"(long pool exact), {flips} first divergences at bf16 near-ties")
+    print(f"[reprovision] (b) {lay}: {len(ins)} swap-ins read back equal to "
+          f"their host copies bitwise{'' if paged else ', padded tails zero'};"
+          f" swap-out {ms_mib(outs):.3f} ms/MiB over {len(outs)} "
+          f"({sum(b for b, _ in outs) / 2 ** 20:.0f} MiB), swap-in "
+          f"{ms_mib(ins):.3f} ms/MiB over {len(ins)} "
+          f"({sum(b for b, _ in ins) / 2 ** 20:.0f} MiB) (pageable; "
+          f"{smi})")
+    # (c) / (d)
+    log = {}
+    ev = _Crash(paged, texts)
+    with _live_kernel_hold(held):
+        crash = _p9_serve(cfg, params, paged, log, ev, health=True)
+    what = "(d) exhaust_allocator" if paged else "(c) kill"
+    if len(ev.recoveries) != 2 or not ev.resubmitted or ev.wedged_at is None:
+        fail(f"{what} {lay}: recoveries {ev.recoveries}, resubmitted "
+             f"{ev.resubmitted}, wedged at {ev.wedged_at}")
+    if set(crash["tokens"]) != set(want) | {30, 31}:
+        fail(f"{what} {lay}: completed {sorted(crash['tokens'])}")
+    flips_c = _bf16_flips(base_log, log, want, crash["tokens"],
+                          f"{what} {lay} vs uninterrupted",
+                          tag="reprovision")
+    del log, base_log
+    (r1, i1), (r2, i2) = ev.recoveries
+    print(f"[reprovision] {what} {lay}: the short pool died at round "
+          f"{r1 + 1}, its device KV set to NaN, recover_pool moved "
+          f"{i1['migrated']} requests to {i1['rerouted_to']}; a submission "
+          f"in the blackout raised PoolDownError (retry_after "
+          f"{ev.retry_after:.3f} s), after it the same prompt and an "
+          f"in-band one (TextRank launches {ev.textrank}) were served by "
+          f"short; the long pool, wedged at round {ev.wedged_at}, was found "
+          f"by HealthPolicy(patience=2) at round {r2} and rebuilt in place "
+          f"({i2['migrated']} requests); stats {crash['stats']}; "
+          f"{len(crash['tokens'])} requests complete in {crash['rounds']} "
+          f"rounds; tokens equal "
+          f"{sum(crash['tokens'][r] == want[r] for r in want)}/{len(want)}, "
+          f"{flips_c} first divergences at bf16 near-ties")
+    for run, name in ((got, "(a)"), (crash, what)):
+        if run["rebuilt_counts"][kname] == 0:
+            fail(f"(e) {lay} {name}: the rebuilt engines never launched "
+                 f"{kname}")
+    print(f"[reprovision] (e) {lay}: {kname} held against its plain "
+          f"version on the live inputs of its first launch at each shape "
+          f"of (a) and {what.split()[0]} (limit {TOL['bfloat16']:g} and one "
+          f"bf16 ulp of max|plain|): " + ", ".join(
+              f"B={b} S={s_} err {e:.3e} ({e / m:.3e} x max|plain| {m:.3f})"
+              for (_, (b, s_)), (e, m) in sorted(held.items())))
+    print(f"[reprovision] (e) {lay}: launches by engines built mid-run "
+          f"{got['rebuilt_counts']} in (a), {crash['rebuilt_counts']} in "
+          f"{what.split()[0]}")
+    total = {}
+    for run in (base, got, crash):
+        for k, v in run["counts"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_reprovision(smi):
+    """Phase 9: live re-provisioning and crash recovery (module
+    docstring). Returns the launches of its runs."""
+    import torch
+    t0 = time.perf_counter()
+    cfg, params = _full_width()
+    launches = {}
+    for paged in (False, True):
+        for k, v in _p9_layout(cfg, params, paged, smi).items():
+            launches[k] = launches.get(k, 0) + v
+    del params
+    torch.cuda.empty_cache()
+    print(f"[reprovision] phase 9: {time.perf_counter() - t0:.1f} s; "
+          f"launches {launches}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2433,6 +3011,8 @@ def main() -> int:
     phase_compressor_paper_size()
     phase_spec_overload()
     phase_forward(smi)
+    for name, n in phase_reprovision(smi).items():
+        launches[name] += n
     sources = {"gqa_decode": ("src/repro_torch/kernels/csrc/gqa_decode.cu",
                               "src/repro/kernels/gqa_decode.py:29"),
                "paged_decode": ("src/repro_torch/kernels/csrc/paged_decode.cu",

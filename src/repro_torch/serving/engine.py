@@ -59,8 +59,15 @@ queue wait (queue depth over the rolling service rate) exceeds it.
 (``l_out_hint``) instead of its worst case; a request that outruns it
 preempts (``_reservation_breach``), never runs the pool dry.
 
-Sharded serving and live re-provisioning are later slices of the port;
-their ServingConfig knobs raise NotImplementedError here when set
+Fault hooks for live re-provisioning and crash recovery
+(``serving/reconfigure.py``): ``_fault`` set to "killed" makes the next
+``step()`` raise :class:`EngineDead`, "oom" makes the next paged block
+allocation raise it from inside the allocator, and "wedged" makes
+``step()`` return without advancing the iteration clock. All three act
+on the host, before any device work is queued.
+
+Sharded serving and the closed-loop re-planner are later slices of the
+port; their ServingConfig knobs raise NotImplementedError here when set
 (``check_slice``).
 """
 from __future__ import annotations
@@ -85,7 +92,7 @@ _LATER_SLICES = {
     "mesh": (None, "the sharded-serving slice"),
     "parallel": (None, "the sharded-serving slice"),
     "tp_degree": (1, "the sharded-serving slice"),
-    "autoscale": (False, "the serving-surface slice (live re-provisioning)"),
+    "autoscale": (False, "the closed-loop re-planner slice"),
 }
 
 
@@ -110,6 +117,13 @@ def prefill_buckets(c_chunk: int, min_bucket: int = 8) -> Tuple[int, ...]:
         b *= 2
     buckets.append(c_chunk)
     return tuple(buckets)
+
+
+class EngineDead(RuntimeError):
+    """The engine's device state is gone (an injected crash or allocator
+    exhaustion). Host bookkeeping (queue, emitted-token mirrors, the host
+    KV tier) survives: ``reconfigure.salvage_states`` reads it to move
+    every accepted request to a healthy engine."""
 
 
 @dataclasses.dataclass
@@ -263,6 +277,10 @@ class InferenceEngine:
                                "swapped_in": 0, "recomputed": 0,
                                "swapped_blocks": 0, "shed": 0,
                                "hol_bypass": 0, "reservation_breach": 0}
+        # fault injection (reconfigure.FaultInjector): None = healthy;
+        # "killed" / "oom" make the next step / block allocation raise
+        # EngineDead, "wedged" stalls step() without advancing the clock
+        self._fault: Optional[str] = None
         self.lout_reservation = bool(scfg.lout_reservation)
         # rolling completion / arrival rates per iteration (EMA) for the
         # queue-wait estimate
@@ -419,6 +437,12 @@ class InferenceEngine:
         batched prefill call, else a decode call advancing ``decode_k``
         iterations (verify windows when ``spec_k > 1``). The iteration
         clock advances by the model iterations the dispatch performed."""
+        if self._fault == "killed":
+            raise EngineDead(f"engine fault injected: {self._fault}")
+        if self._fault == "wedged":
+            # a stall: busy, stepped, and the clock never moves (what
+            # HealthPolicy detects)
+            return
         it0, done0 = self.iteration, self._completed_total
         self.iteration += 1
         self._admit()
@@ -867,6 +891,11 @@ class InferenceEngine:
         """Pop a free block; when the free list is dry, evict the least
         recently released cached prefix block (its hash leaves the
         prefix map: its content is about to be overwritten)."""
+        if self._fault == "oom":
+            # raised from INSIDE the allocator, so counters the caller
+            # already decremented stay inconsistent: salvage reads host
+            # mirrors only
+            raise EngineDead("engine fault injected: allocator exhausted")
         if self._free:
             return self._free.pop()
         phys, _ = self._cached_free.popitem(last=False)

@@ -15,13 +15,22 @@ CUDA kernel (``kernels/textrank.py``). One ServingConfig reaches every
 engine: speculation, overload survival (preemption, the host KV tier,
 queue-wait shedding) and output-length-aware reservation included; with
 ``lout_routing`` the gateway bands by predicted output length and clamps
-the generation budget to the chosen pool's context. Live
-re-provisioning (``reprovision``) is a later slice.
+the generation budget to the chosen pool's context.
+
+Live re-provisioning: ``reprovision`` rebuilds one pool's engine with
+another slot count or context window and migrates every in-flight
+request through the host KV tier (``serving/reconfigure.py``); after a
+crash, ``reconfigure.recover_pool`` rebuilds it and blacks the pool out
+for a while (``pool_down_until``), during which ``submit`` raises
+``PoolDownError``. ``reprovision_stats`` counts both. Placing pools on
+several devices (``device_placement``, ``tp``) comes with the
+sharded-serving slice.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -34,6 +43,7 @@ from repro_torch.core.router import GatewayRouter, RoutingDecision
 from repro_torch.core.workload import (OutputLenPredictor, Request,
                                        get_workload)
 from repro_torch.kernels import ops
+from repro_torch.serving import reconfigure
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.engine import (InferenceEngine, ServeRequest,
                                         ServeResult, check_slice)
@@ -126,9 +136,17 @@ class FleetRuntime:
             names[i]: InferenceEngine(cfg, params, n_maxes[i], c_maxes[i],
                                       config=scfg)
             for i in range(k)}
+        # the one parameter set on the device: engine rebuilds
+        # (reprovision, recover_pool) take it, never a second copy
         self.params = params
         self._decisions: Dict[int, RoutingDecision] = {}
         self._categories: Dict[int, str] = {}
+        self.reprovision_stats = {"rebuilds": 0, "engine_restarts": 0,
+                                  "migrated_requests": 0,
+                                  "rerouted_requests": 0,
+                                  "autoscale_actions": 0}
+        # pool -> monotonic deadline while crash recovery blacks it out
+        self.pool_down_until: Dict[str, float] = {}
         # per-pool GPU counts of the plan this fleet was provisioned from
         # (from_plan sets it): the re-planner's hysteresis baseline
         self.plan_pool_gpus: Optional[List[int]] = None
@@ -184,6 +202,13 @@ class FleetRuntime:
                     prompt_bytes=len(req.text.encode("utf-8")))
         decision = self.router.route(r, prompt_text=req.text,
                                      session=req.session)
+        if decision.pool in self.pool_down_until:
+            left = self.pool_down_until[decision.pool] - time.monotonic()
+            if left > 0:
+                # crash-recovery blackout: refuse with the wait a gateway
+                # maps to 503 + Retry-After
+                raise reconfigure.PoolDownError(decision.pool, left)
+            del self.pool_down_until[decision.pool]
         text = decision.compressed_text if decision.compressed else req.text
         ids = self.tokenizer.encode(text)
         max_new = req.max_output_tokens
@@ -217,6 +242,16 @@ class FleetRuntime:
             self.lout_predictor.update(d.l_in_effective,
                                        len(res.output_tokens),
                                        category=self._categories.get(rid))
+
+    def reprovision(self, pool: str, *, n_max: Optional[int] = None,
+                    c_max: Optional[int] = None,
+                    tp: Optional[int] = None) -> Dict[str, object]:
+        """Rebuild one pool's engine with a new slot count or context,
+        migrating every in-flight request through the host KV tier with
+        the tokens of an uninterrupted run (``reconfigure.reprovision``;
+        ``tp`` raises NotImplementedError)."""
+        return reconfigure.reprovision(self, pool, n_max=n_max,
+                                       c_max=c_max, tp=tp)
 
     def release(self, rid: int) -> None:
         """Drop every host-side record of a consumed request."""

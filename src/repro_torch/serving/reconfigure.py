@@ -1,0 +1,353 @@
+"""Live fleet re-provisioning and fault injection, in PyTorch: the port of
+``repro/serving/reconfigure.py``.
+
+``reprovision`` tears a loaded engine down and rebuilds it with another
+slot count or context window without dropping an in-flight request:
+
+    quiesce -> checkpoint -> rebuild -> restore
+
+1. quiesce: ``drain_checkpoint`` preempts every occupied slot through
+   the host KV tier (swap or recompute by the cold-suffix threshold;
+   mid-prefill slots go onto the recompute path) and requeues them in
+   slot order ahead of the waiting arrivals.
+2. checkpoint: each ``_PreemptedState`` carries the emitted tokens, the
+   replay token list and, on the swap path, the slot's exact KV bits as
+   CPU tensors.
+3. rebuild: a new ``InferenceEngine`` over the runtime's one parameter
+   set (``runtime.params``, already on the card: no second copy).
+4. restore: checkpointed requests move ahead of queued ones;
+   ``_adopt_state`` fits swap-path KV to the new geometry (dense rows are
+   zero-padded or truncated along the seq axis on the host; paged blocks
+   move unchanged) and falls back to recompute when it cannot.
+
+Resume gives the tokens of an uninterrupted run: a slot's tokens do not
+depend on its co-tenants (masked rows are no-ops), the swap path
+restores exact KV bits, and the recompute path replays the exact tokens
+whose KV sat at positions 0..pos-1; every pool shares one set of params
+and one prefill chunking.
+
+The same machinery survives unplanned teardown: ``FaultInjector`` kills
+an engine (device state lost, host bookkeeping kept), exhausts its paged
+allocator, or wedges ``step()``; ``HealthPolicy`` detects the stall; and
+``recover_pool`` salvages every accepted request from host mirrors only
+and re-routes them one pool up, where the no-OOM guarantee holds by
+construction (band_i requests fit pool i+1's larger context).
+
+Sharded re-provisioning (``tp=``) comes with the sharded-serving slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.serving.engine import (InferenceEngine, ServeRequest,
+                                        _PreemptedState)
+
+
+class PoolDownError(RuntimeError):
+    """Submission refused: the target pool is inside a re-provisioning or
+    crash-recovery blackout window. Carries the seconds a client should
+    wait (a gateway maps this to 503 + Retry-After)."""
+
+    def __init__(self, pool: str, retry_after: float):
+        super().__init__(f"pool {pool} is re-provisioning; "
+                         f"retry after {retry_after:.2f}s")
+        self.pool = pool
+        self.retry_after = retry_after
+
+
+# --------------------------------------------------------------- migration
+def _fits(req: ServeRequest, c_max: int, paged: bool, block_size: int,
+          num_blocks: int) -> bool:
+    """Would ``req`` (fresh or resumed: the replay list plus the remaining
+    budget span the same len(tokens) + max_new_tokens positions) fit an
+    engine of this geometry at all?"""
+    total = len(req.tokens) + req.max_new_tokens
+    if total > c_max:
+        return False
+    if paged and math.ceil(total / block_size) > num_blocks:
+        return False
+    return True
+
+
+def _fit_seq(h: torch.Tensor, axis: int, n: int) -> torch.Tensor:
+    """Zero-pad or truncate a dense host KV row to ``n`` positions along
+    its seq axis, on the host. Bitwise-safe either way: positions >= pos
+    are never attended (the mask ends at pos), and pos <= the fit-checked
+    len(tokens) + max_new_tokens <= n on the truncation path."""
+    if h.shape[axis] == n:
+        return h
+    if h.shape[axis] > n:
+        return h.narrow(axis, 0, n).clone()
+    shape = list(h.shape)
+    shape[axis] = n - h.shape[axis]
+    return torch.cat([h, h.new_zeros(shape)], dim=axis)
+
+
+def _adopt_state(state: _PreemptedState, src: InferenceEngine,
+                 dst: InferenceEngine) -> _PreemptedState:
+    """Fit a host checkpoint taken on ``src`` to ``dst``'s cache geometry.
+    Paged blocks move unchanged (the block size is fleet-uniform); dense
+    rows, (L, S, ...) per leaf (``layers.gather_slot_row``), pad or
+    truncate along axis 1. Any other mismatch falls back to the recompute
+    path: replay and last_tok are kept on both preemption paths so this
+    conversion is always available."""
+    if state.host_kv is None:
+        return state
+    if src.paged and dst.paged and src.block_size == dst.block_size \
+            and state.n_blocks <= dst.blocks_per_slot:
+        return state
+    if not src.paged and not dst.paged:
+        if src.c_max == dst.c_max:
+            return state
+        kv = {k: _fit_seq(h, 1, dst.c_max) for k, h in state.host_kv.items()}
+        return dataclasses.replace(state, host_kv=kv)
+    return dataclasses.replace(state, host_kv=None, n_blocks=0, pos=0)
+
+
+def _move_request(src: InferenceEngine, dst: InferenceEngine,
+                  req: ServeRequest,
+                  state: Optional[_PreemptedState]) -> None:
+    """Move one queued or checkpointed request from ``src`` to the tail of
+    ``dst``'s queue with its accounting. The enqueue time is re-keyed to
+    ``dst``'s iteration clock."""
+    rid = req.rid
+    if state is not None:
+        dst._preempted[rid] = _adopt_state(state, src, dst)
+    dst.waiting.append(req)
+    dst._enqueued_at[rid] = dst.iteration
+    src._enqueued_at.pop(rid, None)
+    for attr in ("_queue_iters", "_prefill_iters", "_rid_preemptions"):
+        v = getattr(src, attr).pop(rid, None)
+        if v is not None:
+            d = getattr(dst, attr)
+            d[rid] = d.get(rid, 0) + v
+    src._preempted.pop(rid, None)
+    src._req_hashes.pop(rid, None)
+    src._hol_bypassed.pop(rid, None)
+    src._resume_last_tok.pop(rid, None)
+
+
+def reprovision(runtime, pool: str, *, n_max: Optional[int] = None,
+                c_max: Optional[int] = None,
+                tp: Optional[int] = None) -> Dict[str, object]:
+    """Rebuild ``runtime.engines[pool]`` with a new slot count or context
+    window, migrating every in-flight and queued request with the tokens
+    of an uninterrupted run.
+
+    In-flight requests the new geometry cannot hold re-route one pool up
+    (their band fits the larger pool by construction); shrinking the TOP
+    pool below an in-flight request's footprint is refused up front,
+    before any state is touched. ``tp`` raises NotImplementedError, also
+    before any state is touched."""
+    if tp is not None:
+        raise NotImplementedError(
+            f"reprovision(tp={tp!r}) is not ported yet: it comes with the "
+            "sharded-serving slice of the PyTorch port")
+    names = list(runtime.engines)
+    if pool not in runtime.engines:
+        raise KeyError(f"unknown pool {pool!r} (have {names})")
+    i = names.index(pool)
+    old = runtime.engines[pool]
+    new_n = old.n_max if n_max is None else int(n_max)
+    new_c = old.c_max if c_max is None else int(c_max)
+    if new_n < 1:
+        raise ValueError(f"n_max must be >= 1, got {new_n}")
+    bounds = runtime.router.boundaries
+    if i < len(bounds) and new_c < bounds[i]:
+        raise ValueError(
+            f"pool {pool} context {new_c} < its routing boundary "
+            f"{bounds[i]}: compressed requests could overflow the KV "
+            "cache (shrink the boundary first)")
+    ecfg = old.config
+    # misfit scan before any mutation: a request the new geometry can
+    # never hold must have somewhere to go
+    block = ecfg.block_size
+    nb = ecfg.num_blocks if ecfg.num_blocks is not None \
+        else new_n * math.ceil(new_c / block)
+    inflight = [r for r in old.slot_req if r is not None] + list(old.waiting)
+    misfits = {r.rid for r in inflight
+               if not _fits(r, new_c, ecfg.paged, block, nb)}
+    if misfits and i + 1 >= len(names):
+        raise ValueError(
+            f"shrinking top pool {pool} to c_max={new_c} would orphan "
+            f"{len(misfits)} in-flight request(s); drain them first")
+    # quiesce: checkpoint every occupied slot into the host tier, requeued
+    # in slot order ahead of the waiting arrivals
+    checkpointed = old.drain_checkpoint()
+    new_eng = InferenceEngine(runtime.cfg, runtime.params, new_n, new_c,
+                              config=ecfg)
+    up = runtime.engines[names[i + 1]] if i + 1 < len(names) else None
+    migrated = rerouted = 0
+    for req in list(old.waiting):
+        state = old._preempted.get(req.rid)
+        if req.rid in misfits:
+            _move_request(old, up, req, state)
+            rerouted += 1
+            d = runtime._decisions.get(req.rid)
+            if d is not None:
+                d.pool = names[i + 1]
+        else:
+            _move_request(old, new_eng, req, state)
+        migrated += 1
+    old.waiting.clear()
+    # unconsumed finished results follow the pool name
+    new_eng.results.update(old.results)
+    old.results.clear()
+    # the swap: the router's pool name maps to the new engine from the
+    # next submit or step on
+    runtime.engines[pool] = new_eng
+    stats = runtime.reprovision_stats
+    stats["rebuilds"] += 1
+    stats["migrated_requests"] += migrated
+    stats["rerouted_requests"] += rerouted
+    return {"pool": pool, "checkpointed": checkpointed,
+            "migrated": migrated, "rerouted": rerouted,
+            "n_max": new_n, "c_max": new_c}
+
+
+# ----------------------------------------------------------- fault recovery
+def salvage_states(
+        eng: InferenceEngine,
+) -> List[Tuple[ServeRequest, Optional[_PreemptedState]]]:
+    """Read every accepted request out of a DEAD engine from host mirrors
+    only: its device KV is gone, and the allocator counters may be
+    mid-update (the oom fault raises from inside ``_alloc_block``), so
+    nothing here calls into the engine or reads its cache or paged
+    bookkeeping.
+
+    Slot occupants come first, in slot order, as recompute-path
+    checkpoints (the replay list and the last fed token rebuilt as
+    ``preempt_slot`` would); then the queue in order, where checkpointed
+    requests keep their host swap copies, which survived the crash.
+
+    A slot is mid-prefill while its KV does not cover its replay list
+    (``slot_pos < len(replay)``), not only while ``slot_prefill_left``
+    is non-empty: ``step()`` takes a slot's chunk off that list before
+    it allocates the chunk's blocks, so an oom raised there leaves a
+    slot whose final chunk never ran with an empty list. (The JAX
+    package tests the list alone and feeds such a request a stale token
+    after recovery.)"""
+    out: List[Tuple[ServeRequest, Optional[_PreemptedState]]] = []
+    for s in range(eng.n_max):
+        req = eng.slot_req[s]
+        if req is None:
+            continue
+        emitted = list(eng.slot_out[s])
+        replay = InferenceEngine._replay_tokens(req, emitted)
+        if int(eng.slot_pos[s]) < len(replay):
+            # mid-prefill: a resumed replay parked its next fed token; a
+            # fresh prefill feeds the last prompt token, replay[-1]
+            last = eng._resume_last_tok.get(req.rid)
+            if last is None:
+                last = int(replay[-1]) if replay else 0
+        else:
+            last = int(eng.slot_last_tok[s])
+        out.append((req, _PreemptedState(
+            req=req, out=emitted, pos=0, last_tok=int(last),
+            replay=replay, host_kv=None, n_blocks=0)))
+    for req in eng.waiting:
+        out.append((req, eng._preempted.get(req.rid)))
+    return out
+
+
+def recover_pool(runtime, pool: str, *,
+                 blackout_s: float = 0.0) -> Dict[str, object]:
+    """Crash recovery for ``pool``: salvage every accepted request from the
+    dead engine's host mirrors, rebuild the engine at its provisioned
+    shape, and re-route the salvaged requests ONE POOL UP (band_i requests
+    fit pool i+1's larger context). The top pool restores into its own
+    rebuilt engine. New submissions to the pool raise ``PoolDownError``
+    until ``blackout_s`` has elapsed."""
+    names = list(runtime.engines)
+    if pool not in runtime.engines:
+        raise KeyError(f"unknown pool {pool!r} (have {names})")
+    i = names.index(pool)
+    old = runtime.engines[pool]
+    salvaged = salvage_states(old)
+    new_eng = InferenceEngine(runtime.cfg, runtime.params, old.n_max,
+                              old.c_max, config=old.config)
+    up_name = names[i + 1] if i + 1 < len(names) else pool
+    migrated = 0
+    for req, state in salvaged:
+        dst = new_eng if up_name == pool else runtime.engines[up_name]
+        _move_request(old, dst, req, state)
+        migrated += 1
+        if up_name != pool:
+            d = runtime._decisions.get(req.rid)
+            if d is not None:
+                d.pool = up_name
+    # finished but unconsumed results survived on the host
+    new_eng.results.update(old.results)
+    old.results.clear()
+    runtime.engines[pool] = new_eng
+    runtime.pool_down_until[pool] = time.monotonic() + blackout_s
+    runtime.reprovision_stats["engine_restarts"] += 1
+    runtime.reprovision_stats["migrated_requests"] += migrated
+    return {"pool": pool, "migrated": migrated, "rerouted_to": up_name,
+            "blackout_s": blackout_s}
+
+
+class FaultInjector:
+    """Inject faults into a live pool's engine (tests, smoke runs).
+
+    * ``kill``: the device state is lost; the next ``step()`` raises
+      ``EngineDead``. Host bookkeeping (queue, emitted-token mirrors, the
+      host KV tier) survives for salvage.
+    * ``exhaust_allocator``: the next paged block allocation raises
+      ``EngineDead`` from inside the allocator, leaving its counters
+      inconsistent, which is why salvage reads host mirrors only.
+    * ``wedge``: ``step()`` returns without advancing the iteration clock,
+      the stall ``HealthPolicy`` detects.
+    """
+
+    def __init__(self, runtime):
+        self.runtime = runtime
+
+    def kill(self, pool: str) -> None:
+        self.runtime.engines[pool]._fault = "killed"
+
+    def exhaust_allocator(self, pool: str) -> None:
+        eng = self.runtime.engines[pool]
+        if not eng.paged:
+            raise ValueError("allocator-exhaustion fault needs paged mode")
+        eng._fault = "oom"
+
+    def wedge(self, pool: str) -> None:
+        self.runtime.engines[pool]._fault = "wedged"
+
+    def clear(self, pool: str) -> None:
+        self.runtime.engines[pool]._fault = None
+
+
+class HealthPolicy:
+    """Stall detector for a drive loop: an engine that is busy and being
+    stepped but whose iteration clock has not advanced for ``patience``
+    consecutive checks is wedged (a healthy ``step()`` always advances
+    the clock). Crashes raise ``EngineDead`` and need no detector."""
+
+    def __init__(self, patience: int = 3):
+        self.patience = max(1, int(patience))
+        self._seen: Dict[str, Tuple[int, int]] = {}
+
+    def check(self, runtime) -> List[str]:
+        """Call once per drive pass, after stepping the busy engines;
+        returns the pools judged wedged (their strikes reset, so a
+        recovered pool starts afresh)."""
+        wedged = []
+        for name, eng in runtime.engines.items():
+            if not eng.busy():
+                self._seen.pop(name, None)
+                continue
+            last_it, strikes = self._seen.get(name, (-1, 0))
+            strikes = strikes + 1 if eng.iteration == last_it else 0
+            if strikes >= self.patience:
+                wedged.append(name)
+                self._seen.pop(name, None)
+            else:
+                self._seen[name] = (eng.iteration, strikes)
+        return wedged
