@@ -150,6 +150,45 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and (4, 6144) included, is held against its plain version on the same
    live inputs (TOL and one bf16 ulp, as phase 3); phase 9's launches are
    added to the ``kernels`` line. Prints its duration.
+10. the HTTP/SSE gateway (``launch.serve.serve_http`` on phase 5's fleet,
+   the weights of phase 9 reused, an ephemeral port, the client in
+   process), every answer read as it arrives. (a) paged with the prefix
+   cache: the reference smoke sequence (``/health``; a streamed
+   completion, more than one flush and [DONE]; the same prompt not
+   streamed, equal bitwise, or by phase 7's rules where it hit the prefix
+   cache and so prefilled other shapes; a malformed body's 400; a burst
+   of six prompts of 96-136 tokens, sized for this fleet's context scale,
+   then ``POST /admin/replan``, which must move the boundary down to
+   ``boundaries_after``; ``/metrics``, every sample line parsing and the
+   boundary gauge equal to the applied boundary); then, on a new gateway,
+   phase 6's five in-band prompts, streamed one at a time, each
+   compressed into the short pool (the annotation says so) by one
+   TextRank launch a compression attempt, and eight concurrent streams
+   (four of 300-420 tokens, four of 1500-2500), each completing with
+   finish_reason ``length`` on its pool. (b) dense, ``--chaos``: the
+   reference chaos sequence, with the streamed and non-streamed runs of
+   one prompt equal bitwise; the short pool killed after the live
+   stream's first flush, a probe in the blackout answered 503 with
+   Retry-After >= 1, the killed stream completing on the long pool by
+   phase 7's rules, the retry after the blackout equal bitwise to the
+   unfaulted run (the rebuilt engine has the same shapes), and the
+   restart and migration counters >= 1. (c) dense, ``--autoscale``: a
+   long prompt's unfaulted run, four short requests, then the same long
+   prompt streamed and ``POST /admin/replan`` after its first flush: the
+   tick must take an autoscale action on the stream's pool while the
+   stream is in its slots (the planning rate is the smoke's arrival rate
+   against the plan's 1000 req/s, so the plan shrinks the pools' slots),
+   the stream completes by phase 7's rules, and
+   ``fleetopt_autoscale_actions_total`` >= 1. Each decode kernel's first
+   launch at every (B, S) of the phase, the autoscaled long pool's
+   included, is held against its plain version on its live inputs (phase
+   9's rule). Prints TTFT over HTTP (short, long, in-band with
+   compression_ms), request latency, streamed tokens/s and flushes per
+   stream under the concurrent streams, ``Replanner.tick`` ms,
+   ``/metrics`` render ms, kill to the first post-recovery token, the
+   autoscale tick's ms (its rebuilds split), the stream's largest pause
+   and the device memory around the tick, and the phase's launches, which
+   are added to the ``kernels`` line.
 
 Then it prints the ``kernels`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -1085,7 +1124,8 @@ def fleet_args(**over):
     kw = dict(arch="minitron-8b", reduced=False, fleet=2, workload="azure",
               lam=1000.0, paged=False, prefix_cache=False, decode_k=4,
               spec_k=1, preemption=False, max_queue_wait=None,
-              new_tokens=64, device="cuda", int8_kv=False)
+              new_tokens=64, device="cuda", int8_kv=False, autoscale=False,
+              http=None, smoke=False, chaos=False, replan_interval=None)
     return argparse.Namespace(**dict(kw, **over))
 
 
@@ -2983,6 +3023,581 @@ def phase_reprovision(smi):
     return launches
 
 
+# ---------------------------------------------------------------- phase 10
+P10_NEW = 16                               # new tokens: in-band and mixed
+P10_MIX_SHORT = (300, 360, 420, 390)       # prompt tokens of the short streams
+P10_MIX_LONG = (1500, 1800, 2200, 2500)    # of the long ones (phase 9's)
+P10_SMOKE = "smoke fleet serving demo " * 6          # the reference smoke's
+P10_BURST = tuple(96 + 8 * i for i in range(6))      # (a) before the re-plan
+P10_CHAOS = "chaos smoke fleet serving " * 4         # the reference chaos's
+P10_CHAOS_NEW = 32
+P10_WARM = (60, 90, 120, 150)              # (c) completed before the tick
+P10_LIVE = 1500                            # (c) in flight through the tick
+
+
+async def _sse_timed(host, port, body: dict):
+    """POST ``body`` to /v1/completions and read the answer as it arrives.
+    Returns dict(status, headers, chunks, done, at, sent, end): ``at[i]``
+    is the host time chunk ``i`` arrived (perf_counter), ``sent`` when
+    the request went out, ``end`` when the connection closed; a JSON
+    answer (not a stream) comes back as ``body``."""
+    import asyncio
+    reader, writer = await asyncio.open_connection(host, port)
+    payload = json.dumps(body).encode()
+    sent = time.perf_counter()
+    writer.write(f"POST /v1/completions HTTP/1.1\r\nHost: smoke\r\n"
+                 f"Content-Length: {len(payload)}\r\n\r\n".encode()
+                 + payload)
+    await writer.drain()
+    head = await asyncio.wait_for(reader.readuntil(b"\r\n\r\n"), 300)
+    lines = head.decode("latin-1").split("\r\n")
+    headers = {k.strip().lower(): v.strip() for k, v in
+               (ln.split(":", 1) for ln in lines[1:] if ":" in ln)}
+    out = dict(status=int(lines[0].split()[1]), headers=headers, chunks=[],
+               at=[], done=False, sent=sent, body=None)
+    if headers.get("content-type") != "text/event-stream":
+        raw = await asyncio.wait_for(reader.read(), 300)
+        out["body"] = json.loads(raw) if raw else None
+    else:
+        while True:
+            try:
+                ev = await asyncio.wait_for(reader.readuntil(b"\n\n"), 300)
+            except asyncio.IncompleteReadError:
+                break
+            t = time.perf_counter()
+            if ev.strip() == b"data: [DONE]":
+                out["done"] = True
+            elif ev.startswith(b"data: "):
+                out["chunks"].append(json.loads(ev[6:]))
+                out["at"].append(t)
+    out["end"] = time.perf_counter()
+    writer.close()
+    return out
+
+
+def _streamed(r, what, n_tokens=None):
+    """A timed SSE answer's token ids; fails unless it is a 200 stream
+    ending in a ``length`` chunk and [DONE] (with ``n_tokens`` ids)."""
+    chunks = r["chunks"]
+    if r["status"] != 200 or not r["done"] or not chunks \
+            or chunks[-1]["choices"][0]["finish_reason"] != "length":
+        fail(f"{what}: status {r['status']}, done {r['done']}, last chunk "
+             f"{chunks[-1] if chunks else None}")
+    ids = [t for c in chunks[:-1] for t in c["choices"][0]["token_ids"]]
+    if n_tokens is not None and len(ids) != n_tokens:
+        fail(f"{what}: {len(ids)} tokens, not {n_tokens}")
+    return ids
+
+
+def _rid(answer: dict) -> int:
+    """The gateway's request id (the engine's rid) of an answer."""
+    return int(answer["id"].split("-")[1])
+
+
+def _ms(a, b) -> float:
+    return 1e3 * (b - a)
+
+
+@contextlib.contextmanager
+def _tick_timer(ticks):
+    """Every Replanner.tick: (ms, {pool: rids in its slots at the start},
+    report, device bytes allocated before, after, the engines' cache bytes
+    before, after), the device synchronised at both ends."""
+    import torch
+    from repro_torch.serving.replanner import Replanner
+    orig = Replanner.tick
+
+    def caches(rt):
+        return sum(_nbytes(e.cache) for e in rt.engines.values())
+
+    def timed(self):
+        slots = {n: [r.rid for r in e.slot_req if r is not None]
+                 for n, e in self.runtime.engines.items()}
+        torch.cuda.synchronize()
+        mem0, c0 = torch.cuda.memory_allocated(), caches(self.runtime)
+        t0 = time.perf_counter()
+        rep = orig(self)
+        torch.cuda.synchronize()
+        ticks.append((_ms(t0, time.perf_counter()), slots, rep, mem0,
+                      torch.cuda.memory_allocated(), c0,
+                      caches(self.runtime)))
+        return rep
+    Replanner.tick = timed
+    try:
+        yield
+    finally:
+        Replanner.tick = orig
+
+
+def _p10_gateway(params, client, **over):
+    """``launch.serve.serve_http`` on phase 5's fleet over ``params`` (4
+    slots a pool, c_chunk 256, contexts 512 / 4096, decode_k 4), on an
+    ephemeral port, with ``client(gw)`` as its client."""
+    from repro_torch.launch import serve
+    return serve.serve_http(fleet_args(smoke=True, **over), client=client,
+                            params=params, slots_per_pool=4, c_chunk=256,
+                            long_ctx=4096)
+
+
+def _p10_smoke(params, smi):
+    """(a) the reference smoke sequence, paged with the prefix cache."""
+    import numpy as np
+    from repro_torch.launch import serve
+    from repro_torch.serving.metrics import render_prometheus
+    log, ticks = {}, []
+
+    async def client(gw):
+        host, port = gw.host, gw.port
+        st, _, body = await serve._http_call(host, port, "GET", "/health")
+        h = json.loads(body)
+        if st != 200 or h["status"] != "ok" or h["boundaries"] != [512]:
+            fail(f"(a) /health: {st} {h}")
+        r = await _sse_timed(host, port, {"prompt": P10_SMOKE,
+                                          "max_tokens": 12, "stream": True})
+        if r["headers"].get("content-type") != "text/event-stream":
+            fail(f"(a) stream content type {r['headers']}")
+        streamed = _streamed(r, "(a) SSE", 12)
+        flushes = len(r["chunks"]) - 1
+        if flushes < 2:
+            fail(f"(a) SSE: {flushes} flushes, want > 1")
+        pool = r["chunks"][-1]["fleetopt"]["pool"]
+        hits0 = gw.runtime.engines[pool].prefix_stats["hit_blocks"]
+        t0 = time.perf_counter()
+        st, _, body = await serve._http_call(
+            host, port, "POST", "/v1/completions",
+            json.dumps({"prompt": P10_SMOKE, "max_tokens": 12}).encode())
+        t_ns = time.perf_counter()
+        offline = json.loads(body)
+        if st != 200 or offline["fleetopt"]["pool"] != pool:
+            fail(f"(a) non-streamed: {st} {offline}")
+        st, _, body = await serve._http_call(host, port, "POST",
+                                             "/v1/completions", b"{not json")
+        err = json.loads(body)
+        if st != 400 or err["error"]["type"] != "invalid_request_error":
+            fail(f"(a) malformed body: {st} {err}")
+        rng = np.random.default_rng(11)
+        for n in P10_BURST:
+            st, _, body = await serve._http_call(
+                host, port, "POST", "/v1/completions", json.dumps(
+                    {"prompt": varied_prompt(rng, n, gw.runtime.tokenizer),
+                     "max_tokens": 8}).encode())
+            if st != 200:
+                fail(f"(a) burst: {st} {body[:200]}")
+        b_before = list(gw.runtime.router.boundaries)
+        t1 = time.perf_counter()
+        st, _, body = await serve._http_call(host, port, "POST",
+                                             "/admin/replan")
+        t2 = time.perf_counter()
+        rep = json.loads(body)
+        b_after = list(gw.runtime.router.boundaries)
+        if st != 200 or not rep["applied"] or b_after != \
+                rep["boundaries_after"] or not all(
+                    a < b for a, b in zip(b_after, b_before)):
+            fail(f"(a) re-plan: {st}, boundaries {b_before} -> {b_after}, "
+                 f"report {rep}")
+        st, _, body = await serve._http_call(host, port, "GET", "/metrics")
+        t3 = time.perf_counter()
+        text = body.decode()
+        bad = [ln for ln in text.splitlines()
+               if ln and not ln.startswith("#")
+               and not serve.METRIC_SAMPLE.match(ln)]
+        gauge = [ln for ln in text.splitlines() if ln.startswith(
+            'fleetopt_boundary_tokens{index="0"}')]
+        if st != 200 or bad or not gauge or \
+                int(float(gauge[0].split()[-1])) != b_after[0] or any(
+                    n not in text for n in (
+                        'fleetopt_dispatches_total{pool="short"}',
+                        "fleetopt_replan_applied_total",
+                        "fleetopt_stream_flushes_total")):
+            fail(f"(a) /metrics: status {st}, bad lines {bad[:3]}, boundary "
+                 f"gauge {gauge} vs {b_after}")
+        async with gw._lock:
+            render = []
+            for _ in range(20):
+                t = time.perf_counter()
+                render_prometheus(gw.metrics())
+                render.append(_ms(t, time.perf_counter()))
+        return dict(streamed=streamed, offline=offline, pool=pool,
+                    hits=gw.runtime.engines[pool].prefix_stats["hit_blocks"]
+                    - hits0, ttft=_ms(r["sent"], r["at"][0]),
+                    latency=_ms(r["sent"], r["end"]), flushes=flushes,
+                    nonstream_ms=_ms(t0, t_ns), replan_http_ms=_ms(t1, t2),
+                    metrics_http_ms=_ms(t2, t3), render_ms=sorted(render),
+                    b=(b_before, b_after), rid=_rid(r["chunks"][0]),
+                    lines=len(text.splitlines()))
+
+    with _logit_log(log), _tick_timer(ticks):
+        out = _p10_gateway(params, client, paged=True, prefix_cache=True)
+    offline = out["offline"]["choices"][0]["token_ids"]
+    same = offline == out["streamed"]
+    if not same:
+        if out["hits"] <= 0:
+            fail(f"(a) streamed {out['streamed']} and non-streamed {offline} "
+                 "ids differ at the same fixed shapes")
+        # a prefix hit prefills only the uncached suffix: other shapes
+        _bf16_flips({0: log[out["rid"]]}, {0: log[_rid(out["offline"])]},
+                    {0: out["streamed"]}, {0: offline},
+                    "(a) non-streamed (prefix hit) vs streamed", tag="gateway")
+    rep = ticks[-1][2]
+    print(f"[http] (a) reference smoke sequence, paged + prefix cache: "
+          f"/health, SSE {out['flushes']} flushes / 12 tokens from "
+          f"{out['pool']} (TTFT {out['ttft']:.2f} ms, latency "
+          f"{out['latency']:.2f} ms), the same prompt non-streamed "
+          f"({out['nonstream_ms']:.2f} ms) "
+          f"{'equal bitwise' if same else 'held by the drift rule'} "
+          f"({out['hits']} prefix-hit blocks: the repeat prefilled only "
+          f"the uncached suffix), 400 invalid_request_error, a burst of "
+          f"{len(P10_BURST)} prompts of {P10_BURST[0]}-{P10_BURST[-1]} "
+          f"tokens, re-plan boundaries {out['b'][0]} -> {out['b'][1]} "
+          f"(Replanner.tick {ticks[-1][0]:.2f} ms over window weight "
+          f"{rep['window_weight']:.1f}, POST /admin/replan "
+          f"{out['replan_http_ms']:.2f} ms), /metrics {out['lines']} "
+          f"lines parse, the boundary gauge equal ({smi})")
+    r = out["render_ms"]
+    print(f"[http] (a) /metrics: render_prometheus(gw.metrics()) p50 "
+          f"{r[len(r) // 2]:.3f} ms, max {r[-1]:.3f} ms over {len(r)}; "
+          f"GET /metrics {out['metrics_http_ms']:.2f} ms ({smi})")
+    return out
+
+
+def _p10_mix(params, smi):
+    """(a) the gateway's real mix, paged with the prefix cache: the five
+    in-band prompts (C&R into the short pool), then eight concurrent
+    streams, short and long."""
+    import asyncio
+    import numpy as np
+    from repro_torch.kernels import ops
+
+    async def client(gw):
+        rt = gw.runtime
+        b = rt.router.boundaries[0]
+        tr0 = ops.KERNELS[2].launches
+        att0 = rt.router.stats.compression_attempts
+        inband = []
+        for req in _in_band_requests(rt, P10_NEW, rid0=0):
+            r = await _sse_timed(gw.host, gw.port, {
+                "prompt": req.text, "max_tokens": P10_NEW, "stream": True,
+                "category": req.category})
+            _streamed(r, f"(a) in-band {req.category}", P10_NEW)
+            ann = r["chunks"][-1]["fleetopt"]
+            if not ann["compressed"] or ann["pool"] != rt.router.names[0] \
+                    or ann["l_total_effective"] > b:
+                fail(f"(a) in-band request not compressed into the short "
+                     f"pool within Eq. 15: {ann}")
+            inband.append(dict(
+                l_total=rt.tokenizer.count(req.text) + P10_NEW,
+                eff=ann["l_total_effective"], c_ms=ann["compression_ms"],
+                ttft=_ms(r["sent"], r["at"][0]),
+                latency=_ms(r["sent"], r["end"])))
+        textrank = ops.KERNELS[2].launches - tr0
+        attempts = rt.router.stats.compression_attempts - att0
+        if textrank < len(inband) or textrank != attempts:
+            fail(f"(a) TextRank launches {textrank} for {attempts} "
+                 f"compression attempts, {len(inband)} in-band requests")
+        rng = np.random.default_rng(10)
+        texts = [varied_prompt(rng, n, rt.tokenizer)
+                 for n in P10_MIX_SHORT + P10_MIX_LONG]
+        t0 = time.perf_counter()
+        rs = await asyncio.gather(*(_sse_timed(gw.host, gw.port, {
+            "prompt": x, "max_tokens": P10_NEW, "stream": True})
+            for x in texts))
+        wall = time.perf_counter() - t0
+        streams = []
+        for i, r in enumerate(rs):
+            _streamed(r, f"(a) concurrent stream {i}", P10_NEW)
+            want = rt.router.names[0 if i < len(P10_MIX_SHORT) else -1]
+            if r["chunks"][-1]["fleetopt"]["pool"] != want:
+                fail(f"(a) concurrent stream {i} served by "
+                     f"{r['chunks'][-1]['fleetopt']['pool']}, not {want}")
+            streams.append(dict(ttft=_ms(r["sent"], r["at"][0]),
+                                latency=_ms(r["sent"], r["end"]),
+                                flushes=len(r["chunks"]) - 1,
+                                prompt=rt.tokenizer.count(texts[i])))
+        return dict(inband=inband, textrank=textrank, attempts=attempts,
+                    streams=streams, wall=wall)
+
+    out = _p10_gateway(params, client, paged=True, prefix_cache=True)
+    med = lambda v: sorted(v)[len(v) // 2]   # noqa: E731
+    ib = out["inband"]
+    print(f"[http] (a) {len(ib)} in-band prompts (L_total "
+          f"{min(x['l_total'] for x in ib)}-{max(x['l_total'] for x in ib)}"
+          f" -> {min(x['eff'] for x in ib)}-{max(x['eff'] for x in ib)}), "
+          f"each compressed into the short pool by C&R, streamed one at a "
+          f"time: TTFT over HTTP p50 {med([x['ttft'] for x in ib]):.2f} ms "
+          f"(max {max(x['ttft'] for x in ib):.2f}), of which compression_ms "
+          f"p50 {med([x['c_ms'] for x in ib]):.3f} (max "
+          f"{max(x['c_ms'] for x in ib):.3f}); latency p50 "
+          f"{med([x['latency'] for x in ib]):.2f} ms; TextRank launches "
+          f"{out['textrank']} for {out['attempts']} compression attempts "
+          f"({smi})")
+    ss = out["streams"]
+    tokens = P10_NEW * len(ss)
+    for cls, part in (("short", ss[:len(P10_MIX_SHORT)]),
+                      ("long", ss[len(P10_MIX_SHORT):])):
+        print(f"[http] (a) concurrent {cls} streams (prompts "
+              f"{min(x['prompt'] for x in part)}-"
+              f"{max(x['prompt'] for x in part)} tokens): TTFT over HTTP "
+              f"p50 {med([x['ttft'] for x in part]):.2f} ms, max "
+              f"{max(x['ttft'] for x in part):.2f}; latency p50 "
+              f"{med([x['latency'] for x in part]):.2f} ms, max "
+              f"{max(x['latency'] for x in part):.2f}; flushes per stream "
+              f"{sorted(x['flushes'] for x in part)} ({smi})")
+    print(f"[http] (a) {len(ss)} concurrent SSE streams, {tokens} tokens in "
+          f"{out['wall']:.3f} s: {tokens / out['wall']:.1f} streamed "
+          f"tokens/s, all finish_reason length ({smi})")
+    return out
+
+
+def _p10_chaos(params, smi):
+    """(b) the reference chaos sequence on the dense fleet: the victim
+    pool killed under a live stream after its first flush."""
+    import asyncio
+    from repro_torch.launch import serve
+    from repro_torch.serving.reconfigure import FaultInjector
+    log = {}
+
+    async def client(gw):
+        host, port = gw.host, gw.port
+        body = {"prompt": P10_CHAOS, "max_tokens": P10_CHAOS_NEW}
+        ref = await _sse_timed(host, port, body)
+        if ref["status"] != 200:
+            fail(f"(b) unfaulted run: {ref}")
+        ref_ids = ref["body"]["choices"][0]["token_ids"]
+        victim = ref["body"]["fleetopt"]["pool"]
+        if victim != gw.runtime.router.names[0]:
+            fail(f"(b) the chaos prompt went to {victim}")
+        unfaulted = await _sse_timed(host, port, dict(body, stream=True))
+        streamed_ref = _streamed(unfaulted, "(b) unfaulted stream",
+                                 P10_CHAOS_NEW)
+        task = asyncio.ensure_future(_sse_timed(host, port,
+                                                dict(body, stream=True)))
+        tok0, done0 = gw.tokens_streamed, gw.completions_done
+        while gw.tokens_streamed == tok0 and not task.done():
+            await asyncio.sleep(0.001)
+        if gw.completions_done != done0:
+            fail("(b) the stream finished before the kill")
+        async with gw._lock:
+            if len(gw._pending) != 1:
+                fail(f"(b) {len(gw._pending)} requests in flight at the kill")
+            n_before = next(iter(gw._pending.values())).flushed
+            FaultInjector(gw.runtime).kill(victim)
+            t_kill = time.perf_counter()
+        while gw.runtime.reprovision_stats["engine_restarts"] < 1:
+            if task.done():
+                fail("(b) the drive loop never recovered the killed engine")
+            await asyncio.sleep(0.001)
+        t_rec = time.perf_counter()
+        probe = await _sse_timed(host, port, body)
+        retry_after = int(probe["headers"].get("retry-after", "0"))
+        if probe["status"] != 503 or retry_after < 1 or \
+                probe["body"]["error"]["type"] != "overloaded_error":
+            fail(f"(b) blackout probe: {probe['status']} "
+                 f"{probe['headers']} {probe['body']}")
+        killed = await task
+        ids = _streamed(killed, "(b) killed stream", P10_CHAOS_NEW)
+        # the first chunk holding a token flushed after the kill
+        n, after = 0, None
+        for c, t in zip(killed["chunks"], killed["at"]):
+            n += len(c["choices"][0]["token_ids"])
+            if n > n_before:
+                after = t
+                break
+        await asyncio.sleep(retry_after)
+        retry = await _sse_timed(host, port, body)
+        if retry["status"] != 200 or \
+                retry["body"]["fleetopt"]["pool"] != victim:
+            fail(f"(b) post-blackout retry: {retry}")
+        st, _, raw = await serve._http_call(host, port, "GET", "/metrics")
+        counters = {ln.split()[0]: float(ln.split()[-1])
+                    for ln in raw.decode().splitlines()
+                    if ln.startswith(("fleetopt_engine_restarts_total",
+                                      "fleetopt_migrated_requests_total"))}
+        if len(counters) != 2 or min(counters.values()) < 1:
+            fail(f"(b) /metrics counters {counters}")
+        return dict(ref_ids=ref_ids, ref_rid=_rid(ref["body"]),
+                    streamed_ref=streamed_ref, ids=ids,
+                    rid=_rid(killed["chunks"][0]), victim=victim,
+                    final_pool=killed["chunks"][-1]["fleetopt"]["pool"],
+                    retry_ids=retry["body"]["choices"][0]["token_ids"],
+                    retry_after=retry_after, counters=counters,
+                    kill_to_recovered=_ms(t_kill, t_rec),
+                    kill_to_token=None if after is None
+                    else _ms(t_kill, after), flushed_at_kill=n_before,
+                    gaps=[_ms(a, b) for a, b in zip(killed["at"],
+                                                    killed["at"][1:])],
+                    ref_latency=_ms(ref["sent"], ref["end"]))
+
+    with _logit_log(log):
+        out = _p10_gateway(params, client, chaos=True)
+    if out["streamed_ref"] != out["ref_ids"]:
+        fail(f"(b) streamed {out['streamed_ref']} and non-streamed "
+             f"{out['ref_ids']} ids differ at the same fixed shapes")
+    if out["retry_ids"] != out["ref_ids"]:
+        fail("(b) the post-blackout retry on the rebuilt engine of the same "
+             "(n_max, c_max) differs from the unfaulted run")
+    if out["final_pool"] == out["victim"] or out["kill_to_token"] is None:
+        fail(f"(b) the killed stream finished on {out['final_pool']}, "
+             f"tokens after the kill: {out['kill_to_token']}")
+    flips = _bf16_flips({0: log[out["ref_rid"]]}, {0: log[out["rid"]]},
+                        {0: out["ref_ids"]}, {0: out["ids"]},
+                        "(b) killed stream (migrated) vs unfaulted",
+                        tag="gateway")
+    print(f"[http] (b) chaos, dense: streamed == non-streamed bitwise; pool "
+          f"{out['victim']} killed after the stream's first flush, the "
+          f"drive loop rebuilt it {out['kill_to_recovered']:.2f} ms after the "
+          f"kill; the probe got 503 overloaded_error, Retry-After "
+          f"{out['retry_after']} s; the killed stream completed on "
+          f"{out['final_pool']} ({P10_CHAOS_NEW} tokens, "
+          f"{sum(a == b for a, b in zip(out['ids'], out['ref_ids']))} equal "
+          f"the unfaulted run's, {flips} first divergences at bf16 "
+          f"near-ties); kill to its first post-recovery token (token "
+          f"{out['flushed_at_kill'] + 1}) {out['kill_to_token']:.2f} ms, "
+          f"largest gap between its chunks "
+          f"{max(out['gaps']):.2f} ms; the post-blackout retry equal "
+          f"bitwise; counters {out['counters']}; unfaulted latency "
+          f"{out['ref_latency']:.2f} ms ({smi})")
+    return out
+
+
+def _p10_autoscale(params, smi):
+    """(c) --autoscale on the dense fleet: a re-plan tick, forced while a
+    long stream decodes, rebuilds pools under it."""
+    import numpy as np
+    from repro_torch.launch import serve
+    log, ticks, split = {}, [], {}
+
+    async def client(gw):
+        import asyncio
+        import torch
+        rt = gw.runtime
+        rng = np.random.default_rng(12)
+        live = varied_prompt(rng, P10_LIVE, rt.tokenizer)
+        body = {"prompt": live, "max_tokens": P10_CHAOS_NEW}
+        ref = await _sse_timed(gw.host, gw.port, body)
+        if ref["status"] != 200 or \
+                ref["body"]["fleetopt"]["pool"] != rt.router.names[-1]:
+            fail(f"(c) the live prompt's unfaulted run: {ref['status']} "
+                 f"{ref['body'] and ref['body'].get('fleetopt')}")
+        for n in P10_WARM:
+            r = await _sse_timed(gw.host, gw.port, {
+                "prompt": varied_prompt(rng, n, rt.tokenizer),
+                "max_tokens": 8})
+            if r["status"] != 200:
+                fail(f"(c) warm-up request: {r}")
+        task = asyncio.ensure_future(_sse_timed(gw.host, gw.port,
+                                                dict(body, stream=True)))
+        tok0 = gw.tokens_streamed
+        while gw.tokens_streamed == tok0 and not task.done():
+            await asyncio.sleep(0.001)
+        t0 = time.perf_counter()
+        st, _, raw = await serve._http_call(gw.host, gw.port, "POST",
+                                            "/admin/replan")
+        t1 = time.perf_counter()
+        rep = json.loads(raw)
+        shapes = {n: (e.n_max, e.c_max) for n, e in rt.engines.items()}
+        stream = await task
+        torch.cuda.synchronize()
+        mem_end = torch.cuda.memory_allocated()
+        st2, _, raw = await serve._http_call(gw.host, gw.port, "GET",
+                                             "/metrics")
+        acts = [ln for ln in raw.decode().splitlines()
+                if ln.startswith("fleetopt_autoscale_actions_total")]
+        return dict(ref_ids=ref["body"]["choices"][0]["token_ids"],
+                    ref_rid=_rid(ref["body"]), rep=rep, status=st,
+                    replan_http_ms=_ms(t0, t1), shapes=shapes,
+                    stream=stream, acts=acts, stats=dict(
+                        rt.reprovision_stats), mem_end=mem_end,
+                    lam=gw.replanner.lam_estimate())
+
+    with _logit_log(log), _tick_timer(ticks), _split_timer(split):
+        out = _p10_gateway(params, client, autoscale=True)
+    rep, stream = out["rep"], out["stream"]
+    ids = _streamed(stream, "(c) the stream through the tick", P10_CHAOS_NEW)
+    rid = _rid(stream["chunks"][0])
+    ms, slots, _, mem0, mem1, cache0, cache1 = ticks[-1]
+    long_ = list(out["shapes"])[-1]
+    actions = rep.get("autoscale_actions") or []
+    if out["status"] != 200 or rid not in slots[long_] or not any(
+            f" {long_} " in f" {a} " for a in actions):
+        fail(f"(c) the tick (status {out['status']}) took actions {actions} "
+             f"with {slots} in the slots: none rebuilt the pool of stream "
+             f"{rid}")
+    if not out["acts"] or float(out["acts"][0].split()[-1]) < 1 or \
+            out["stats"]["autoscale_actions"] != len(actions):
+        fail(f"(c) autoscale counters {out['acts']}, stats {out['stats']}")
+    if out["shapes"][long_][0] == 4:
+        fail(f"(c) the long pool kept n_max 4: {out['shapes']}")
+    flips = _bf16_flips({0: log[out["ref_rid"]]}, {0: log[rid]},
+                        {0: out["ref_ids"]}, {0: ids},
+                        "(c) stream migrated by the autoscaler vs unfaulted",
+                        tag="gateway")
+    gaps = [_ms(a, b) for a, b in zip(stream["at"], stream["at"][1:])]
+    gib = 2.0 ** 30
+    # the old caches are freed by the drive loop's next pass: its loop
+    # variable holds the engine it last stepped through the tick (the
+    # logit log adds ~1 MiB a token meanwhile)
+    if out["mem_end"] - mem0 > cache1 - cache0 + 64 * 2 ** 20:
+        fail(f"(c) device memory {mem0 / gib:.3f} -> {out['mem_end'] / gib:.3f}"
+             f" GiB once the stream completed; the caches went "
+             f"{cache0 / gib:.3f} -> {cache1 / gib:.3f} GiB")
+    print(f"[http] (c) --autoscale, dense: POST /admin/replan while stream "
+          f"{rid} decoded on {long_} (lam_estimate {out['lam']:.3f} req/s "
+          f"against the plan's 1000): {len(actions)} actions {actions}; "
+          f"pools now {out['shapes']}, boundaries {rep['boundaries_before']}"
+          f" -> {rep['boundaries_after']}; stats {out['stats']}")
+    print(f"[http] (c) the tick took {ms:.2f} ms with its rebuilds under the "
+          f"gateway lock (drain_checkpoint {1e3 * split.get('drain', 0):.2f} "
+          f"ms, engine builds {1e3 * split.get('build', 0):.2f} ms, "
+          f"_adopt_state {1e3 * split.get('adopt', 0):.2f} ms; POST "
+          f"/admin/replan {out['replan_http_ms']:.2f} ms); the stream's "
+          f"largest gap between chunks {max(gaps):.2f} ms (median "
+          f"{sorted(gaps)[len(gaps) // 2]:.2f}); device memory allocated "
+          f"{mem0 / gib:.3f} GiB before the tick, {mem1 / gib:.3f} right "
+          f"after it, {out['mem_end'] / gib:.3f} once the stream completed "
+          f"(caches {cache0 / gib:.3f} -> {cache1 / gib:.3f} GiB); the "
+          f"stream completed "
+          f"({P10_CHAOS_NEW} tokens, {sum(a == b for a, b in zip(ids, out['ref_ids']))}"
+          f" equal the unfaulted run's, {flips} first divergences at bf16 "
+          f"near-ties) ({smi})")
+    return out
+
+
+def phase_http(smi):
+    """Phase 10: the HTTP/SSE gateway, metrics, the re-planner and the
+    autoscaler (module docstring). Returns the launches of its runs."""
+    import torch
+    t0 = time.perf_counter()
+    cfg, params = _full_width()
+    held = {}
+    _reset_launches()
+    with _live_kernel_hold(held):
+        _p10_smoke(params, smi)
+        mix = _p10_mix(params, smi)
+        _p10_chaos(params, smi)
+        auto = _p10_autoscale(params, smi)
+    counts = _launch_counts(need=("gqa_decode", "paged_decode", "textrank"),
+                            what="gateway (phase 10)")
+    want = [("paged_decode", (4, 512)), ("paged_decode", (4, 4096)),
+            ("gqa_decode", (4, 512)), ("gqa_decode", (4, 4096)),
+            ("gqa_decode", auto["shapes"][list(auto["shapes"])[-1]])]
+    missing = [k for k in want if k not in held]
+    if missing:
+        fail(f"phase 10: no held launch at {missing}; held {sorted(held)}")
+    if counts["textrank"] < mix["textrank"]:
+        fail(f"phase 10: textrank launches {counts}")
+    del params
+    torch.cuda.empty_cache()
+    print(f"[http] each decode kernel's first launch at every (B, S) of "
+          f"phase 10 held against its plain version on its live inputs "
+          f"(limit {TOL['bfloat16']:g} and one bf16 ulp of max|plain|): "
+          + ", ".join(f"{k} B={b} S={s_} err {e:.3e} ({e / m:.3e} x "
+                      f"max|plain| {m:.3f})"
+                      for (k, (b, s_)), (e, m) in sorted(held.items())))
+    print(f"[http] phase 10: {time.perf_counter() - t0:.1f} s; launches "
+          f"{counts} ({smi})")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -3012,6 +3627,8 @@ def main() -> int:
     phase_spec_overload()
     phase_forward(smi)
     for name, n in phase_reprovision(smi).items():
+        launches[name] += n
+    for name, n in phase_http(smi).items():
         launches[name] += n
     sources = {"gqa_decode": ("src/repro_torch/kernels/csrc/gqa_decode.cu",
                               "src/repro/kernels/gqa_decode.py:29"),

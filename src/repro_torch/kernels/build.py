@@ -16,6 +16,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
@@ -57,6 +58,9 @@ class CudaKernel:
         self._fn = None
         self._lib = None
         self._error_string = None
+        # the serving gateway steps engines in an executor thread while
+        # its event loop scores prompts: one build and load per library
+        self._load_lock = threading.Lock()
 
     def _stale(self) -> bool:
         if not self.library.exists():
@@ -86,19 +90,26 @@ class CudaKernel:
         os.replace(tmp, self.library)
 
     def function(self):
-        """The C entry point, building the library first if needed."""
+        """The C entry point, building the library first if needed (once,
+        whichever thread asks first)."""
         if self._fn is None:
-            if self._stale():
-                self._finish_build(self._start_build())
-            lib = ctypes.CDLL(str(self.library))
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            err = lib.kernel_error_string
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
-            self._fn, self._error_string, self._lib = fn, err, lib
+            with self._load_lock:
+                if self._fn is None:
+                    self._load()
         return self._fn
+
+    def _load(self) -> None:
+        if self._stale():
+            self._finish_build(self._start_build())
+        lib = ctypes.CDLL(str(self.library))
+        fn = getattr(lib, self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        err = lib.kernel_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        self._error_string, self._lib = err, lib
+        self._fn = fn
 
     def extra(self, name: str, argtypes: Sequence, restype=ctypes.c_int):
         """Another C function of the same library (built as for

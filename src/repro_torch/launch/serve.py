@@ -2,7 +2,8 @@
 then greedy decode) and, with ``--fleet K``, offline fleet serving (plan
 a K-pool fleet with the FleetOpt planner, build one gateway-routed
 engine per pool, route a mixed prompt batch through the C&R gateway and
-drain it).
+drain it), or, with ``--http`` / ``--smoke``, the same fleet behind the
+asyncio HTTP/SSE gateway with the closed-loop re-planner.
 
   # batch launcher: full-width minitron-8b (bf16), 8 prompts of 64
   # tokens, 16 new tokens each, decode through the CUDA kernel
@@ -30,15 +31,29 @@ drain it).
       --paged --decode-k 4 --spec-k 4 --preemption --max-queue-wait 8 \
       --device cpu
 
-The port of ``repro/launch/serve.py`` without its HTTP gateway and
-sharding. Runs on ``--device cuda`` (the default) and raises when no
-card is present; ``--device cpu`` runs the plain PyTorch versions of the
-kernels.
+  # the same fleet behind the asyncio HTTP gateway (OpenAI-style
+  # /v1/completions with SSE streaming, /health, Prometheus /metrics,
+  # the closed-loop re-planner on /admin/replan, a tick every 30 s, and
+  # the autoscaler acting on its deltas)
+  PYTHONPATH=src python -m repro_torch.launch.serve --fleet 2 --decode-k 4 \
+      --http 8000 --replan-interval 30 --autoscale
+
+  # smoke: ephemeral port, in-process client, exit nonzero on failure;
+  # --chaos kills a pool mid-stream and checks the recovery
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --fleet 2 \
+      --smoke --chaos --device cpu
+
+The port of ``repro/launch/serve.py`` without sharding. Runs on
+``--device cuda`` (the default) and raises when no card is present;
+``--device cpu`` runs the plain PyTorch versions of the kernels.
 """
 import argparse
+import asyncio
 import dataclasses
+import json
+import re
 import time
-from typing import Any, Dict, List
+from typing import Any, Awaitable, Callable, Dict, List, Optional
 
 import torch
 
@@ -48,6 +63,9 @@ from repro_torch.core.workload import get_workload
 from repro_torch.models import model as M
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.pools import FleetRuntime, GatewayRequest
+from repro_torch.serving.reconfigure import FaultInjector
+from repro_torch.serving.replanner import Replanner
+from repro_torch.serving.server import ServingGateway
 
 
 def resolve_device(name: str) -> torch.device:
@@ -155,12 +173,13 @@ def serve_batch(args, params=None, tokens=None,
 
 
 def build_fleet_runtime(args, *, slots_per_pool: int = 2, c_chunk: int = 16,
-                        long_ctx: int = 512):
+                        long_ctx: int = 512, params=None):
     """Plan K pools from the workload CDF and make the plan executable:
     one InferenceEngine per pool behind the C&R gateway, sharing one
-    parameter set on ``args.device``. The plan's datacenter-token
-    boundaries are scaled so the long pool's context is ``long_ctx``
-    tokens. Returns (runtime, plan)."""
+    parameter set on ``args.device`` (``params``, else
+    ``init_params(seed=0)``). The plan's datacenter-token boundaries are
+    scaled so the long pool's context is ``long_ctx`` tokens. Returns
+    (runtime, plan)."""
     w = get_workload(args.workload)
     plan = plan_k_pool(w, lam=args.lam, t_slo=0.5, k=args.fleet)
     print(f"plan: {plan.summary()}")
@@ -169,12 +188,13 @@ def build_fleet_runtime(args, *, slots_per_pool: int = 2, c_chunk: int = 16,
               f"rho={pp.utilization:.3f} ttft_p99={pp.ttft_p99_s*1e3:.0f}ms")
     device = resolve_device(args.device)
     cfg = model_config(args)
-    params = M.init_params(cfg, seed=0, device=device)
+    if params is None:
+        params = M.init_params(cfg, seed=0, device=device)
     scfg = ServingConfig(
         paged=args.paged or args.prefix_cache or args.preemption,
         prefix_cache=args.prefix_cache, decode_k=args.decode_k,
         spec_k=args.spec_k, preemption=args.preemption,
-        max_queue_wait=args.max_queue_wait)
+        max_queue_wait=args.max_queue_wait, autoscale=args.autoscale)
     rt = FleetRuntime.from_plan(cfg, params, plan,
                                 slots_per_pool=slots_per_pool,
                                 c_chunk=c_chunk,
@@ -290,6 +310,293 @@ def serve_fleet(args, **build_kw):
     return rt, results, dt
 
 
+async def _http_call(host, port, method, path, body=None):
+    """Minimal raw HTTP/1.1 client (stdlib only) for the in-process
+    smoke: returns (status, header dict, body bytes). The gateway
+    always closes the connection, so read-to-EOF is the framing."""
+    reader, writer = await asyncio.open_connection(host, port)
+    payload = body if body is not None else b""
+    writer.write(f"{method} {path} HTTP/1.1\r\nHost: smoke\r\n"
+                 f"Content-Length: {len(payload)}\r\n\r\n"
+                 .encode() + payload)
+    await writer.drain()
+    raw = await asyncio.wait_for(reader.read(), timeout=120.0)
+    writer.close()
+    head, _, rest = raw.partition(b"\r\n\r\n")
+    lines = head.decode("latin-1").split("\r\n")
+    status = int(lines[0].split()[1])
+    headers = {}
+    for ln in lines[1:]:
+        if ":" in ln:
+            k, v = ln.split(":", 1)
+            headers[k.strip().lower()] = v.strip()
+    return status, headers, rest
+
+
+def _parse_sse(body: bytes):
+    """data: events -> (list of JSON chunks, saw [DONE])."""
+    chunks, done = [], False
+    for ev in body.split(b"\n\n"):
+        if not ev.startswith(b"data: "):
+            continue
+        if ev == b"data: [DONE]":
+            done = True
+        else:
+            chunks.append(json.loads(ev[6:]))
+    return chunks, done
+
+
+async def _smoke_client(gw) -> None:
+    """Exercise every endpoint against a live gateway and assert: >1 SSE
+    flush, streamed == offline token ids, parsable Prometheus text with
+    per-pool series, a forced re-plan tick that moves the live boundary
+    on short-shifted traffic, structured 4xx."""
+    host, port = gw.host, gw.port
+    prompt = "smoke fleet serving demo " * 6
+
+    status, _, body = await _http_call(host, port, "GET", "/health")
+    h = json.loads(body)
+    assert status == 200 and h["status"] == "ok", (status, h)
+    print(f"smoke /health ok: pools={list(h['pools'])} "
+          f"boundaries={h['boundaries']}")
+
+    req = json.dumps({"prompt": prompt, "max_tokens": 12,
+                      "stream": True}).encode()
+    status, headers, body = await _http_call(host, port, "POST",
+                                             "/v1/completions", req)
+    assert status == 200, body[:200]
+    assert headers.get("content-type") == "text/event-stream", headers
+    chunks, done = _parse_sse(body)
+    token_chunks = [c for c in chunks
+                    if c["choices"][0]["finish_reason"] is None]
+    streamed = [t for c in token_chunks
+                for t in c["choices"][0]["token_ids"]]
+    assert done and len(token_chunks) > 1, \
+        f"want >1 flush + [DONE], got {len(token_chunks)} flushes"
+    assert chunks[-1]["choices"][0]["finish_reason"] == "length"
+    print(f"smoke SSE ok: {len(token_chunks)} flushes / "
+          f"{len(streamed)} tokens from pool "
+          f"{chunks[-1]['fleetopt']['pool']}")
+
+    # same prompt through the non-streaming path: decode is
+    # deterministic argmax, so the ids must match bitwise
+    req = json.dumps({"prompt": prompt, "max_tokens": 12}).encode()
+    status, _, body = await _http_call(host, port, "POST",
+                                       "/v1/completions", req)
+    offline = json.loads(body)["choices"][0]["token_ids"]
+    assert status == 200 and offline == streamed, (streamed, offline)
+    print("smoke parity ok: streamed ids == offline drain ids")
+
+    status, _, body = await _http_call(host, port, "POST",
+                                       "/v1/completions", b"{not json")
+    err = json.loads(body)
+    assert status == 400 and err["error"]["type"] \
+        == "invalid_request_error", (status, err)
+
+    # a short-prompt burst so the re-planner's window is clearly
+    # short-shifted relative to the provisioned boundaries
+    for i in range(6):
+        req = json.dumps({"prompt": f"short {i} " * 3,
+                          "max_tokens": 8}).encode()
+        status, _, _ = await _http_call(host, port, "POST",
+                                        "/v1/completions", req)
+        assert status == 200
+    b_before = list(gw.runtime.router.boundaries)
+    status, _, body = await _http_call(host, port, "POST",
+                                       "/admin/replan")
+    rep = json.loads(body)
+    assert status == 200 and rep["tick"] >= 1, rep
+    assert rep["applied"], f"re-plan did not move boundaries: {rep}"
+    b_after = list(gw.runtime.router.boundaries)
+    assert b_after == rep["boundaries_after"]
+    assert all(a <= b for a, b in zip(b_after, b_before)), \
+        (b_before, b_after)
+    print(f"smoke re-plan ok: boundaries {b_before} -> {b_after} "
+          f"(reason: {rep['reason']})")
+
+    status, _, body = await _http_call(host, port, "GET", "/metrics")
+    text = body.decode()
+    assert status == 200
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            assert METRIC_SAMPLE.match(line), f"bad metric line: {line!r}"
+    for needle in ('fleetopt_dispatches_total{pool="short"}',
+                   'fleetopt_boundary_tokens{index="0"}',
+                   "fleetopt_replan_applied_total",
+                   "fleetopt_stream_flushes_total"):
+        assert needle in text, f"missing metric {needle}"
+    gauge = float([ln for ln in text.splitlines()
+                   if ln.startswith('fleetopt_boundary_tokens{index="0"}')
+                   ][0].split()[-1])
+    assert int(gauge) == b_after[0], (gauge, b_after)
+    print("smoke /metrics ok: Prometheus text parses, boundary gauge "
+          "tracks the applied re-plan")
+
+
+# one Prometheus sample line: name, optional labels, a number
+METRIC_SAMPLE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? -?[0-9eE+.in-]+$')
+
+
+async def _chaos_client(gw) -> None:
+    """Fault-injection smoke: kill an engine mid-stream and assert the
+    live stream completes with tokens bitwise identical to an unfaulted
+    run (crash recovery migrates the checkpointed request one pool up,
+    SSE cursor intact), the dead pool 503s with Retry-After during its
+    blackout, and a post-blackout retry serves the same tokens again."""
+    host, port = gw.host, gw.port
+    prompt = "chaos smoke fleet serving " * 4
+    max_tokens = 32
+
+    # unfaulted reference: which pool serves this prompt + its tokens
+    req = json.dumps({"prompt": prompt,
+                      "max_tokens": max_tokens}).encode()
+    status, _, body = await _http_call(host, port, "POST",
+                                       "/v1/completions", req)
+    ref = json.loads(body)
+    assert status == 200, body[:200]
+    ref_ids = ref["choices"][0]["token_ids"]
+    victim = ref["fleetopt"]["pool"]
+
+    # live stream on the victim pool, killed after its first flush
+    sreq = json.dumps({"prompt": prompt, "max_tokens": max_tokens,
+                       "stream": True}).encode()
+    stream_task = asyncio.ensure_future(
+        _http_call(host, port, "POST", "/v1/completions", sreq))
+    tok0, done0 = gw.tokens_streamed, gw.completions_done
+    for _ in range(20_000):
+        if gw.tokens_streamed > tok0:
+            break
+        await asyncio.sleep(0.001)
+    assert gw.tokens_streamed > tok0, "stream never flushed"
+    assert gw.completions_done == done0, "stream finished before kill"
+    async with gw._lock:
+        FaultInjector(gw.runtime).kill(victim)
+    print(f"chaos: killed pool {victim!r} mid-stream")
+
+    # the drive loop hits EngineDead on its next step and recovers inline;
+    # probe the blackout 503 as soon as the restart counter ticks
+    for _ in range(20_000):
+        if gw.runtime.reprovision_stats["engine_restarts"] >= 1:
+            break
+        await asyncio.sleep(0.001)
+    assert gw.runtime.reprovision_stats["engine_restarts"] >= 1, \
+        "the drive loop never recovered the killed engine"
+    status, headers, body = await _http_call(host, port, "POST",
+                                             "/v1/completions", req)
+    assert status == 503, (status, body[:200])
+    retry_after = int(headers["retry-after"])
+    assert retry_after >= 1, headers
+    err = json.loads(body)["error"]
+    assert err["type"] == "overloaded_error", err
+    print(f"chaos: blackout 503 ok (Retry-After: {retry_after}s)")
+
+    # the killed stream must still deliver EVERY token, bitwise
+    status, _, body = await stream_task
+    assert status == 200, body[:200]
+    chunks, done = _parse_sse(body)
+    streamed = [t for c in chunks
+                if c["choices"][0]["finish_reason"] is None
+                for t in c["choices"][0]["token_ids"]]
+    assert done and streamed == ref_ids, (streamed, ref_ids)
+    final = [c for c in chunks
+             if c["choices"][0]["finish_reason"] is not None][-1]
+    print(f"chaos: killed stream completed bitwise on pool "
+          f"{final['fleetopt']['pool']!r} ({len(streamed)} tokens)")
+
+    # after the blackout the pool serves again — same tokens
+    await asyncio.sleep(retry_after)
+    status, _, body = await _http_call(host, port, "POST",
+                                       "/v1/completions", req)
+    assert status == 200, (status, body[:200])
+    retry_ids = json.loads(body)["choices"][0]["token_ids"]
+    assert retry_ids == ref_ids, (retry_ids, ref_ids)
+    print("chaos: post-blackout retry ok (tokens bitwise identical)")
+
+    status, _, body = await _http_call(host, port, "GET", "/metrics")
+    text = body.decode()
+    for needle in ("fleetopt_engine_restarts_total",
+                   "fleetopt_migrated_requests_total"):
+        line = [ln for ln in text.splitlines()
+                if ln.startswith(needle)][0]
+        assert float(line.split()[-1]) >= 1, line
+    print("chaos: /metrics ok (restart + migration counters visible)")
+
+
+async def run_client(gw: ServingGateway,
+                     client: Callable[[ServingGateway], Awaitable[Any]]):
+    """Start ``gw``, run ``client(gw)`` against it and stop it; returns
+    what the client returns. An error that stops the gateway's drive
+    loop (a kernel that fails to build or launch) is raised here, never
+    waited out."""
+    await gw.start()
+    print(f"smoke gateway on {gw.host}:{gw.port}")
+    try:
+        task = asyncio.ensure_future(client(gw))
+        drive = gw._tasks[0]
+        await asyncio.wait({task, drive},
+                           return_when=asyncio.FIRST_COMPLETED)
+        if not task.done():
+            task.cancel()
+            drive.result()
+            raise RuntimeError("the gateway's drive loop stopped")
+        return task.result()
+    finally:
+        try:
+            # bounded: after the drive loop died, a handler still waiting on
+            # its request holds the server's wait_closed until the
+            # request times out
+            await asyncio.wait_for(gw.stop(), timeout=5.0)
+        except asyncio.TimeoutError:
+            pass
+
+
+def serve_http(args, client: Optional[Callable] = None, **build_kw):
+    """Run the asyncio gateway over a planned fleet (``build_kw`` as for
+    :func:`build_fleet_runtime`): ``--http PORT`` serves until killed;
+    ``--smoke`` binds an ephemeral port, runs the in-process client
+    against it and exits nonzero on any failure (``--chaos`` adds the
+    fault-injection pass). ``client(gateway)``, a coroutine function,
+    replaces the smoke client; its result is returned."""
+    rt, _ = build_fleet_runtime(args, **build_kw)
+    print(f"runtime pools: boundaries={rt.router.boundaries} "
+          f"gammas={rt.router.gammas} "
+          f"contexts={[e.c_max for e in rt.engines.values()]} "
+          f"device={args.device}")
+    rp = Replanner(rt, min_observed=4, n_samples=2048)
+    # chaos needs a blackout window long enough for the in-process
+    # client to observe the 503 between recovery and its probe
+    gw = ServingGateway(rt, replanner=rp, port=0 if args.smoke
+                        else args.http,
+                        replan_interval_s=args.replan_interval,
+                        blackout_s=3.0 if args.chaos else 0.25)
+
+    async def smoke(gw):
+        await _smoke_client(gw)
+        if args.chaos:
+            await _chaos_client(gw)
+
+    async def forever():
+        await gw.start()
+        print(f"gateway listening on http://{gw.host}:{gw.port} "
+              f"(POST /v1/completions, GET /health, GET /metrics, "
+              f"POST /admin/replan)")
+        assert gw._server is not None
+        async with gw._server:
+            await gw._server.serve_forever()
+
+    if client is None and not args.smoke:
+        try:
+            asyncio.run(forever())
+        except KeyboardInterrupt:
+            pass
+        return None
+    t0 = time.perf_counter()
+    out = asyncio.run(run_client(gw, client or smoke))
+    print(f"serve smoke passed in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="minitron-8b")
@@ -332,6 +639,30 @@ def parse_args(argv=None):
                     help="shed arrivals whose estimated queue wait "
                          "exceeds this many iterations")
     ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--http", type=int, default=None, metavar="PORT",
+                    help="serve the --fleet runtime over the asyncio HTTP "
+                         "gateway (OpenAI-style /v1/completions with SSE "
+                         "streaming, /health, Prometheus /metrics, "
+                         "/admin/replan) instead of the offline batch")
+    ap.add_argument("--smoke", action="store_true",
+                    help="with --fleet: bind an ephemeral port, run the "
+                         "in-process smoke client against every endpoint "
+                         "(streaming parity, metrics parse, forced "
+                         "re-plan) and exit nonzero on failure")
+    ap.add_argument("--chaos", action="store_true",
+                    help="with --smoke: also kill one engine mid-stream "
+                         "and check that the stream completes after crash "
+                         "recovery, the dead pool answers 503 with "
+                         "Retry-After during its blackout, and a retry "
+                         "after it matches")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="the re-planner rebuilds a pool live (zero-drop "
+                         "migration) when a tick's context or GPU-count "
+                         "delta exceeds its hysteresis")
+    ap.add_argument("--replan-interval", type=float, default=None,
+                    metavar="SECONDS",
+                    help="run a re-planner tick every S seconds (--http; "
+                         "POST /admin/replan always works)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda)")
     args = ap.parse_args(argv)
@@ -342,7 +673,9 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.fleet:
+    if args.fleet and (args.http is not None or args.smoke):
+        serve_http(args)
+    elif args.fleet:
         serve_fleet(args)
     else:
         serve_batch(args)

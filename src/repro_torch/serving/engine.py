@@ -66,9 +66,8 @@ allocation raise it from inside the allocator, and "wedged" makes
 ``step()`` return without advancing the iteration clock. All three act
 on the host, before any device work is queued.
 
-Sharded serving and the closed-loop re-planner are later slices of the
-port; their ServingConfig knobs raise NotImplementedError here when set
-(``check_slice``).
+Sharded serving is a later slice of the port; its ServingConfig knobs
+raise NotImplementedError here when set (``check_slice``).
 """
 from __future__ import annotations
 
@@ -92,7 +91,6 @@ _LATER_SLICES = {
     "mesh": (None, "the sharded-serving slice"),
     "parallel": (None, "the sharded-serving slice"),
     "tp_degree": (1, "the sharded-serving slice"),
-    "autoscale": (False, "the closed-loop re-planner slice"),
 }
 
 
