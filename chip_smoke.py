@@ -190,6 +190,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and the device memory around the tick, and the phase's launches, which
    are added to the ``kernels`` line.
 
+11. training (``launch.train`` and ``training/``; no kernel of the port
+   is on this path, and none may launch), after a check that phases
+   1-10 left no engine or cache allocated:
+   (a) ``train()`` with the launcher's defaults (global batch 8 x 128 from
+   ``batch_at``, AdamW lr 3e-4 with warmup 2, remat "layer", 10 steps) on
+   minitron-8b at its published widths with the depth cut from 32 to 16
+   layers (AdamW's 12 B a parameter needs 92.9 GB at 32), bf16, the
+   port's ``init_params`` at seed 0: every loss and grad norm finite, the
+   reference's rule ``min(losses[4:]) < losses[0] + 0.02``, peak
+   ``max_memory_allocated`` under 80 GB; prints ms a step, tokens/s, the
+   peak and the step's floor (FLOP at 989 TFLOP/s plus the update's
+   bytes at 3.35 TB/s), then a step split into gradients and update, and
+   one step under torch.profiler.
+   (b) reduced minitron-8b f32, the port's weights on the CPU and a copy
+   on the card, 3 steps each: losses and grad norms within 1e-5
+   relative, parameters by the parity rule of
+   tests/test_torch_training.py.
+   (c) one step's gradients with remat "layer" and with none at (a)'s
+   depth and batch: the loss bitwise, each grad leaf bitwise but the
+   embedding's, within ``REMAT_GRAD_BOUND`` of its max |g|.
+   (d) one step with microbatches 2 against 1 on 8 layers at 8 x 512:
+   the loss and the grad norm within ``MICRO_REL_BOUND`` relative, each
+   parameter leaf within ``MICRO_PARAM_BOUND`` of its max |p|.
+   (e) (b)'s parameters (f32 and as bf16) and AdamW state checkpointed
+   from the card and restored onto it, bitwise.
+
 Then it prints the ``kernels`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of
 JAX and nothing of the JAX package.
@@ -334,10 +360,10 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_decode(eng, n_dispatch: int = 2):
-    """torch.profiler over ``n_dispatch`` decode dispatches of a busy
-    engine: device kernel time per dispatch, the device's busy share of
-    the wall time, and the kernels that take the most device time."""
+def profile_calls(fn, n: int):
+    """torch.profiler over ``n`` calls of ``fn``: the device-side rows
+    (name, device microseconds, count), largest first, and the wall
+    seconds of the calls (device synchronised)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -345,8 +371,8 @@ def profile_decode(eng, n_dispatch: int = 2):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n_dispatch):
-            eng.step()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side rows only (kernels, copies): the CPU ops that launched
@@ -354,10 +380,17 @@ def profile_decode(eng, n_dispatch: int = 2):
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
             if e.device_type != DeviceType.CPU and e.self_device_time_total]
+    return sorted(rows, key=lambda r: -r[1]), wall
+
+
+def profile_decode(eng, n_dispatch: int = 2):
+    """torch.profiler over ``n_dispatch`` decode dispatches of a busy
+    engine: device kernel time per dispatch, the device's busy share of
+    the wall time, and the kernels that take the most device time."""
+    rows, wall = profile_calls(eng.step, n_dispatch)
     dev_us = sum(r[1] for r in rows)
     if dev_us == 0:
         return None
-    rows.sort(key=lambda r: -r[1])
     attn_us = sum(t for k, t, _ in rows if "decode_cluster" in k)
     return {"wall_ms": 1e3 * wall / n_dispatch,
             "device_ms": dev_us / 1e3 / n_dispatch,
@@ -3598,6 +3631,415 @@ def phase_http(smi):
     return counts
 
 
+# ---------------------------------------------------------------- phase 11
+# minitron-8b at its published widths, depth cut for AdamW: at 12 B a
+# parameter (bf16 weights and grads, float32 m and v) 32 layers need
+# 92.9 GB, 16 need 59.1 GB
+TRAIN_LAYERS = 16
+TRAIN_STEPS = 10
+MICRO_LAYERS = 8              # (d): + 4 B a parameter of f32 accumulators
+MICRO_SHAPE = (8, 512)        # global batch, sequence
+PEAK_LIMIT = 80e9             # bytes a train step may hold at its peak
+OPT_BYTES = 22    # a parameter: read p, g (bf16), m, v (f32); write p, m, v
+# (c) remat "layer" vs none, largest |g_layer - g_none| of a leaf as a
+# fraction of its max |g|, set from readings (PERF.md: every leaf bitwise
+# equal). The bound is 0 (bitwise) but for the embedding's grad, whose
+# backward may accumulate duplicate tokens in an order the card does not
+# fix: f32 sums rounded once to bf16, so one bf16 ulp of its max |g|.
+REMAT_GRAD_BOUND = {"embed": 2.0 ** -8}
+# (d) microbatches 2 vs 1 after one step, largest |p_2 - p_1| of a leaf as
+# a fraction of its max |p|: readings up to 5.076e-3 (one bf16 ulp at
+# mid-range values, where |g| is tiny or the f32 result sits at a
+# rounding edge; PERF.md), a factor 2 of margin. Adam's first step moves
+# an element by about +-lr whatever |g|, so this catches sign flips only
+MICRO_PARAM_BOUND = 1e-2
+# (d) microbatches 2 vs 1: the loss and the pre-clip grad norm within
+# 1e-4 relative (readings: PERF.md). A gradient summed instead of
+# averaged, or taken over half the batch, moves the norm by a large
+# factor; the parameters after Adam's first step cannot show either.
+MICRO_REL_BOUND = 1e-4
+# (b) card vs CPU (f32), and tests/test_torch_training.py: the parity
+# rule (parity_gaps)
+PARITY_TOL, PARITY_TINY = 1e-5, 1e-4
+
+
+def parity_gaps(got, want, tiny, far: float):
+    """The parity rule on one f32 leaf after AdamW (numpy arrays):
+    ``tiny`` marks the elements whose |g| was at most PARITY_TINY of the
+    leaf's max |g| at some step. Returns (the largest |got - want| at the
+    other elements, the largest at these, whether the first is within
+    PARITY_TOL and the second within ``far`` (2 lr a step) + PARITY_TOL)."""
+    import numpy as np
+    d = np.abs(np.asarray(got, np.float32) - np.asarray(want, np.float32))
+    near = float(d[~tiny].max()) if (~tiny).any() else 0.0
+    flip = float(d[tiny].max()) if tiny.any() else 0.0
+    return near, flip, near <= PARITY_TOL and flip <= far + PARITY_TOL
+
+
+def _leaf_names(t, prefix=""):
+    """Dotted paths of a params tree's leaves, in training/tree.py order."""
+    if isinstance(t, dict):
+        return [n for k in sorted(t)
+                for n in _leaf_names(t[k], f"{prefix}{k}.")]
+    return [prefix[:-1]]
+
+
+def _train_cfg(layers: int, dtype="bfloat16"):
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config("minitron-8b"), num_layers=layers,
+                               dtype=dtype)
+
+
+def _step_flops(cfg, b: int, s: int) -> float:
+    """Matmul FLOP of one train step with layer remat: the forward, the
+    backward (twice the forward) and the blocks' forward once more.
+    Attention counts the full (S, S) scores, as ``_sdpa`` computes them."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    mlp = (2 if cfg.activation == "squared_relu" else 3) * d * cfg.d_ff
+    blocks = cfg.num_layers * (
+        2 * b * s * (d * (h + 2 * hkv) * hd + h * hd * d + mlp)
+        + 4 * b * s * s * h * hd)
+    fwd = blocks + 2 * b * s * d * cfg.vocab_size
+    return 3 * fwd + blocks
+
+
+def _train_batch(cfg, b: int, s: int, step: int = 0, device=None):
+    """``training.data.batch_at`` (seed 0) as tensors on ``device``."""
+    import torch
+    from repro_torch.training.data import DataConfig, batch_at
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b)
+    return {k: torch.from_numpy(v).to(device or DEVICE)
+            for k, v in batch_at(dc, step).items()}
+
+
+def _gb(nbytes: float) -> str:
+    return f"{nbytes / 1e9:.2f} GB"
+
+
+def _peak_since(fn):
+    """(fn(), the device memory it held at its peak beyond what was
+    allocated before it)."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def _train_main(smi):
+    """(a) launch/train.py's ``train()`` at TRAIN_LAYERS of minitron-8b
+    with the launcher's defaults; then one more step split into its
+    gradient and update halves, and one step under torch.profiler.
+    Returns the run."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.training import tree
+    from repro_torch.training.optimizer import AdamWConfig, adamw_update
+    from repro_torch.training.train_step import value_and_grad
+    cfg = _train_cfg(TRAIN_LAYERS)
+    args = train.parse_args(["--steps", str(TRAIN_STEPS), "--device",
+                             DEVICE])
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    run = train.train(args, cfg=cfg,
+                      log=lambda line: print(f"[train] (a) {line}"))
+    counts = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if any(counts.values()):
+        fail(f"(a) training launched a kernel of the port: {counts}")
+    bad = [i for i, (l, g) in enumerate(zip(run.losses, run.gnorms))
+           if not (math.isfinite(l) and math.isfinite(g))]
+    if bad:
+        fail(f"(a) non-finite loss or grad norm at steps {bad}")
+    if not min(run.losses[4:]) < run.losses[0] + 0.02:
+        fail(f"(a) the loss did not fall: {run.losses}")
+    if peak >= PEAK_LIMIT:
+        fail(f"(a) peak memory {_gb(peak)} >= {_gb(PEAK_LIMIT)}")
+    leaves = tree.leaves(run.params)
+    n = sum(p.numel() for p in leaves)
+    per_layer = sum(p.numel() for p in tree.leaves(run.params["layers"])) \
+        // cfg.num_layers
+    n32 = n + (32 - cfg.num_layers) * per_layer
+    b, s = args.global_batch, args.seq_len
+    flops = _step_flops(cfg, b, s)
+    compute_ms = 1e3 * flops / PEAK_OPS["bfloat16"]
+    opt_ms = 1e3 * OPT_BYTES * n / HBM_BYTES_PER_S
+    steady = sorted(run.step_s[1:])
+    med = 1e3 * steady[len(steady) // 2]
+    print(f"[train] (a) minitron-8b at its published widths, num_layers 32 "
+          f"-> {cfg.num_layers}: {n / 1e9:.4f} B parameters (32 layers: "
+          f"{n32 / 1e9:.4f} B, {_gb(12 * n32)} of weights, grads and AdamW "
+          f"moments; {cfg.num_layers} layers: {_gb(12 * n)}), bf16, seed 0, "
+          f"batch {b} x {s}, remat layer, {TRAIN_STEPS} steps; losses "
+          + ", ".join(f"{x:.4f}" for x in run.losses) + "; grad norms "
+          + ", ".join(f"{x:.4f}" for x in run.gnorms))
+    print(f"[train] (a) ms a step (host clock, device synchronised): first "
+          f"{1e3 * run.step_s[0]:.2f}; steps 1-{TRAIN_STEPS - 1} median "
+          f"{med:.2f} (min {1e3 * steady[0]:.2f}, max "
+          f"{1e3 * steady[-1]:.2f}); {b * s / med * 1e3:.1f} tokens/s; peak "
+          f"max_memory_allocated {_gb(peak)} ({peak / 2**30:.2f} GiB, limit "
+          f"{_gb(PEAK_LIMIT)}); floor {compute_ms + opt_ms:.2f} ms = "
+          f"{flops:.4g} FLOP / 989 TFLOP/s ({compute_ms:.2f} ms) + "
+          f"{OPT_BYTES} B x {n / 1e9:.4f} B parameters / 3.35 TB/s "
+          f"({opt_ms:.2f} ms); no kernel of the port launched ({smi})")
+    # one more step, split: gradients, then the update (the same config)
+    opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(2, args.steps // 10),
+                          total_steps=args.steps)
+    batch = _train_batch(cfg, b, s, TRAIN_STEPS)
+    split = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, grads = value_and_grad(run.params, cfg, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        run.params, run.opt, _ = adamw_update(opt_cfg, grads, run.opt,
+                                              run.params)
+        torch.cuda.synchronize()
+        split.append((1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1)))
+        del grads
+
+    def step():
+        _, g = value_and_grad(run.params, cfg, batch)
+        run.params, run.opt, _ = adamw_update(opt_cfg, g, run.opt, run.params)
+    rows, wall = profile_calls(step, 1)
+    dev_ms = sum(r[1] for r in rows) / 1e3
+    print(f"[train] (a) a step split (device synchronised): gradients "
+          + ", ".join(f"{g:.2f}" for g, _ in split) + " ms; AdamW update "
+          + ", ".join(f"{u:.2f}" for _, u in split) + f" ms (floor "
+          f"{opt_ms:.2f}); profiled step: wall {1e3 * wall:.2f} ms, device "
+          f"{dev_ms:.2f} ms, busy {100 * dev_ms / (1e3 * wall):.1f}%; top "
+          "kernels (ms, count): "
+          + "; ".join(f"{k[:70]} {t / 1e3:.2f} ({c})" for k, t, c in rows[:8])
+          + f" ({smi})")
+    return run, args
+
+
+def _remat_vs_none(run, args, smi):
+    """(c) One step's gradients with remat "layer" and with none, at
+    (a)'s depth and batch on (a)'s trained parameters: the loss bitwise
+    equal, the grads bitwise but where REMAT_GRAD_BOUND bounds a leaf as
+    a fraction of its max |g|."""
+    import torch
+    from repro_torch.training import tree
+    from repro_torch.training.train_step import value_and_grad
+    cfg = run.cfg
+    batch = _train_batch(cfg, args.global_batch, args.seq_len)
+    ((l1, _), g1), peak1 = _peak_since(lambda: value_and_grad(
+        run.params, cfg, batch, remat="layer"))
+    ((l0, _), g0), peak0 = _peak_since(lambda: value_and_grad(
+        run.params, cfg, batch, remat=False))
+    if not torch.equal(l0, l1):
+        fail(f"(c) remat layer loss {float(l1)!r} != no-remat "
+             f"{float(l0)!r}")
+    names = _leaf_names(run.params)
+    read = []
+    for name, a, b in zip(names, tree.leaves(g1), tree.leaves(g0)):
+        top = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max()) / top
+        read.append((name, err, bool(torch.equal(a, b))))
+        if err > REMAT_GRAD_BOUND.get(name, 0.0):
+            fail(f"(c) {name}: |g_layer - g_none| {err:.3e} of max|g| "
+                 f"{top:.3e} (bound {REMAT_GRAD_BOUND.get(name, 0.0):.3e})")
+    print(f"[train] (c) remat layer vs none, {cfg.num_layers} layers, batch "
+          f"{args.global_batch} x {args.seq_len}: loss {float(l0)!r} bitwise "
+          f"equal; grads, largest |diff| / max|g| per leaf (bound 0 but "
+          + ", ".join(f"{k} {v:.3e}" for k, v in REMAT_GRAD_BOUND.items())
+          + "; = bitwise equal): "
+          + ", ".join(f"{n} {e:.3e}{' =' if eq else ''}"
+                      for n, e, eq in read)
+          + f"; peak held beyond the weights (grads and activations): remat "
+          f"{_gb(peak1)}, none "
+          f"{_gb(peak0)} ({smi})")
+    del g0, g1
+
+
+def _micro_vs_full(smi):
+    """(d) One launcher step with microbatches 2 against 1 from the same
+    weights, at MICRO_LAYERS and MICRO_SHAPE: the loss and the grad norm
+    within MICRO_REL_BOUND relative, the parameters within
+    MICRO_PARAM_BOUND of each leaf's max |p|."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.training import tree
+    from repro_torch.training.optimizer import AdamWConfig, init_adamw
+    from repro_torch.training.train_step import make_train_step
+    cfg = _train_cfg(MICRO_LAYERS)
+    b, s = MICRO_SHAPE
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    p1 = M.init_params(cfg, seed=0, device=DEVICE)
+    p2 = tree.unflatten(p1, [p.clone() for p in tree.leaves(p1)])
+    batch = _train_batch(cfg, b, s)
+    out = {}
+    for mb, params in ((1, p1), (2, p2)):
+        step = make_train_step(cfg, opt_cfg, microbatches=mb)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, init_adamw(params), batch)
+        del opt
+        out[mb] = (params, float(m["loss"]), float(m["grad_norm"]),
+                   1e3 * (time.perf_counter() - t0),
+                   torch.cuda.max_memory_allocated())
+    rel = abs(out[2][1] - out[1][1]) / abs(out[1][1])
+    rel_g = abs(out[2][2] - out[1][2]) / abs(out[1][2])
+    if not rel <= MICRO_REL_BOUND:
+        fail(f"(d) microbatches 2 loss {out[2][1]!r} vs 1 {out[1][1]!r}")
+    if not rel_g <= MICRO_REL_BOUND:
+        fail(f"(d) microbatches 2 grad norm {out[2][2]!r} vs 1 "
+             f"{out[1][2]!r}")
+    read = []
+    for name, a, c in zip(_leaf_names(p1), tree.leaves(out[1][0]),
+                          tree.leaves(out[2][0])):
+        top = float(a.float().abs().max())
+        d = float((a.float() - c.float()).abs().max())
+        read.append((name, d, d / top))
+        if d / top > MICRO_PARAM_BOUND:
+            fail(f"(d) {name}: |p_2 - p_1| {d:.3e} = {d / top:.3e} of "
+                 f"max|p| (bound {MICRO_PARAM_BOUND:.3e})")
+    n = sum(p.numel() for p in tree.leaves(p1))
+    print(f"[train] (d) microbatches 2 vs 1, minitron-8b widths at "
+          f"{MICRO_LAYERS} layers ({n / 1e9:.4f} B parameters), batch {b} x "
+          f"{s}, one step (lr {opt_cfg.lr} / warmup {opt_cfg.warmup_steps}): "
+          f"loss {out[1][1]!r} / {out[2][1]!r} (rel {rel:.3e}), grad norm "
+          f"{out[1][2]!r} / {out[2][2]!r} (rel {rel_g:.3e}; limit "
+          f"{MICRO_REL_BOUND:g}); step "
+          f"{out[1][3]:.2f} / {out[2][3]:.2f} ms; peak max_memory_allocated "
+          f"{_gb(out[1][4])} / {_gb(out[2][4])}; parameters, largest |diff| "
+          f"(/ max|p|) per leaf (bound {MICRO_PARAM_BOUND:.3e} of max|p|): "
+          + ", ".join(f"{nm} {d:.3e} ({r:.3e})" for nm, d, r in read)
+          + f" ({smi})")
+
+
+def _card_vs_cpu(smi):
+    """(b) Reduced minitron-8b f32, the port's init_params weights on the
+    CPU and a copy on the card, 3 launcher steps each (TF32 off): losses
+    and grad norms within 1e-5 relative, parameters by the parity rule.
+    Returns the card's trained (params, opt state)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.models import model as M
+    from repro_torch.training import tree
+    from repro_torch.training.optimizer import AdamWConfig, init_adamw
+    from repro_torch.training.train_step import (make_train_step,
+                                                 value_and_grad)
+    resolve_device(DEVICE)                  # TF32 off for f32 products
+    cfg = dataclasses.replace(get_config("minitron-8b").reduced(), dtype="float32")
+    steps, (b, s) = 3, (8, 128)
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=steps)
+    cpu = M.init_params(cfg, seed=0, device="cpu")
+    card = tree.unflatten(cpu, [p.to(DEVICE, copy=True)
+                                for p in tree.leaves(cpu)])
+    cpu_opt, card_opt = init_adamw(cpu), init_adamw(card)
+    step = make_train_step(cfg, opt_cfg)
+    tiny = [np.zeros(p.shape, bool) for p in tree.leaves(cpu)]
+    worst = {"loss": 0.0, "grad_norm": 0.0}
+    for i in range(steps):
+        _, g = value_and_grad(cpu, cfg, _train_batch(cfg, b, s, i, "cpu"))
+        for t, x in zip(tiny, tree.leaves(g)):
+            a = x.abs().numpy()
+            t |= a <= PARITY_TINY * a.max()
+        cpu, cpu_opt, mc = step(cpu, cpu_opt,
+                                _train_batch(cfg, b, s, i, "cpu"))
+        card, card_opt, mg = step(card, card_opt, _train_batch(cfg, b, s, i))
+        for k in worst:
+            r = abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k]))
+            worst[k] = max(worst[k], r)
+            if r > PARITY_TOL:
+                fail(f"(b) step {i} {k}: card {float(mg[k])!r} vs CPU "
+                     f"{float(mc[k])!r}")
+    far = 2 * opt_cfg.lr * steps
+    d_near = d_tiny = 0.0
+    n_tiny = 0
+    for name, t, a, c in zip(_leaf_names(cpu), tiny, tree.leaves(card),
+                             tree.leaves(cpu)):
+        near, flip, ok = parity_gaps(a.cpu().numpy(), c.numpy(), t, far)
+        if not ok:
+            fail(f"(b) {name}: card vs CPU params {near:.3e} / {flip:.3e} "
+                 f"apart (tiny-gradient elements)")
+        d_near, d_tiny = max(d_near, near), max(d_tiny, flip)
+        n_tiny += int(t.sum())
+    print(f"[train] (b) reduced minitron-8b f32, card vs CPU, {steps} steps "
+          f"of {b} x {s}: losses within {worst['loss']:.3e}, grad norms "
+          f"within {worst['grad_norm']:.3e} relative (limit {PARITY_TOL:g}); "
+          f"params within {d_near:.3e} (limit {PARITY_TOL:g}) where |g| > "
+          f"{PARITY_TINY:g} max|g| at every step, {d_tiny:.3e} at the "
+          f"{n_tiny} other elements (limit 2 lr steps = {far:g}) ({smi})")
+    return card, card_opt
+
+
+def _checkpoint_round_trip(params, opt, smi):
+    """(e) (b)'s trained parameters and optimizer state saved from the
+    card and restored onto it bit for bit, in f32 and as bf16."""
+    import tempfile
+    import torch
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training import tree
+    for dtype in (torch.float32, torch.bfloat16):
+        p = tree.unflatten(params, [x.to(dtype) for x in tree.leaves(params)])
+        like = {"params": tree.unflatten(p, [torch.empty_like(x) for x in
+                                             tree.leaves(p)]),
+                "opt": type(opt)(torch.zeros_like(opt.step),
+                                 *(tree.unflatten(t, [torch.empty_like(x)
+                                                      for x in tree.leaves(t)])
+                                   for t in (opt.m, opt.v)))}
+        with tempfile.TemporaryDirectory() as d:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            CKPT.save(d, 3, p, opt)
+            t1 = time.perf_counter()
+            back = CKPT.restore(d, 3, like)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            size = sum(f.stat().st_size for f in Path(d).iterdir())
+        want = tree.leaves({"params": p, "opt": opt})
+        got = tree.leaves(back)
+        for i, (a, b) in enumerate(zip(got, want)):
+            if a.device != b.device or a.dtype != b.dtype \
+                    or not torch.equal(a, b):
+                fail(f"(e) {dtype} checkpoint leaf {i} not restored bit "
+                     f"for bit")
+        print(f"[train] (e) checkpoint of (b)'s params ({dtype}) and AdamW "
+              f"state from the card: {len(got)} leaves, {size} bytes, saved "
+              f"in {1e3 * (t1 - t0):.1f} ms, restored onto the card in "
+              f"{1e3 * (t2 - t1):.1f} ms, bitwise equal ({smi})")
+
+
+def phase_train(smi):
+    """Phase 11: training (module docstring)."""
+    import gc
+    import torch
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    if left > 2**30:
+        fail(f"phase 11: {left / 2**30:.2f} GiB still allocated after "
+             "phases 1-10")
+    print(f"[train] earlier phases' engines and caches freed: "
+          f"{left / 2**20:.1f} MiB allocated")
+    run, args = _train_main(smi)
+    run.opt = None                          # (c) needs no optimizer state
+    torch.cuda.empty_cache()
+    _remat_vs_none(run, args, smi)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    _micro_vs_full(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, opt = _card_vs_cpu(smi)
+    _checkpoint_round_trip(params, opt, smi)
+    del params, opt
+    torch.cuda.empty_cache()
+    print(f"[train] phase 11: {time.perf_counter() - t0:.1f} s ({smi})")
+
+
 def main() -> int:
     try:
         import torch
@@ -3630,6 +4072,7 @@ def main() -> int:
         launches[name] += n
     for name, n in phase_http(smi).items():
         launches[name] += n
+    phase_train(smi)
     sources = {"gqa_decode": ("src/repro_torch/kernels/csrc/gqa_decode.cu",
                               "src/repro/kernels/gqa_decode.py:29"),
                "paged_decode": ("src/repro_torch/kernels/csrc/paged_decode.cu",

@@ -60,26 +60,13 @@ import torch
 from repro_torch.configs.base import get_config
 from repro_torch.core.planner import plan_k_pool
 from repro_torch.core.workload import get_workload
+from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.pools import FleetRuntime, GatewayRequest
 from repro_torch.serving.reconfigure import FaultInjector
 from repro_torch.serving.replanner import Replanner
 from repro_torch.serving.server import ServingGateway
-
-
-def resolve_device(name: str) -> torch.device:
-    """The device to serve on; a CUDA device must exist (no silent CPU
-    fallback). f32 products stay full f32 on the card: TF32 off."""
-    dev = torch.device(name)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"--device {name}: no CUDA device is "
-                               "available (pass --device cpu to run the "
-                               "plain PyTorch path on the CPU)")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    return dev
 
 
 def model_config(args):

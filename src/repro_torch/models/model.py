@@ -27,11 +27,21 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.configs.base import (DENSE, ENCDEC, HYBRID, MOE, SSM, VLM,
+                                      ModelConfig)
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
+
+# the slice of the port that brings each other family
+FAMILY_SLICES = {
+    MOE: "the MoE-block slice (with the windowed ring-buffer caches)",
+    SSM: "the SSM slice (mLSTM, sLSTM, Mamba2)",
+    HYBRID: "the SSM slice (mLSTM, sLSTM, Mamba2)",
+    VLM: "the cross-attention slice (VLM and encoder-decoder)",
+    ENCDEC: "the cross-attention slice (VLM and encoder-decoder)"}
 
 
 def check_supported(cfg: ModelConfig, int8_cache: bool = False) -> None:
@@ -41,8 +51,8 @@ def check_supported(cfg: ModelConfig, int8_cache: bool = False) -> None:
     forward, prefill, init_cache and decode_step do)."""
     if cfg.family != DENSE:
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port runs dense decoders; the other "
-            "families are a later slice")
+            f"family {cfg.family!r}: the port runs dense decoders; "
+            f"{FAMILY_SLICES[cfg.family]} is a later slice of the port")
     if cfg.mla is not None:
         raise NotImplementedError("MLA is a later slice of the port")
     if cfg.attention_window:
@@ -134,9 +144,17 @@ def _decoder_block(lp, cfg: ModelConfig, x, positions):
     return _mlp_residual(lp, cfg, x)
 
 
-def _run_decoder_stack(stacked, cfg: ModelConfig, x, positions):
+def _run_decoder_stack(stacked, cfg: ModelConfig, x, positions,
+                       remat: bool = False):
+    """The decoder blocks in turn; ``remat`` checkpoints each one (its
+    activations are recomputed in the backward pass). The forward draws
+    no random numbers, so no RNG state is stashed."""
     for lp in _unstack(stacked):
-        x = _decoder_block(lp, cfg, x, positions)
+        if remat:
+            x = checkpoint(_decoder_block, lp, cfg, x, positions,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _decoder_block(lp, cfg, x, positions)
     return x
 
 
@@ -147,14 +165,21 @@ def _seq_inputs(params, tokens):
     return x, torch.arange(s, device=x.device).expand(b, s)
 
 
-def forward(params: Params, cfg: ModelConfig, batch: Dict
+def forward(params: Params, cfg: ModelConfig, batch: Dict, remat=False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forcing full-sequence pass. batch: {"tokens": (B, S) int}.
     Returns (logits (B, S, V), aux): aux is the MoE load-balancing loss,
-    a 0-d f32 zero for the dense decoder."""
+    a 0-d f32 zero for the dense decoder. ``remat`` (for training under
+    autograd): "layer" checkpoints each decoder block, True / "full" the
+    whole pass, False / None nothing (the JAX package's
+    ``LAYER_REMAT`` and ``jax.checkpoint`` of ``forward``)."""
     check_supported(cfg, int8_cache=True)
+    if remat and remat != "layer":
+        return checkpoint(forward, params, cfg, batch, use_reentrant=False,
+                          preserve_rng_state=False)
     x, positions = _seq_inputs(params, batch["tokens"])
-    x = _run_decoder_stack(params["layers"], cfg, x, positions)
+    x = _run_decoder_stack(params["layers"], cfg, x, positions,
+                           remat=remat == "layer")
     return _head(params, cfg, x), torch.zeros((), dtype=torch.float32,
                                                device=x.device)
 

@@ -67,7 +67,7 @@ VERBATIM = ["configs/minitron_8b.py", "configs/llama3_70b.py",
             "core/router.py", "core/cost.py", "serving/tokenizer.py",
             "serving/draft.py", "sim/__init__.py", "sim/des.py",
             "core/empirical.py", "serving/metrics.py",
-            "serving/replanner.py", "serving/server.py"]
+            "serving/replanner.py", "serving/server.py", "training/data.py"]
 
 
 # comments a copy words otherwise: the port's files name no issue number
@@ -298,4 +298,7 @@ def test_port_imports_no_jax():
             "repro_torch.serving.draft", "repro_torch.core.cost",
             "repro_torch.configs.qwen1_5_32b", "repro_torch.core.empirical",
             "repro_torch.serving.metrics", "repro_torch.serving.replanner",
-            "repro_torch.serving.server"} <= set(mods)
+            "repro_torch.serving.server", "repro_torch.launch.train",
+            "repro_torch.training.optimizer", "repro_torch.training.data",
+            "repro_torch.training.train_step", "repro_torch.training.tree",
+            "repro_torch.training.checkpoint"} <= set(mods)
