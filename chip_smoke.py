@@ -216,6 +216,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (e) (b)'s parameters (f32 and as bf16) and AdamW state checkpointed
    from the card and restored onto it, bitwise.
 
+12. the int8 KV cache and the sliding-window ring caches, minitron-8b at
+   its published widths, bf16, the port's ``init_params`` at seed 0.
+   (a) phase 9's stream through phase 5's dense fleet (``from_plan``)
+   with the bf16 cache and with ``kv_cache_dtype="int8"``: every request
+   completes in both; the int8 fleet's caches hold 130/256 of the bf16
+   fleet's bytes; one decoding slot of the int8 long pool swapped out
+   (the host copy bitwise every leaf, scales included) and back in (read
+   back bitwise); the int8 engine's logits against the int8 batch path
+   (``prefill`` + ``decode_step`` on the int8 dense cache, the same
+   prompts, the engine's convention of feeding the last prompt token
+   again) by phase 7's drift and near-tie rule; the int8 batch path fed
+   the bf16 fleet's tokens, its last-token logits within 0.05 of
+   max|logit| of the bf16 engine's (tests/test_perf_opts.py); each decode
+   kernel launch shape held against its plain version on its live,
+   dequantized inputs. Prints decode ms per dispatch of both fleets, the
+   cache bytes, and one profiled decode dispatch of each long pool with
+   ``dequantize_kv`` marked (its device share), beside a CUDA-event time
+   of one dequantized leaf. (b) ``attention_window=1024`` (llama4-scout's
+   8192 cut so the per-token prefill fits the phase), a dense engine with
+   n_max 4, c_max 4096 (a ring of 1024 rows), decode_k 4: four prompts
+   of 1,200-1,500 tokens and 64 new each, prefilled token by token; every
+   request completes past position 1024; the logits against a
+   teacher-forced ``forward(window=1024)`` over prompt and fed tokens by
+   the drift rule (a position where the forward's argmax is another
+   token passes only within the near-tie limit); ``prefill`` into the
+   ring (shorter than the prompt) and ``decode_step`` against the engine
+   by the drift and near-tie rule; the decode kernel held on its live
+   inputs while the ring fills and after it wrapped, and on the live
+   ring under a window of 512, where ``valid`` is no prefix. Prints the
+   per-token prefill's ms, decode ms per dispatch and the launches. (c)
+   int8 and the window in (b)'s engine: one request of 1,060 + 16
+   tokens completes, its kernel launches held on the live dequantized
+   ring.
+   Phase 12's launches are added to the ``kernels`` line.
+
 Then it prints the ``kernels`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of
 JAX and nothing of the JAX package.
@@ -2585,13 +2620,15 @@ def _p9_round(rt, event, rebuilt, rebuilt_counts):
                 rebuilt_counts[k.name] += k.launches - b
 
 
-def _p9_serve(cfg, params, paged, log, event=None, health=False):
+def _p9_serve(cfg, params, paged, log, event=None, health=False,
+              keep=False):
     """Serve phase 9's stream on a new fleet, logging the logits behind
     every emitted token, driving round by round (each busy engine stepped
     once a round) until it drains. ``event.on_round(rt, rounds, rebuilt)``
     runs after every round; with ``health`` a HealthPolicy(patience=2)
     hands the pools it finds wedged to ``event.on_wedged``. Returns the
-    run's tokens, rounds, launches and stats; keeps no engine."""
+    run's tokens, rounds, launches and stats; keeps no engine unless
+    ``keep``, which returns the fleet as ``rt``."""
     import weakref
     import torch
     from repro_torch.kernels import ops
@@ -2644,6 +2681,8 @@ def _p9_serve(cfg, params, paged, log, event=None, health=False):
         res.items())}, rounds=rounds, done_round=done_round, secs=secs,
         stats=dict(rt.reprovision_stats), counts=_launch_counts(),
         rebuilt_counts=rebuilt_counts)
+    if keep:
+        out["rt"] = rt
     del rt
     torch.cuda.empty_cache()
     return out
@@ -2682,14 +2721,16 @@ def _split_timer(split):
 
 
 @contextlib.contextmanager
-def _live_kernel_hold(held):
+def _live_kernel_hold(held, tag=None):
     """Hold each decode kernel against its plain version on the live
     inputs of its first launch at every (B, S) the run gives it (S the
     dense cache's length, or blocks_per_slot x BLOCK_S), the rebuilt
     pools' shapes among them, under phase 3's TOL and one-bf16-ulp rule.
     The launch held is the path's own, checked before the next layer
     writes the cache; the plain version launches nothing.
-    ``held[(kernel, (B, S))]`` gets (max_abs_err, max|plain|)."""
+    ``held[(kernel, (B, S))]`` gets (max_abs_err, max|plain|); with
+    ``tag`` (a callable read at each launch) the key is (kernel, (B, S),
+    tag()), so a launch is held once per (shape, tag)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.gqa_decode import gqa_decode_plain
@@ -2697,7 +2738,7 @@ def _live_kernel_hold(held):
     dense, paged = ops.gqa_decode, ops.paged_gqa_decode
 
     def hold(kname, shape, plain, q, args, out, active):
-        key = (kname, shape)
+        key = (kname, shape) if tag is None else (kname, shape, tag())
         if key in held:
             return
         if active is None:
@@ -4040,6 +4081,465 @@ def phase_train(smi):
     print(f"[train] phase 11: {time.perf_counter() - t0:.1f} s ({smi})")
 
 
+# ---------------------------------------------------------------- phase 12
+P12_WINDOW = 1024                 # (b): llama4-scout's 8192 made 1024 so
+                                  # the per-token prefill fits the phase
+P12_PROMPTS = (1200, 1300, 1400, 1500)   # (b): prompt tokens, one a slot
+P12_NEW = 64                             # (b): new tokens a request
+P12_BOTH = (1060, 16)                    # (c): prompt tokens, new tokens
+P12_BOTH_SLOTS = 4                       # (c): the engine's n_max, (b)'s
+P12_SWAP_ROUND = 7          # (a): the swap probe's earliest drive round
+P12_NARROW = 512            # (b): a window below the ring's length
+
+
+@contextlib.contextmanager
+def _engine_prompts(log):
+    """``log[rid]``: the prompt token ids each engine is given (after C&R
+    where the gateway compressed)."""
+    from repro_torch.serving.engine import InferenceEngine
+    orig = InferenceEngine.submit
+
+    def submit(self, req):
+        log[req.rid] = list(req.tokens)
+        return orig(self, req)
+    InferenceEngine.submit = submit
+    try:
+        yield
+    finally:
+        InferenceEngine.submit = orig
+
+
+@contextlib.contextmanager
+def _prefill_timer(log):
+    """Host seconds of every dispatch that prefills (prefill-only and
+    mixed), the device synchronised on both ends, with the dispatch's
+    chunk tokens and its bucket (the per-token loop's length)."""
+    import torch
+    from repro_torch.serving.engine import InferenceEngine
+    origs = {m: getattr(InferenceEngine, m)
+             for m in ("_run_prefill_chunks", "_run_mixed")}
+
+    def wrap(orig):
+        def timed(self, chunks, *a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            orig(self, chunks, *a)
+            torch.cuda.synchronize()
+            longest = max(len(c) for c in chunks.values())
+            log.append((time.perf_counter() - t0,
+                        sum(len(c) for c in chunks.values()),
+                        next(b for b in self.buckets if b >= longest)))
+        return timed
+    for m, orig in origs.items():
+        setattr(InferenceEngine, m, wrap(orig))
+    try:
+        yield
+    finally:
+        for m, orig in origs.items():
+            setattr(InferenceEngine, m, orig)
+
+
+def _batch_path(params, cfg, prompt, n_new, feed=None):
+    """The batch path on one prompt, by the engine's convention: ``prefill``
+    into a dense cache (int8, or a ring, as ``cfg`` says), then
+    ``decode_step`` fed the last prompt token at position len(prompt) and
+    then each emitted token (``feed``: these tokens instead, teacher
+    forcing). Returns (its greedy tokens, {j: f32 logits of token j})."""
+    import torch
+    from repro_torch.models import model as M
+    n = len(prompt)
+    toks = torch.tensor([prompt], device=DEVICE)
+    _, cache = M.prefill(params, cfg, {"tokens": toks,
+                                       "cache_len": n + n_new})
+    tok, out, log = toks[:, -1:], [], {}
+    for j in range(n_new):
+        logits, cache = M.decode_step(params, cfg, tok, cache, n + j)
+        log[j] = logits[0].float()
+        out.append(int(logits[0].argmax()))
+        nxt = out[-1] if feed is None else feed[j]
+        tok = torch.tensor([[nxt]], device=DEVICE)
+    return out, log
+
+
+def _p12_swap(eng, done):
+    """(a) Swap one decoding slot of ``eng`` out: the host copy must hold
+    every cache leaf (values and scales) of its row bit for bit. The
+    swap-in is checked by ``_restore_probe``. ``done`` gets the rid."""
+    import torch
+    s = next((s for s in range(eng.n_max) if eng.slot_req[s] is not None
+              and not eng.slot_prefill_left[s] and eng.slot_out[s]), None)
+    if s is None:
+        return
+    rid = eng.slot_req[s].rid
+    row = {k: a[:, s].clone() for k, a in eng.cache["kv"].items()}
+    eng.preempt_slot(s, mode="swap")
+    host = eng._preempted[rid].host_kv
+    if host is None or set(host) != set(row):
+        fail(f"(a) swap-out of rid {rid}: host leaves "
+             f"{None if host is None else sorted(host)}, cache {sorted(row)}")
+    for k, a in row.items():
+        if not torch.equal(host[k].to(a.device), a):
+            fail(f"(a) swap-out of rid {rid}: the host copy of {k} differs")
+    done.append(rid)
+
+
+class _SwapProbe:
+    """(a) A ``_p9_serve`` event: from drive round P12_SWAP_ROUND on, swap
+    one decoding slot of the long pool out once (``_p12_swap``)."""
+
+    def __init__(self, on):
+        self.on, self.swapped = on, []
+
+    def pending(self):
+        return False
+
+    def on_round(self, rt, rounds, rebuilt):
+        if self.on and not self.swapped and rounds >= P12_SWAP_ROUND:
+            _p12_swap(rt.engines[rt.router.names[-1]], self.swapped)
+
+
+def _p12_fleet_run(cfg, params, swap):
+    """(a) Phase 9's stream through phase 5's dense fleet of ``cfg``
+    (``_p9_serve``), every emitted token's logits logged, every
+    decode-only dispatch timed, each decode kernel launch shape held
+    against its plain version; with ``swap`` one slot of the long pool
+    swapped out and back in. Returns the run (its fleet kept)."""
+    from repro_torch.kernels import ops
+    probe = _SwapProbe(swap)
+    run = dict(prompts={}, log={}, decode=[], held={}, swaps=[],
+               swapped=probe.swapped)
+    with _engine_prompts(run["prompts"]), _decode_timer(run["decode"]), \
+            _live_kernel_hold(run["held"]), _restore_probe(run["swaps"], {}):
+        served = _p9_serve(cfg, params, False, run["log"], probe, keep=True)
+    run["counts"] = _launch_counts(("gqa_decode",), f"(a) {cfg.name} "
+                                   f"{cfg.kv_cache_dtype or cfg.dtype} fleet")
+    run.update(rt=served["rt"], tokens=served["tokens"],
+               rounds=served["rounds"])
+    run["bytes"] = sum(_nbytes(e.cache) for e in run["rt"].engines.values())
+    if ops.KERNELS[1].launches:
+        fail("(a) the dense fleet launched the paged kernel")
+    return run
+
+
+def _p12_profile(eng):
+    """One decode dispatch of ``eng`` (one live row of 1,024 tokens, as
+    phase 5's) under torch.profiler with ``layers.dequantize_kv`` marked:
+    wall and device ms of the dispatch, and the marked range's device ms
+    (the int8 cache's dequantization; 0 for an fp cache)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import layers as L
+    from repro_torch.serving.engine import ServeRequest
+    eng.submit(ServeRequest(rid=10_000, tokens=[1 + i % 1000
+                                                for i in range(1024)],
+                            max_new_tokens=64))
+    while eng.slot_req[0] is None or eng.slot_prefill_left[0]:
+        eng.step()
+    eng.step()                          # the first decode dispatch: warm
+    orig = L.dequantize_kv
+
+    def marked(q, scale):
+        with record_function("dequantize_kv"):
+            return orig(q, scale)
+    L.dequantize_kv = marked
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        L.dequantize_kv = orig
+    ev = prof.key_averages()
+    dev = sum(e.self_device_time_total for e in ev
+              if e.device_type != DeviceType.CPU)
+    deq = sum(e.device_time_total for e in ev if e.key == "dequantize_kv")
+    return {"wall_ms": 1e3 * wall, "device_ms": dev / 1e3,
+            "dequant_ms": deq / 1e3}
+
+
+def _p12_int8(cfg, params, smi):
+    """(a) the int8 fleet against the bf16 one (module docstring). Returns
+    the gqa_decode launches of both runs."""
+    import torch
+    from repro_torch.models import layers as L
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    runs, prof = {}, {}
+    for name, c in (("bf16", cfg), ("int8", cfg8)):
+        run = _p12_fleet_run(c, params, swap=name == "int8")
+        eng = run["rt"].engines[run["rt"].router.names[-1]]
+        prof[name] = _p12_profile(eng)
+        if name == "int8":
+            kv = eng.cache["kv"]
+            one = cuda_ms(lambda: L.dequantize_kv(kv["k"][0], kv["k_scale"][0]))
+            prof["event_ms"] = one
+            prof["shape"] = tuple(kv["k"].shape[1:])
+        run.pop("rt")
+        del eng
+        torch.cuda.empty_cache()
+        runs[name] = run
+    b16, i8 = runs["bf16"], runs["int8"]
+    # a (token, kv head): hd int8 values and one scale in the model's
+    # dtype, against hd values in it (bf16, hd 128: 130 B vs 256 B)
+    hd, size = cfg.resolved_head_dim, L.torch_dtype(cfg.dtype).itemsize
+    want_ratio = (hd + size) / (hd * size)
+    ratio = i8["bytes"] / b16["bytes"]
+    if abs(ratio - want_ratio) > 1e-9:
+        fail(f"(a) int8 fleet cache {i8['bytes']} B / bf16 {b16['bytes']} B"
+             f" = {ratio:.6f}, not {want_ratio:.6f}")
+    if not i8["swapped"] or not any(d == "in" for d, _, _ in i8["swaps"]):
+        fail(f"(a) no swap out and in on the int8 pool ({i8['swaps']})")
+    if not i8["held"]:
+        fail("(a) the int8 fleet's decode kernel was never held")
+    # the engine against the int8 batch path on the same prompts
+    want, plain = {}, {}
+    for rid, prompt in i8["prompts"].items():
+        want[rid], plain[rid] = _batch_path(params, cfg8, prompt, P9_NEW)
+    flips = _bf16_flips(plain, i8["log"], want, i8["tokens"],
+                        "(a) int8 engine vs the int8 batch path", tag="kv")
+    # int8 against bf16: the int8 batch path fed the bf16 fleet's tokens
+    rel = {}
+    for rid, prompt in b16["prompts"].items():
+        _, tf = _batch_path(params, cfg8, prompt, P9_NEW,
+                            feed=b16["tokens"][rid])
+        ref = _logged(b16["log"], rid, P9_NEW - 1,
+                      b16["tokens"][rid][-1], "(a) bf16 fleet")
+        rel[rid] = float((tf[P9_NEW - 1] - ref).abs().max()
+                         / ref.abs().max())
+    del plain, want
+    ms = {n: 1e3 * sum(t for t, _ in r["decode"]) / len(r["decode"])
+          for n, r in runs.items()}
+    tok_s = {n: sum(k for _, k in r["decode"])
+             / sum(t for t, _ in r["decode"]) for n, r in runs.items()}
+    same = sum(a == b for rid in b16["tokens"] for a, b in
+               zip(b16["tokens"][rid], i8["tokens"][rid]))
+    total = sum(len(t) for t in b16["tokens"].values())
+    errs = {f"{k[0]} B={k[1][0]} S={k[1][1]}": f"{e:.3e}"
+            for k, (e, _) in i8["held"].items()}
+    swap_ms = {d: 1e3 * t for d, _, t in i8["swaps"]}
+    p8, p16 = prof["int8"], prof["bf16"]
+    layer_leaves = 2 * cfg.num_layers
+    print(f"[kv] (a) minitron-8b full width, phase 5's dense fleet, "
+          f"{len(i8['tokens'])} requests x {P9_NEW} tokens, bf16 vs int8 "
+          f"KV: cache {b16['bytes']} B vs {i8['bytes']} B ({ratio:.4f}x); "
+          f"decode-only {ms['bf16']:.2f} vs {ms['int8']:.2f} ms per dispatch "
+          f"({len(b16['decode'])} / {len(i8['decode'])} dispatches; "
+          f"{tok_s['bf16']:.1f} vs {tok_s['int8']:.1f} tokens/s); drive "
+          f"rounds {b16['rounds']} / {i8['rounds']}; gqa_decode launches "
+          f"{b16['counts']['gqa_decode']} / {i8['counts']['gqa_decode']}; "
+          f"tokens equal at {same}/{total} positions ({smi})")
+    print(f"[kv] (a) int8 engine vs the int8 batch path: {flips} near-tie "
+          f"divergences; int8 batch path fed the bf16 fleet's tokens, "
+          f"last-token max|dlogit| / max|logit| per request "
+          f"{ {k: round(v, 4) for k, v in sorted(rel.items())} } (limit "
+          f"{INT8_REL}); swap of rid {i8['swapped'][0]}: out "
+          f"{swap_ms.get('out', 0.0):.2f} ms, in {swap_ms.get('in', 0.0):.2f}"
+          f" ms, values and scales restored bitwise; kernel held on live "
+          f"dequantized inputs: {errs}")
+    print(f"[kv] (a) one profiled decode dispatch of the long pool (one "
+          f"live row of 1,024, decode_k 4): bf16 wall {p16['wall_ms']:.2f} "
+          f"ms, device {p16['device_ms']:.2f} ms; int8 wall "
+          f"{p8['wall_ms']:.2f} ms, device {p8['device_ms']:.2f} ms, of "
+          f"which dequantize_kv {p8['dequant_ms']:.2f} ms "
+          f"({100 * p8['dequant_ms'] / max(p8['device_ms'], 1e-9):.1f}%); "
+          f"CUDA events: one leaf of one layer at {prof['shape']} "
+          f"{prof['event_ms']:.4f} ms, x {layer_leaves} leaves x 4 "
+          f"iterations = {4 * layer_leaves * prof['event_ms']:.2f} ms a "
+          f"dispatch ({smi})")
+    bad = {k: v for k, v in rel.items() if v >= INT8_REL}
+    if bad:
+        fail(f"(a) int8 last-token logits off the bf16 fleet's by {bad} of "
+             f"max|logit| (limit {INT8_REL})")
+    return b16["counts"]["gqa_decode"] + i8["counts"]["gqa_decode"]
+
+
+def _not_prefix(valid) -> bool:
+    """Whether some row of a (B, S) mask is not a prefix (a True after a
+    False)."""
+    return bool((valid[:, 1:] & ~valid[:, :-1]).any())
+
+
+def _p12_engine(cfg, params, reqs, what, n_max=4):
+    """(b), (c) A dense engine of ``cfg`` (``n_max`` slots, c_max 4096,
+    c_chunk 256, decode_k 4) serving ``reqs``, logits logged, prefill and
+    decode dispatches timed, the decode kernel held on its live inputs
+    while the ring fills and after it wrapped. Returns the run (engine
+    kept)."""
+    from repro_torch.serving.engine import InferenceEngine
+    eng = InferenceEngine(cfg, params, n_max=n_max, c_max=4096, c_chunk=256,
+                          decode_k=4)
+    ring = eng.cache["kv"]["k"].shape[2]
+    if ring != cfg.attention_window:
+        fail(f"{what}: the cache is {ring} rows long, not "
+             f"{cfg.attention_window}")
+    run = dict(eng=eng, log={}, held={}, prefill=[], decode=[], seen={},
+               slot={})
+
+    def wrapped():
+        return "wrapped" if int(eng.slot_pos.max()) >= ring else "filling"
+
+    def on_step(eng):
+        for s, r in enumerate(eng.slot_req):
+            if r is not None:
+                run["seen"][r.rid] = max(run["seen"].get(r.rid, 0),
+                                         int(eng.slot_pos[s]))
+                run["slot"][r.rid] = s
+    _reset_launches()
+    t0 = time.perf_counter()
+    with _prefill_timer(run["prefill"]), _decode_timer(run["decode"]), \
+            _logit_log(run["log"]), \
+            _live_kernel_hold(run["held"], tag=wrapped):
+        run["tokens"] = _drain(eng, reqs, on_step)
+    run["secs"] = time.perf_counter() - t0
+    run["counts"] = _launch_counts(("gqa_decode",), what)
+    for r in reqs:
+        got = run["tokens"].get(r["rid"], [])
+        if len(got) != r["max_new_tokens"]:
+            fail(f"{what}: request {r['rid']} did not complete "
+                 f"({len(got)} tokens)")
+        if run["seen"][r["rid"]] <= ring:
+            fail(f"{what}: request {r['rid']} stopped at position "
+                 f"{run['seen'][r['rid']]}, inside the ring of {ring}")
+    for tag in ("filling", "wrapped"):
+        if ("gqa_decode", (eng.n_max, ring), tag) not in run["held"]:
+            fail(f"{what}: no decode launch held while the ring was {tag}")
+    return run
+
+
+def _p12_window(cfg, params, smi):
+    """(b) the windowed engine (module docstring). Returns its launches."""
+    import numpy as np
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    cfgw = dataclasses.replace(cfg, attention_window=P12_WINDOW)
+    rng = np.random.default_rng(12)
+    reqs = [dict(rid=i, tokens=[int(t) for t in
+                                rng.integers(1, cfg.vocab_size, n)],
+                 max_new_tokens=P12_NEW) for i, n in enumerate(P12_PROMPTS)]
+    run = _p12_engine(cfgw, params, reqs, "(b) windowed engine")
+    eng = run["eng"]
+    # the engine against a teacher-forced forward(window=) over prompt +
+    # the fed tokens (the last prompt token again, then the emitted ones)
+    drift, flips = 0.0, 0
+    for r in reqs:
+        rid, prompt, out = r["rid"], r["tokens"], run["tokens"][r["rid"]]
+        seq = torch.tensor([prompt + prompt[-1:] + out[:-1]], device=DEVICE)
+        fwd = M.forward(params, cfgw, {"tokens": seq},
+                        window=P12_WINDOW)[0][0, len(prompt):].float()
+        for j, t in enumerate(out):
+            p, q = fwd[j], _logged(run["log"], rid, j, t, "(b) engine")
+            ulp = _bf16_ulp(float(p.max()))
+            drift = max(drift, float((q - p).abs().max()) / ulp)
+            top = int(p.argmax())
+            if top != t:
+                pref = float(p[top] - p[t])
+                if pref > BF16_GAP_ULPS * ulp:
+                    fail(f"(b) rid {rid} token {j}: {t}, the forward prefers "
+                         f"{top} by {pref:.5f} > {BF16_GAP_ULPS} ulps")
+                flips += 1
+        del fwd
+    if drift > BF16_DRIFT_ULPS:
+        fail(f"(b) engine logits {drift:.2f} ulps off the teacher-forced "
+             f"forward (limit {BF16_DRIFT_ULPS})")
+    # prefill into a ring shorter than the prompt, then decode_step
+    want, plain = {}, {}
+    for r in reqs:
+        want[r["rid"]], plain[r["rid"]] = _batch_path(
+            params, cfgw, r["tokens"], P12_NEW)
+    ring_flips = _bf16_flips(plain, run["log"], want, run["tokens"],
+                             "(b) ring prefill + decode_step vs the engine",
+                             tag="kv")
+    del plain, want
+    # the live ring under a window shorter than it: valid is no prefix
+    pos = torch.zeros(eng.n_max, dtype=torch.long, device=DEVICE)
+    for r in reqs:
+        pos[run["slot"][r["rid"]]] = len(r["tokens"]) + P12_NEW
+    kv = {k: a.clone() for k, a in eng.cache["kv"].items()}
+    idx = L.decode_index(cfgw, pos, {"k": kv["k"][0]}, window=P12_NARROW)
+    if not _not_prefix(idx.valid):
+        fail("(b) the narrow window's valid mask is a prefix")
+    narrow = {}
+    tok = torch.ones((eng.n_max, 1), dtype=torch.long, device=DEVICE)
+    with _live_kernel_hold(narrow):
+        M.decode_step(params, cfgw, tok, {"kv": kv}, pos, window=P12_NARROW)
+    del kv
+    pre_s = sum(t for t, _, _ in run["prefill"])
+    pre_cols = sum(b for _, _, b in run["prefill"])
+    pre_tok = sum(n for _, n, _ in run["prefill"])
+    dec_ms = 1e3 * sum(t for t, _ in run["decode"]) / len(run["decode"])
+    held = {f"{k[2]}": f"{v[0]:.3e}" for k, v in run["held"].items()}
+    held.update({f"window {P12_NARROW}": f"{v[0]:.3e}"
+                 for v in narrow.values()})
+    print(f"[kv] (b) minitron-8b full width, attention_window {P12_WINDOW}: "
+          f"engine n_max 4, c_max 4096 (ring {eng.cache['kv']['k'].shape[2]}"
+          f" rows), decode_k 4, prompts {P12_PROMPTS} + {P12_NEW} new, "
+          f"{run['secs']:.2f} s; positions reached {run['seen']}; per-token "
+          f"prefill {len(run['prefill'])} dispatches, {pre_cols} token "
+          f"columns, {1e3 * pre_s / pre_cols:.2f} ms a column (4 rows), "
+          f"{1e3 * pre_s / pre_tok:.2f} ms a prompt token; decode-only "
+          f"{dec_ms:.2f} ms per dispatch ({len(run['decode'])}); gqa_decode "
+          f"launches {run['counts']['gqa_decode']} ({smi})")
+    print(f"[kv] (b) engine vs teacher-forced forward(window={P12_WINDOW}): "
+          f"largest drift {drift:.2f} ulps (limit {BF16_DRIFT_ULPS}), "
+          f"{flips} positions where the forward's argmax is another token "
+          f"(each within {BF16_GAP_ULPS} ulps); ring prefill + decode_step: "
+          f"{ring_flips} near-tie divergences; kernel held on live ring "
+          f"inputs (max abs err): {held}")
+    n = run["counts"]["gqa_decode"]
+    del run, eng
+    torch.cuda.empty_cache()
+    return n
+
+
+def _p12_both(cfg, params, smi):
+    """(c) int8 and the window in one engine. Returns its launches."""
+    import numpy as np
+    import torch
+    cfgb = dataclasses.replace(cfg, attention_window=P12_WINDOW,
+                               kv_cache_dtype="int8")
+    n_prompt, n_new = P12_BOTH
+    rng = np.random.default_rng(13)
+    reqs = [dict(rid=0, tokens=[int(t) for t in
+                                rng.integers(1, cfg.vocab_size, n_prompt)],
+                 max_new_tokens=n_new)]
+    run = _p12_engine(cfgb, params, reqs, "(c) int8 windowed engine",
+                      n_max=P12_BOTH_SLOTS)
+    kv = run["eng"].cache["kv"]
+    if kv["k"].dtype != torch.int8 or "k_scale" not in kv:
+        fail("(c) the engine's cache is not int8")
+    held = {k[2]: f"{v[0]:.3e}" for k, v in run["held"].items()}
+    print(f"[kv] (c) int8 + window {P12_WINDOW}, n_max "
+          f"{run['eng'].n_max}: one request of {n_prompt} + {n_new} in "
+          f"{run['secs']:.2f} s, position "
+          f"{run['seen'][0]}, gqa_decode launches "
+          f"{run['counts']['gqa_decode']}; kernel held on live dequantized "
+          f"ring inputs (max abs err): {held} ({smi})")
+    n = run["counts"]["gqa_decode"]
+    del run, kv
+    torch.cuda.empty_cache()
+    return n
+
+
+def phase_kv(smi):
+    """Phase 12: the int8 KV cache through the fleet and the ring caches
+    through the dense engine (module docstring). Returns the launches."""
+    import torch
+    t0 = time.perf_counter()
+    cfg, params = _full_width()
+    n = _p12_int8(cfg, params, smi)
+    n += _p12_window(cfg, params, smi)
+    n += _p12_both(cfg, params, smi)
+    del params
+    torch.cuda.empty_cache()
+    print(f"[kv] phase 12: {time.perf_counter() - t0:.1f} s; gqa_decode "
+          f"launches {n}")
+    return {"gqa_decode": n}
+
+
 def main() -> int:
     try:
         import torch
@@ -4073,6 +4573,8 @@ def main() -> int:
     for name, n in phase_http(smi).items():
         launches[name] += n
     phase_train(smi)
+    for name, n in phase_kv(smi).items():
+        launches[name] += n
     sources = {"gqa_decode": ("src/repro_torch/kernels/csrc/gqa_decode.cu",
                               "src/repro/kernels/gqa_decode.py:29"),
                "paged_decode": ("src/repro_torch/kernels/csrc/paged_decode.cu",

@@ -3,8 +3,9 @@
 The dense-GQA subset of ``repro/models/layers.py``: norms, rotary
 embedding, MLP, attention (full-sequence ``attention`` with its
 block-causal ``_flash_causal`` above ``FLASH_MIN_SEQ``, the chunk path's
-``_sdpa`` and single-token decode), the int8 KV quantizer, and the dense
-(fp or int8) and paged (fp) KV caches with their masked writes. Layouts
+``_sdpa`` and single-token decode, over a plain or a windowed ring
+cache), the int8 KV quantizer, and the dense (fp or int8) and paged (fp)
+KV caches with their masked writes. Layouts
 match the JAX package at every public function: activations
 ``(B, S, D)``, heads ``(B, S, H, hd)``, caches token-major.
 
@@ -316,10 +317,11 @@ class DecodeIndex:
     eagerly that would cost a few dozen small launches per layer).
 
     pos: (B,) int64 positions; cos/sin: rope tables for them; valid:
-    (B, T) bool keys each row attends (``j <= pos``); dense: ``rows``
-    (0..B-1) and ``slots``, the (clamped) slot each row's new K/V goes
-    to, and ``live``, whether it is written (a masked row writes its old
-    value back); paged: ``flat``, the physical token index of each row's
+    (B, T) bool keys each row attends (``j <= pos``, or on a windowed
+    ring the entries younger than the window); dense: ``rows`` (0..B-1)
+    and ``slots``, the (clamped) slot each row's new K/V goes to, and
+    ``live``, whether it is written (a masked row writes its old value
+    back); paged: ``flat``, the physical token index of each row's
     new K/V (the sink block for a masked row), plus the int32
     ``block_tables`` and ``seq_lens = pos + 1`` the kernel takes."""
     pos: torch.Tensor
@@ -360,16 +362,26 @@ def _scatter_slot(cache, new, idx: DecodeIndex):
     return cache
 
 
-def decode_index(cfg: ModelConfig, pos, kv, active=None) -> DecodeIndex:
+def decode_index(cfg: ModelConfig, pos, kv, active=None,
+                 window: int = 0) -> DecodeIndex:
     """Per-step quantities of dense decode over a cache shaped like
-    ``kv["k"]``, one layer's (B, S, Hkv, hd)."""
+    ``kv["k"]``, one layer's (B, S, Hkv, hd). With a ``window`` the cache
+    is a ring buffer: position p lives at slot p % S (a write never
+    drops), and a row attends the entries whose age (slot - j) % S is
+    below min(pos + 1, window), as in the JAX package."""
     b, s_max = kv["k"].shape[0], kv["k"].shape[1]
     uniform = torch.as_tensor(pos).dim() == 0 and active is None
     pos = _positions(pos, b, kv["k"].device)
     cos, sin = rope_tables(pos[:, None], cfg.resolved_head_dim,
                            cfg.rope_theta)
-    slots, live = _masked_write_idx(pos, s_max, active, uniform)
-    valid = torch.arange(s_max, device=pos.device)[None, :] <= pos[:, None]
+    slot = pos % s_max if window > 0 else pos
+    slots, live = _masked_write_idx(slot, s_max, active, uniform)
+    j = torch.arange(s_max, device=pos.device)[None, :]
+    if window > 0:
+        valid = ((slot[:, None] - j) % s_max) \
+            < torch.clamp(pos[:, None] + 1, max=window)
+    else:
+        valid = j <= pos[:, None]
     return DecodeIndex(pos, cos, sin, valid,
                        rows=torch.arange(b, device=pos.device), slots=slots,
                        live=live)
@@ -401,19 +413,22 @@ def _decode_qkv(p, cfg, x, idx: DecodeIndex):
 
 
 def decode_attention(p: Params, cfg: ModelConfig, x, kv, pos,
-                     decode_impl: str = "kernel", active=None, idx=None):
-    """Single-token decode against one layer's dense cache (full
-    attention). x: (B,1,D); kv: {"k","v"} (B, S, Hkv, hd), plus int8
-    "k_scale"/"v_scale" (B, S, Hkv) for a quantized cache; pos: (B,) or
-    scalar absolute position of the new token; ``idx``: the step's
-    :func:`decode_index` when the caller shares it across layers. Rows
-    with active=False leave their cache row bit-identical, scales
-    included. An int8 cache takes the new token quantized, and the whole
-    cache is dequantized for the attention, as in the JAX package. The
-    kernel gets ``valid = j <= pos``. Returns (out, kv)."""
+                     window: int = 0, decode_impl: str = "kernel",
+                     active=None, idx=None):
+    """Single-token decode against one layer's dense cache. x: (B,1,D);
+    kv: {"k","v"} (B, S, Hkv, hd), plus int8 "k_scale"/"v_scale" (B, S,
+    Hkv) for a quantized cache; pos: (B,) or scalar absolute position of
+    the new token; ``window`` > 0: the cache is a ring of S entries
+    (:func:`decode_index`); ``idx``: the step's :func:`decode_index` when
+    the caller shares it across layers. Rows with active=False leave
+    their cache row bit-identical, scales included. An int8 cache takes
+    the new token quantized, and the whole cache is dequantized for the
+    attention, as in the JAX package. The kernel gets the index's
+    ``valid`` mask (a prefix ``j <= pos`` without a window). Returns
+    (out, kv)."""
     b = x.shape[0]
     if idx is None:
-        idx = decode_index(cfg, pos, kv, active)
+        idx = decode_index(cfg, pos, kv, active, window)
     q, k, v = _decode_qkv(p, cfg, x, idx)
     if "k_scale" in kv:
         for name, new in (("k", k[:, 0]), ("v", v[:, 0])):
@@ -446,9 +461,7 @@ def init_paged_kv_cache(cfg: ModelConfig, n_layers: int, num_blocks: int,
     ``block_size`` tokens per layer, (n_layers, num_blocks + 1,
     block_size, Hkv, hd) per leaf; block ``num_blocks`` is the write
     sink (module docstring). Slots own blocks through the engine's
-    block tables."""
-    if cfg.kv_cache_dtype:
-        raise NotImplementedError("paged KV cache is fp-only")
+    block tables. fp only: model.check_supported refuses an int8 pool."""
     dtype = dtype or torch_dtype(cfg.dtype)
     shape = (n_layers, num_blocks + 1, block_size, cfg.num_kv_heads,
              cfg.resolved_head_dim)
@@ -603,11 +616,16 @@ def write_chunk_kv(kv: Params, k, v, start, lengths, index=None) -> Params:
     at per-row offsets. k/v: (B, L, Hkv, hd); start: (B,); lengths: (B,)
     valid tokens (0 => that row is a bitwise no-op); ``index``: the
     chunk's :func:`chunk_write_index` when shared across layers. Entries
-    past a row's length keep their old contents."""
+    past a row's length keep their old contents. An int8 cache takes the
+    whole chunk quantized, values and scales blended through the same
+    index, as in the JAX package."""
     if index is None:
         index = chunk_write_index(start, lengths, k.shape[1], kv)
-    _blend_rows(kv["k"], k, index)
-    _blend_rows(kv["v"], v, index)
+    for name, new in (("k", k), ("v", v)):
+        if "k_scale" in kv:
+            new, scale = quantize_kv(new)
+            _blend_rows(kv[name + "_scale"], scale, index)
+        _blend_rows(kv[name], new, index)
     return kv
 
 
@@ -615,10 +633,12 @@ def _blend_rows(cache, new, index):
     """The (B, L) window of a :func:`chunk_write_index` takes the kept
     chunk tokens and writes its own old values back elsewhere: each
     row's kept tokens land at their absolute positions, and nothing
-    else of the cache changes."""
+    else of the cache changes. cache: (B, S, ...) values (B, S, Hkv, hd)
+    or int8 scales (B, S, Hkv); new: (B, L, ...) alike."""
     rows, src_cols, dst_pos, keep = index
     old = cache[rows, dst_pos]
-    cache[rows, dst_pos] = torch.where(keep[..., None, None],
+    keep = keep.view(*keep.shape, *(1,) * (cache.dim() - 2))
+    cache[rows, dst_pos] = torch.where(keep,
                                        new[rows, src_cols].to(cache.dtype),
                                        old)
     return cache

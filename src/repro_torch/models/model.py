@@ -15,15 +15,18 @@ API and layouts:
 Parameters are a nested dict of tensors whose per-layer leaves stay
 stacked along a leading layer axis, as in the JAX pytree; layer ``i`` is
 ``layers[...][i]``. The layer loop is a Python loop (JAX scans it).
-Caches are updated in place and returned (models/layers.py). The int8
-dense KV cache is taken by forward, prefill, init_cache and decode_step;
-the chunk, mixed, verify and paged paths refuse it. Other families, MLA
-and sliding windows raise NotImplementedError everywhere: they are later
-slices of the port.
+Caches are updated in place and returned (models/layers.py). Every dense
+entry point takes the int8 KV cache and a sliding window
+(``cfg.attention_window``, or the ``window`` argument): the dense cache
+is then a ring of min(cache_len, window) entries, and ``prefill_chunk``
+/ ``verify_step`` run a masked per-token decode loop instead of the
+fused chunk, as in the JAX package. The paged pool is fp and full
+attention only, as there. Other families and MLA raise
+NotImplementedError everywhere: they are later slices of the port.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,36 +40,37 @@ Params = Dict[str, Any]
 
 # the slice of the port that brings each other family
 FAMILY_SLICES = {
-    MOE: "the MoE-block slice (with the windowed ring-buffer caches)",
+    MOE: "the MoE-block slice",
     SSM: "the SSM slice (mLSTM, sLSTM, Mamba2)",
     HYBRID: "the SSM slice (mLSTM, sLSTM, Mamba2)",
     VLM: "the cross-attention slice (VLM and encoder-decoder)",
     ENCDEC: "the cross-attention slice (VLM and encoder-decoder)"}
 
 
-def check_supported(cfg: ModelConfig, int8_cache: bool = False) -> None:
-    """Raise NotImplementedError for what this slice of the port does not
-    run: anything but a dense, full-attention decoder, and an int8 KV
-    cache on an entry point that does not take one (``int8_cache``:
-    forward, prefill, init_cache and decode_step do)."""
+def check_supported(cfg: ModelConfig, paged: bool = False) -> None:
+    """Raise NotImplementedError for what the port does not run: anything
+    but a dense decoder without MLA (a later slice each), and on the
+    paged pool (``paged``) a window or an int8 cache, which the JAX
+    package refuses there too, for the same reasons."""
     if cfg.family != DENSE:
         raise NotImplementedError(
             f"family {cfg.family!r}: the port runs dense decoders; "
             f"{FAMILY_SLICES[cfg.family]} is a later slice of the port")
     if cfg.mla is not None:
         raise NotImplementedError("MLA is a later slice of the port")
-    if cfg.attention_window:
+    if paged and cfg.attention_window:
         raise NotImplementedError(
-            "sliding-window attention (the ring-buffer KV cache) is a later "
-            "slice of the port, with the MoE block")
-    if cfg.kv_cache_dtype and not int8_cache:
-        raise NotImplementedError(
-            f"kv_cache_dtype={cfg.kv_cache_dtype!r} on the engine and its "
-            "chunk, mixed, verify and paged paths is a later slice of the "
-            "port, the int8-engine slice (the engine's int8 chunk writes "
-            "and the host tier's scale movers; the paged pool is fp-only "
-            "in the JAX package too): forward, prefill, init_cache and "
-            "decode_step take the int8 dense cache")
+            "windowed attention already bounds KV by the window; paging "
+            "it would page a ring buffer — unsupported")
+    if paged and cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError("paged KV cache is fp-only for now "
+                                  "(int8 scales need a paged layout too)")
+
+
+def _window(cfg: ModelConfig, window: Optional[int]) -> int:
+    """The window a call runs: ``window``, or the config's when None (0:
+    full attention)."""
+    return (cfg.attention_window if window is None else window) or 0
 
 
 # ===========================================================================
@@ -78,7 +82,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     norms at one), drawn from a ``torch.Generator`` seeded with ``seed``
     on ``device``. The numbers differ from JAX's for the same seed; the
     tests carry JAX's parameters across with params.from_jax_numpy."""
-    check_supported(cfg, int8_cache=True)
+    check_supported(cfg)
     dtype = L.torch_dtype(cfg.dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -138,23 +142,23 @@ def _mlp_residual(lp, cfg, x):
 # ===========================================================================
 # forward (teacher forcing)
 # ===========================================================================
-def _decoder_block(lp, cfg: ModelConfig, x, positions):
+def _decoder_block(lp, cfg: ModelConfig, x, positions, window: int = 0):
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-    x = x + L.attention(lp["attn"], cfg, h, positions)
+    x = x + L.attention(lp["attn"], cfg, h, positions, window=window)
     return _mlp_residual(lp, cfg, x)
 
 
 def _run_decoder_stack(stacked, cfg: ModelConfig, x, positions,
-                       remat: bool = False):
+                       remat: bool = False, window: int = 0):
     """The decoder blocks in turn; ``remat`` checkpoints each one (its
     activations are recomputed in the backward pass). The forward draws
     no random numbers, so no RNG state is stashed."""
     for lp in _unstack(stacked):
         if remat:
-            x = checkpoint(_decoder_block, lp, cfg, x, positions,
+            x = checkpoint(_decoder_block, lp, cfg, x, positions, window,
                            use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _decoder_block(lp, cfg, x, positions)
+            x = _decoder_block(lp, cfg, x, positions, window)
     return x
 
 
@@ -165,21 +169,25 @@ def _seq_inputs(params, tokens):
     return x, torch.arange(s, device=x.device).expand(b, s)
 
 
-def forward(params: Params, cfg: ModelConfig, batch: Dict, remat=False
+def forward(params: Params, cfg: ModelConfig, batch: Dict, remat=False,
+            window: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forcing full-sequence pass. batch: {"tokens": (B, S) int}.
     Returns (logits (B, S, V), aux): aux is the MoE load-balancing loss,
     a 0-d f32 zero for the dense decoder. ``remat`` (for training under
     autograd): "layer" checkpoints each decoder block, True / "full" the
     whole pass, False / None nothing (the JAX package's
-    ``LAYER_REMAT`` and ``jax.checkpoint`` of ``forward``)."""
-    check_supported(cfg, int8_cache=True)
+    ``LAYER_REMAT`` and ``jax.checkpoint`` of ``forward``). ``window``:
+    sliding-window attention over that many positions
+    (``cfg.attention_window`` when None; 0 is full attention)."""
+    check_supported(cfg)
     if remat and remat != "layer":
-        return checkpoint(forward, params, cfg, batch, use_reentrant=False,
-                          preserve_rng_state=False)
+        return checkpoint(forward, params, cfg, batch, False, window,
+                          use_reentrant=False, preserve_rng_state=False)
     x, positions = _seq_inputs(params, batch["tokens"])
     x = _run_decoder_stack(params["layers"], cfg, x, positions,
-                           remat=remat == "layer")
+                           remat=remat == "layer",
+                           window=_window(cfg, window))
     return _head(params, cfg, x), torch.zeros((), dtype=torch.float32,
                                                device=x.device)
 
@@ -190,17 +198,22 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict, remat=False
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device="cuda") -> Params:
     """Dense KV cache for ``batch`` slots of ``cache_len`` tokens (int8
-    values with per-token scales when cfg.kv_cache_dtype == "int8")."""
-    check_supported(cfg, int8_cache=True)
-    return {"kv": L.init_kv_cache(cfg, cfg.num_layers, batch, cache_len,
+    values with per-token scales when cfg.kv_cache_dtype == "int8"); with
+    ``cfg.attention_window`` a ring of min(cache_len, window) entries, as
+    in the JAX package."""
+    check_supported(cfg)
+    eff = min(cache_len, cfg.attention_window) if cfg.attention_window \
+        else cache_len
+    return {"kv": L.init_kv_cache(cfg, cfg.num_layers, batch, eff,
                                   device=device)}
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                      device="cuda") -> Params:
     """Paged KV cache: one pool of ``num_blocks`` physical blocks per
-    layer (plus the sink block); slots own blocks via block tables."""
-    check_supported(cfg)
+    layer (plus the sink block); slots own blocks via block tables. fp
+    and full attention only, as in the JAX package."""
+    check_supported(cfg, paged=True)
     return {"kv": L.init_paged_kv_cache(cfg, cfg.num_layers, num_blocks,
                                         block_size, device=device)}
 
@@ -208,59 +221,64 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
 # ===========================================================================
 # decode / prefill
 # ===========================================================================
-def prefill(params: Params, cfg: ModelConfig, batch: Dict
-            ) -> Tuple[torch.Tensor, Params]:
+def prefill(params: Params, cfg: ModelConfig, batch: Dict,
+            window: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
     """Full-prompt prefill. batch: {"tokens": (B, S) int, optional
-    "cache_len" >= S (default S)}. Returns (last-token logits (B, V), a
-    new dense cache of ``cache_len`` tokens holding the prompt's K/V)."""
-    check_supported(cfg, int8_cache=True)
+    "cache_len" (default S)}. Returns (last-token logits (B, V), a new
+    dense cache of ``cache_len`` tokens, or of the config's window when
+    that is shorter, holding the prompt's K/V; a cache shorter than S
+    keeps the last entries in ring layout). ``window`` as in
+    :func:`forward`."""
+    check_supported(cfg)
     tokens = batch["tokens"]
-    cache_len = batch.get("cache_len", tokens.shape[1])
-    if cache_len < tokens.shape[1]:
-        raise NotImplementedError(
-            f"cache_len {cache_len} < prompt length {tokens.shape[1]}: "
-            "keeping the last cache_len entries in ring layout is the "
-            "ring-buffer KV cache, a later slice of the port")
-    cache = init_cache(cfg, tokens.shape[0], cache_len,
+    cache = init_cache(cfg, tokens.shape[0],
+                       batch.get("cache_len", tokens.shape[1]),
                        device=params["embed"].device)
-    x = _fill_cache(params, cfg, tokens, cache)
+    x = _fill_cache(params, cfg, tokens, cache, _window(cfg, window))
     return _head(params, cfg, x[:, -1:])[:, 0], cache
 
 
-def _fill_cache(params, cfg, tokens, cache):
+def _fill_cache(params, cfg, tokens, cache, window: int = 0):
     """Run the stack, storing each layer's K/V into the cache: K/V are
     recomputed from the hidden state entering the block (one extra K/V
-    product per layer, as in the JAX package), zero-padded to the cache
-    length and, for an int8 cache, quantized after the padding (padding
-    tokens get values 0 and the floor scale). Returns the final hidden
-    state."""
+    product per layer, as in the JAX package). A cache of ``eff`` >= S
+    entries takes them zero-padded; a shorter one (a ring) the last
+    ``eff`` rolled by S % eff, so position p sits at p % eff. An int8
+    cache quantizes after the padding or the roll (padding tokens get
+    values 0 and the floor scale). Returns the final hidden state."""
     x, positions = _seq_inputs(params, tokens)
-    pad = cache["kv"]["k"].shape[2] - tokens.shape[1]
+    s_len, eff = tokens.shape[1], cache["kv"]["k"].shape[2]
     for lp, kv in zip(_unstack(params["layers"]), _unstack(cache["kv"])):
         h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
         k, v = L._kv(lp["attn"], cfg, h)
         k = L.apply_rope(k, positions, cfg.rope_theta)
         for name, t in (("k", k), ("v", v)):
-            t = F.pad(t, (0, 0, 0, 0, 0, pad))
+            if eff < s_len:
+                t = torch.roll(t[:, -eff:], s_len % eff, dims=1)
+            else:
+                t = F.pad(t, (0, 0, 0, 0, 0, eff - s_len))
             if "k_scale" in kv:
                 t, scale = L.quantize_kv(t)
                 kv[name + "_scale"].copy_(scale)
             kv[name].copy_(t)           # the cache's own layer view
-        x = _decoder_block(lp, cfg, x, positions)
+        x = _decoder_block(lp, cfg, x, positions, window)
     return x
 
 
 def decode_step(params: Params, cfg: ModelConfig, token, cache: Params, pos,
-                decode_impl: str = "kernel", active=None
+                decode_impl: str = "kernel", active=None,
+                window: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Params]:
     """token: (B,1) int; pos: scalar or (B,) per-row positions; active:
     optional (B,) bool — rows with active=False leave the cache
     bit-identical and get garbage logits. The cache may be fp or int8
-    (init_cache, prefill). Returns (logits (B,V), cache)."""
-    check_supported(cfg, int8_cache=True)
+    (init_cache, prefill), and with a window (``window``, or the
+    config's when None) a ring. One :class:`layers.DecodeIndex` serves
+    every layer. Returns (logits (B,V), cache)."""
+    check_supported(cfg)
     x = params["embed"][token.long()]
     layer_kv = _unstack(cache["kv"])
-    idx = L.decode_index(cfg, pos, layer_kv[0], active)
+    idx = L.decode_index(cfg, pos, layer_kv[0], active, _window(cfg, window))
     for lp, kv in zip(_unstack(params["layers"]), layer_kv):
         h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
         a, _ = L.decode_attention(lp["attn"], cfg, h, kv, idx.pos,
@@ -275,7 +293,7 @@ def paged_decode_step(params: Params, cfg: ModelConfig, token,
                       decode_impl: str = "kernel", active=None
                       ) -> Tuple[torch.Tensor, Params]:
     """Paged analog of :func:`decode_step`; block_tables: (B, NB) int."""
-    check_supported(cfg)
+    check_supported(cfg, paged=True)
     x = params["embed"][token.long()]
     ks, vs = cache["kv"]["k"].unbind(0), cache["kv"]["v"].unbind(0)
     idx = L.paged_decode_index(cfg, pos, {"k": ks[0]}, block_tables, active)
@@ -326,35 +344,73 @@ def _chunk_inputs(params, cfg, tokens, start_pos, lengths, t_max: int):
 
 
 def prefill_chunk(params: Params, cfg: ModelConfig, tokens, cache: Params,
-                  start_pos, lengths, decode_impl: str = "kernel"
+                  start_pos, lengths, decode_impl: str = "kernel",
+                  window: Optional[int] = None
                   ) -> Tuple[torch.Tensor, Params]:
     """Batched multi-slot chunked prefill: one call advances every row by
     up to L tokens. tokens: (B, L) zero-padded chunks; start_pos: (B,);
     lengths: (B,) valid tokens (0 => bitwise no-op row). Returns
-    (logits after each row's last valid token (B, V), cache). The dense
-    full-attention model runs the fused sequence-level chunk
-    (``decode_impl`` is unused there, as in the JAX package)."""
+    (logits after each row's last valid token (B, V), cache). Full
+    attention runs the fused sequence-level chunk (``decode_impl`` is
+    unused there); a window (``window``, or the config's when None) the
+    masked per-token decode loop, as in the JAX package."""
     check_supported(cfg)
+    if _window(cfg, window):
+        return _per_token_chunk(params, cfg, tokens, cache, start_pos,
+                                lengths, decode_impl, window)
     return _prefill_chunk_fused(params, cfg, tokens, cache, start_pos,
                                 lengths)
+
+
+def _per_token_chunk(params, cfg, tokens, cache, start_pos, lengths,
+                     decode_impl, window, all_logits: bool = False):
+    """The masked per-token fallback of :func:`prefill_chunk` and
+    :func:`verify_step`: token column t goes through :func:`decode_step`
+    at ``start_pos + t`` with ``active = t < lengths``, on the cache's
+    device and through ``decode_impl``. Returns each row's logits where
+    it was last active, zeros for an idle row (``all_logits``: every
+    step's, (B, L, V)), and the cache; a ``lengths == 0`` row is a
+    bitwise no-op."""
+    b, l = tokens.shape
+    dev = cache["kv"]["k"].device
+    tokens = torch.as_tensor(tokens, device=dev)
+    start_pos = torch.as_tensor(start_pos, device=dev).long()
+    lengths = torch.as_tensor(lengths, device=dev).long()
+    dtype = L.torch_dtype(cfg.dtype)
+    out = torch.zeros((b, l, cfg.vocab_size) if all_logits
+                      else (b, cfg.vocab_size), dtype=dtype, device=dev)
+    for t in range(l):
+        act = t < lengths
+        lg, cache = decode_step(params, cfg, tokens[:, t:t + 1], cache,
+                                start_pos + t, decode_impl=decode_impl,
+                                active=act, window=window)
+        if all_logits:
+            out[:, t] = lg
+        else:
+            out = torch.where(act[:, None], lg.to(dtype), out)
+    return out, cache
 
 
 def _prefill_chunk_fused(params, cfg, tokens, cache, start_pos, lengths,
                          all_logits: bool = False):
     """Write the chunk's K/V into the cache in place, then attend the
-    chunk's queries over (cache prefix + chunk) causally. ``all_logits``
-    (the speculative verify path) returns the LM head over every chunk
-    position, (B, L, V), instead of each row's last."""
-    ks, vs = cache["kv"]["k"].unbind(0), cache["kv"]["v"].unbind(0)
+    chunk's queries over (cache prefix + chunk) causally; an int8 cache
+    takes the chunk quantized and is attended dequantized, as in the JAX
+    package. ``all_logits`` (the speculative verify path) returns the LM
+    head over every chunk position, (B, L, V), instead of each row's
+    last."""
+    layer_kv = _unstack(cache["kv"])
     x, start_pos, lengths, rope, valid = _chunk_inputs(
-        params, cfg, tokens, start_pos, lengths, ks[0].shape[1])
+        params, cfg, tokens, start_pos, lengths, layer_kv[0]["k"].shape[1])
     index = L.chunk_write_index(start_pos, lengths, tokens.shape[1],
-                                {"k": ks[0]})
-    for lp, kc, vc in zip(_unstack(params["layers"]), ks, vs):
-        def kv_view(k, v, kc=kc, vc=vc):
-            L.write_chunk_kv({"k": kc, "v": vc}, k, v, start_pos, lengths,
-                             index=index)
-            return kc, vc
+                                layer_kv[0])
+    for lp, kv in zip(_unstack(params["layers"]), layer_kv):
+        def kv_view(k, v, kv=kv):
+            L.write_chunk_kv(kv, k, v, start_pos, lengths, index=index)
+            if "k_scale" in kv:
+                return (L.dequantize_kv(kv["k"], kv["k_scale"]),
+                        L.dequantize_kv(kv["v"], kv["v_scale"]))
+            return kv["k"], kv["v"]
         x = _mlp_residual(lp, cfg, _chunk_attention(lp, cfg, x, rope, valid,
                                                     kv_view))
     return _chunk_logits(params, cfg, x, lengths, all_logits), cache
@@ -371,7 +427,7 @@ def paged_prefill_chunk(params: Params, cfg: ModelConfig, tokens,
                         ) -> Tuple[torch.Tensor, Params]:
     """Paged analog of :func:`prefill_chunk`: the chunk's K/V go through
     the block table, and the queries attend the gathered pages."""
-    check_supported(cfg)
+    check_supported(cfg, paged=True)
     ks, vs = cache["kv"]["k"].unbind(0), cache["kv"]["v"].unbind(0)
     p_blocks, bs = ks[0].shape[0] - 1, ks[0].shape[1]
     x, start_pos, lengths, rope, valid = _chunk_inputs(
@@ -391,18 +447,24 @@ def paged_prefill_chunk(params: Params, cfg: ModelConfig, tokens,
 
 
 def verify_step(params: Params, cfg: ModelConfig, tokens, cache: Params,
-                start_pos, lengths) -> Tuple[torch.Tensor, Params]:
+                start_pos, lengths, decode_impl: str = "kernel",
+                window: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
     """Speculative multi-token verify: advance every row by its
     [last_tok, draft_1..draft_w] window in one call and return the logits
     at EVERY window position, so the caller can accept the longest draft
-    prefix matching the model's own greedy argmax. It is the fused
-    :func:`prefill_chunk` (the port runs dense full attention only) with
-    the LM head over all L positions; ``lengths == 0`` rows stay bitwise
-    no-ops, and a rejected position's K/V is overwritten by the next
-    write there. tokens: (B, L); start_pos/lengths: (B,). Returns (logits
-    (B, L, V), cache); positions past ``lengths`` and idle rows hold
-    garbage the caller masks."""
+    prefix matching the model's own greedy argmax. It is
+    :func:`prefill_chunk`'s pass (the fused chunk, or with a window the
+    per-token loop) with the LM head over all L positions; ``lengths ==
+    0`` rows stay bitwise no-ops, and a rejected position's K/V is
+    overwritten by the next write there (not so on a ring: the engine
+    refuses speculation with a window). tokens: (B, L);
+    start_pos/lengths: (B,). Returns (logits (B, L, V), cache); positions
+    past ``lengths`` and idle rows hold garbage the caller masks."""
     check_supported(cfg)
+    if _window(cfg, window):
+        return _per_token_chunk(params, cfg, tokens, cache, start_pos,
+                                lengths, decode_impl, window,
+                                all_logits=True)
     return _prefill_chunk_fused(params, cfg, tokens, cache, start_pos,
                                 lengths, all_logits=True)
 
@@ -419,15 +481,18 @@ def paged_verify_step(params: Params, cfg: ModelConfig, tokens,
 
 def mixed_step(params: Params, cfg: ModelConfig, tokens, cache: Params, pos,
                lengths, decode_tokens, decode_active,
-               decode_impl: str = "kernel") -> Tuple[torch.Tensor, Params]:
+               decode_impl: str = "kernel", window: Optional[int] = None
+               ) -> Tuple[torch.Tensor, Params]:
     """Fused prefill + decode: advance every prefill row (lengths > 0) by
     one chunk and every decode row (decode_active) by one token in one
     call. The row sets are disjoint and each half is exactly the
     separate call, so the tokens equal the sequential path's. Returns
     (decode logits (B, V), cache)."""
-    _, cache = prefill_chunk(params, cfg, tokens, cache, pos, lengths)
+    _, cache = prefill_chunk(params, cfg, tokens, cache, pos, lengths,
+                             decode_impl=decode_impl, window=window)
     return decode_step(params, cfg, decode_tokens, cache, pos,
-                       decode_impl=decode_impl, active=decode_active)
+                       decode_impl=decode_impl, active=decode_active,
+                       window=window)
 
 
 def paged_mixed_step(params: Params, cfg: ModelConfig, tokens,

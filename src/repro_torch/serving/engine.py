@@ -26,6 +26,11 @@ Two KV layouts: DENSE (one ``(n_max, c_max)`` row per slot) and PAGED
 host free list that reserves each admitted request's worst-case blocks
 and a bounded out-of-order admission window, ``hol_window``, for when
 the FIFO head cannot be placed). Paged reproduces dense tokens exactly.
+The dense layout also serves the int8 KV cache (values plus per-token
+scales; the host tier moves every leaf) and a sliding window (each row
+a ring of min(c_max, window) entries, prefilled token by token), as in
+the JAX engine; the paged pool refuses both, and a window refuses
+``spec_k > 1``.
 
 The paged layout can share prompt prefixes (``prefix_cache=True``): full
 prompt blocks are registered under a chained content hash once prefill
@@ -1054,7 +1059,7 @@ class InferenceEngine:
                                   self._block_table_device(), start, lengths)
         else:
             M.prefill_chunk(self.params, self.cfg, tokens, self.cache, start,
-                            lengths)
+                            lengths, decode_impl=self.decode_impl)
         self.dispatches += 1
         self._advance_prefill_host(chunks)
 
@@ -1145,7 +1150,8 @@ class InferenceEngine:
                     self._block_table_device(), pos, lengths)
             else:
                 logits, _ = M.verify_step(self.params, self.cfg, window,
-                                          self.cache, pos, lengths)
+                                          self.cache, pos, lengths,
+                                          decode_impl=self.decode_impl)
             g = torch.argmax(logits, dim=-1)                      # (B, W)
             # draft i is accepted iff it equals the model's continuation
             # at the position before it; j = the accepted prefix length

@@ -78,7 +78,10 @@ def _fit_seq(h: torch.Tensor, axis: int, n: int) -> torch.Tensor:
     """Zero-pad or truncate a dense host KV row to ``n`` positions along
     its seq axis, on the host. Bitwise-safe either way: positions >= pos
     are never attended (the mask ends at pos), and pos <= the fit-checked
-    len(tokens) + max_new_tokens <= n on the truncation path."""
+    len(tokens) + max_new_tokens <= n on the truncation path. A windowed
+    row is a ring of min(c_max, window) entries; where that length
+    changes, one of the two c_max is below the window and every request
+    fits it, so no position has wrapped: p % length == p on both sides."""
     if h.shape[axis] == n:
         return h
     if h.shape[axis] > n:
@@ -92,8 +95,11 @@ def _adopt_state(state: _PreemptedState, src: InferenceEngine,
                  dst: InferenceEngine) -> _PreemptedState:
     """Fit a host checkpoint taken on ``src`` to ``dst``'s cache geometry.
     Paged blocks move unchanged (the block size is fleet-uniform); dense
-    rows, (L, S, ...) per leaf (``layers.gather_slot_row``), pad or
-    truncate along axis 1. Any other mismatch falls back to the recompute
+    rows, (L, S, ...) per leaf (``layers.gather_slot_row``; int8 scales
+    too), pad or truncate along axis 1 to ``dst``'s row length: c_max, or
+    the ring's min(c_max, window). (The JAX package fits a ring row to
+    c_max, which no ring of a window below the new c_max can take: its
+    swap-in raises.) Any other mismatch falls back to the recompute
     path: replay and last_tok are kept on both preemption paths so this
     conversion is always available."""
     if state.host_kv is None:
@@ -102,9 +108,8 @@ def _adopt_state(state: _PreemptedState, src: InferenceEngine,
             and state.n_blocks <= dst.blocks_per_slot:
         return state
     if not src.paged and not dst.paged:
-        if src.c_max == dst.c_max:
-            return state
-        kv = {k: _fit_seq(h, 1, dst.c_max) for k, h in state.host_kv.items()}
+        n = dst.cache["kv"]["k"].shape[2]
+        kv = {k: _fit_seq(h, 1, n) for k, h in state.host_kv.items()}
         return dataclasses.replace(state, host_kv=kv)
     return dataclasses.replace(state, host_kv=None, n_blocks=0, pos=0)
 

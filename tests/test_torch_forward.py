@@ -405,41 +405,81 @@ def test_batch_launcher_draws_its_own_inputs():
 
 # ---------------------------------------------------------------- refusals
 WINDOW = {"attention_window": 16}
+RING_REASON = "paging it would page a ring buffer"
+INT8_REASON = "paged KV cache is fp-only"
 
 
 @pytest.mark.parametrize("call", ["forward", "prefill", "decode_step"])
 def test_window_config_refused(call):
+    """A window is refused on the paged pool only, with the JAX package's
+    reason: the dense entry point runs it (tests/test_torch_kvcache.py
+    holds it against JAX), and its paged counterpart (the pool itself,
+    the paged chunk, the paged decode step) raises."""
     tcfg = port_cfg(**WINDOW)
     tp = TM.init_params(port_cfg(), seed=0, device="cpu")
-    toks = torch.ones((1, 4), dtype=torch.long)
-    cache = TM.init_cache(port_cfg(), 1, 8, device="cpu")
-    fn = {"forward": lambda: TM.forward(tp, tcfg, {"tokens": toks}),
-          "prefill": lambda: TM.prefill(tp, tcfg, {"tokens": toks}),
-          "decode_step": lambda: TM.decode_step(tp, tcfg, toks[:, :1], cache,
-                                                0)}[call]
-    with pytest.raises(NotImplementedError, match="later slice"):
-        fn()
+    toks = torch.ones((1, 24), dtype=torch.long)
+    cache = TM.init_cache(tcfg, 1, 40, device="cpu")
+    assert cache["kv"]["k"].shape[2] == 16          # the ring
+    dense = {"forward": lambda: TM.forward(tp, tcfg, {"tokens": toks}),
+             "prefill": lambda: TM.prefill(tp, tcfg, {"tokens": toks}),
+             "decode_step": lambda: TM.decode_step(tp, tcfg, toks[:, :1],
+                                                   cache, 30)}[call]
+    assert torch.isfinite(dense()[0]).all()
+    pool = TM.init_paged_cache(port_cfg(), 4, 16, device="cpu")
+    tables = torch.zeros((1, 2), dtype=torch.int32)
+    paged = {"forward": lambda: TM.init_paged_cache(tcfg, 4, 16,
+                                                    device="cpu"),
+             "prefill": lambda: TM.paged_prefill_chunk(
+                 tp, tcfg, toks[:, :4], pool, tables, torch.tensor([0]),
+                 torch.tensor([4])),
+             "decode_step": lambda: TM.paged_decode_step(
+                 tp, tcfg, toks[:, :1], pool, tables, torch.tensor([0]))
+             }[call]
+    with pytest.raises(NotImplementedError, match=RING_REASON):
+        paged()
 
 
 def test_prefill_shorter_cache_refused():
-    """cache_len < S is the JAX package's ring layout (keep the last
-    cache_len entries), which the port does not run yet: refused, never
-    cropped."""
+    """cache_len < S is no longer refused: the cache keeps the last
+    cache_len entries in the JAX package's ring layout (position p at p %
+    cache_len), never cropped to the first ones, and is bitwise the tail
+    of the full cache rolled into place."""
     tp = TM.init_params(port_cfg(), seed=0, device="cpu")
-    toks = torch.ones((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ring-buffer"):
-        TM.prefill(tp, port_cfg(), {"tokens": toks, "cache_len": 4})
+    toks = torch.tensor(_tok(7, (2, 8)))
+    last, ring = TM.prefill(tp, port_cfg(), {"tokens": toks, "cache_len": 3})
+    full_last, full = TM.prefill(tp, port_cfg(), {"tokens": toks})
+    assert torch.equal(last, full_last)
+    for leaf in ("k", "v"):
+        assert ring["kv"][leaf].shape[2] == 3
+        for p in range(5, 8):
+            assert torch.equal(ring["kv"][leaf][:, :, p % 3],
+                               full["kv"][leaf][:, :, p])
 
 
 def test_int8_config_refused_by_engine_and_chunk_path():
+    """int8 is refused by the paged engine and the paged chunk path only,
+    with the JAX package's reason; the dense engine and the dense chunk
+    path take it."""
     tcfg = _int8(port_cfg())
     tp = TM.init_params(port_cfg(), seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8-engine slice"):
-        InferenceEngine(tcfg, tp, n_max=2, c_max=32)
+    with pytest.raises(NotImplementedError, match=INT8_REASON):
+        InferenceEngine(tcfg, tp, n_max=2, c_max=32, paged=True)
+    with pytest.raises(NotImplementedError, match=INT8_REASON):
+        TM.paged_prefill_chunk(tp, tcfg, torch.ones((1, 4), dtype=torch.long),
+                               TM.init_paged_cache(port_cfg(), 4, 16,
+                                                   device="cpu"),
+                               torch.zeros((1, 2), dtype=torch.int32),
+                               torch.tensor([0]), torch.tensor([4]))
+    eng = InferenceEngine(tcfg, tp, n_max=2, c_max=32)
+    assert eng.cache["kv"]["k"].dtype == torch.int8
     cache = TM.init_cache(tcfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TM.prefill_chunk(tp, tcfg, torch.ones((1, 4), dtype=torch.long),
-                         cache, torch.tensor([0]), torch.tensor([4]))
+    logits, cache = TM.prefill_chunk(tp, tcfg,
+                                     torch.ones((1, 4), dtype=torch.long),
+                                     cache, torch.tensor([0]),
+                                     torch.tensor([4]))
+    assert torch.isfinite(logits).all()
+    assert cache["kv"]["k_scale"][:, :, :4].all()
+    assert not cache["kv"]["k_scale"][:, :, 4:].any()
 
 
 def test_sharded_mesh_refused():

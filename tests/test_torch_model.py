@@ -290,15 +290,29 @@ def test_init_params_distributions():
     assert torch.equal(p["layers"]["attn"]["wq"], q["layers"]["attn"]["wq"])
 
 
+# the paged pool's refusals, with the JAX package's reasons
+PAGED_REASON = {"moe": "later slice", "window": "would page a ring buffer",
+                "int8": "paged KV cache is fp-only"}
+
+
 @pytest.mark.parametrize("change", [
     {"family": "moe"}, {"attention_window": 16}, {"kv_cache_dtype": "int8"}],
     ids=["moe", "window", "int8"])
-def test_unsupported_configs_raise(change):
-    """A later slice's config raises where the port does not run it: the
-    other families and windows everywhere, the int8 cache on the paged
-    path (the dense cache takes it: tests/test_torch_forward.py)."""
-    with pytest.raises(NotImplementedError, match="later slice"):
+def test_unsupported_configs_raise(change, request):
+    """What the port does not run raises: the other families everywhere
+    (a later slice), a window and the int8 cache on the paged pool (as in
+    the JAX package). The dense cache takes both: a ring of min(cache_len,
+    window) entries, int8 values with their scales."""
+    case = request.node.callspec.id
+    with pytest.raises(NotImplementedError, match=PAGED_REASON[case]):
         TM.init_paged_cache(port_cfg(**change), 4, 16, device="cpu")
-    if "kv_cache_dtype" not in change:
+    if case == "moe":
         with pytest.raises(NotImplementedError, match="later slice"):
             TM.init_cache(port_cfg(**change), 1, 16, device="cpu")
+        return
+    kv = TM.init_cache(port_cfg(**change), 1, 40, device="cpu")["kv"]
+    if case == "window":
+        assert set(kv) == {"k", "v"} and kv["k"].shape[2] == 16
+    else:
+        assert kv["k"].dtype == torch.int8 and kv["k"].shape[2] == 40
+        assert kv["k_scale"].shape == kv["k"].shape[:-1]
