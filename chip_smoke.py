@@ -233,7 +233,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    dequantized inputs. Prints decode ms per dispatch of both fleets, the
    cache bytes, and one profiled decode dispatch of each long pool with
    ``dequantize_kv`` marked (its device share), beside a CUDA-event time
-   of one dequantized leaf. (b) ``attention_window=1024`` (llama4-scout's
+   of one dequantized leaf. (b) and (c) run 8 of the 32 layers (the
+   stacked layer leaves of (a)'s weights sliced, ``P12_LAYERS``): the
+   per-token prefill is host-bound, one ``decode_step`` a token column.
+   (b) ``attention_window=1024`` (llama4-scout's
    8192 cut so the per-token prefill fits the phase), a dense engine with
    n_max 4, c_max 4096 (a ring of 1024 rows), decode_k 4: four prompts
    of 1,200-1,500 tokens and 64 new each, prefilled token by token; every
@@ -276,7 +279,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    logits then leave the drift limit), each of the forward's own
    decisions that differs within twice the runs' largest top router
    logit difference where they route alike. (c) phase 5's K=2 fleet over
-   these weights at contexts 256 / 2048 and c_chunk 128, dense (the
+   the first 6 of these layers (its per-token prefill is host-bound, so
+   the cut halves the phase's longest part; the stacked leaves sliced)
+   at contexts 256 / 2048 and c_chunk 128, dense (the
    window rules out the paged pool; rings of 256 and 2048 rows), n_max
    4, decode_k 4, behind the C&R gateway: two short, two in-band and one
    long request of 16 new tokens, prefilled token by token; every
@@ -295,6 +300,40 @@ Phases, each of which fails the run (non-zero exit, no result line):
    difference only where the CPU's top-2 logits are within 1e-5, and
    each of the CPU's own routing decisions that differs from the card's
    only where its top-2 router probabilities are. Peak device memory under 80 GB; the phase's launches are
+   added to the ``kernels`` line.
+
+14. the recurrent families (``models/ssm.py``: Mamba2, mLSTM, sLSTM) at
+   their models' published widths and full depth, bf16, the port's
+   ``init_params`` at seed 0: zamba2-1.2b (38 Mamba2 layers, one shared
+   attention + MLP block after every 6) and xlstm-350m (24 layers of
+   mLSTM x 3 + sLSTM). (a) each block alone on one layer's random
+   weights at B=4, T=1024, and its decode step: ms (CUDA events; the
+   sLSTM forward, a host-bound loop over T, between events without the
+   hold, with its device busy share from torch.profiler) beside its
+   bytes floor at 3.35 TB/s (the layer's weights, input, output and
+   state) and its FLOP floor at 989 TFLOP/s. (b) zamba2 through the batch
+   launcher, 4 x 1024 + 32 new, decode through the kernel against the
+   torch path on the same prompts by phase 7's drift and near-tie rule;
+   ``gqa_decode`` launches exactly 6 x 31 a run (one a shared-block
+   application) and is held on its live inputs (TOL and one bf16 ulp);
+   then decode against a teacher-forced ``forward`` over prompt + fed
+   tokens (its tail padded with filler tokens to a multiple of the scan
+   chunk: every block is causal, and only real positions are compared):
+   in bf16 within 0.1 of max|logit| (the two paths round at other
+   points), and in f32 within the reference's 2e-2 (the launcher on the
+   same weights upcast, through the kernel again). Prints prefill ms,
+   decode tokens/s and ms a step, peak memory. (c) xlstm likewise (no
+   attention: no kernel launches), but its bf16 decode at 24 layers is
+   reported, not held: the bf16 model's rounding grows with depth (the
+   JAX package's own, on the CPU: 0.039 of max|logit| at 4 layers, 0.26
+   at 16; tests/ssm_bf16_drift.py), so the 0.1 bound holds the launcher
+   on the first 4 layers' weights; and decode ms a step after a 1 x 8192
+   prompt beside 1 x 1024. (d) reduced f32, xlstm and zamba2 in both
+   layouts (3 layers: flat with a tail; 4: stacked), card against CPU:
+   ``prefill`` logits and every cache leaf, 8 greedy ``decode_step``s
+   (tokens equal, a flip only at a CPU top-2 gap under 1e-5), a masked
+   step and ``prefill_chunk`` with an idle row (those rows bitwise),
+   within 1e-5 (zamba2) / 3e-5 (xlstm) of max. The phase's launches are
    added to the ``kernels`` line.
 
 Then it prints the ``kernels`` JSON line, the card's name and power
@@ -1124,10 +1163,9 @@ def _cpu_top2(cfg, params, history):
     return torch.topk(logits[0], 2).values.tolist()
 
 
-def _to_cpu(tree):
-    if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
-    return tree.cpu()
+def _to_cpu(params):
+    from repro_torch.training import tree
+    return tree.map(lambda t: t.cpu(), params)
 
 
 def phase_parity():
@@ -2282,18 +2320,26 @@ def batch_args(arch, shape, int8=False, reduced=False):
         + ["--int8-kv"] * int8 + ["--reduced"] * reduced)
 
 
+def _decode_launches(cfg) -> int:
+    """Decode-kernel launches of one decode step: one a layer; HYBRID one
+    a shared-block application (n_groups); SSM none."""
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.ssm.shared_attn_every
+    return 0 if cfg.family == "ssm" else cfg.num_layers
+
+
 def _serve_batch(args, params, tokens=None, need=(), impl="kernel"):
     """One batch-launcher run (decode attention through ``impl``) with the
     launch counts reset just before; fails unless each kernel in ``need``
-    launched exactly once per layer per decode step, and nothing else
-    launched."""
+    launched exactly ``_decode_launches`` times per decode step, and
+    nothing else launched."""
     from repro_torch.launch import serve
     _reset_launches()
     run = serve.serve_batch(args, params=params, tokens=tokens,
                             decode_impl=impl)
     counts = _launch_counts(need, f"batch launcher {args.arch}")
     want = {k: 0 for k in counts}
-    want.update({k: run.cfg.num_layers * (args.new_tokens - 1)
+    want.update({k: _decode_launches(run.cfg) * (args.new_tokens - 1)
                  for k in need})
     if counts != want:
         fail(f"batch launcher {args.arch}: launches {counts}, expected "
@@ -2341,7 +2387,8 @@ def _kernel_vs_torch(arch, params, shape, smi, what, prompt=None,
           f"decode {kern.decode_tok_s:.1f} tokens/s; torch path: prefill "
           f"{plain.prefill_ms:.2f} ms, decode {plain.decode_tok_s:.1f} "
           f"tokens/s; gqa_decode launches {counts['gqa_decode']} "
-          f"(= {kern.cfg.num_layers} x {shape[2] - 1}); {flips} near-tie "
+          f"(= {_decode_launches(kern.cfg)} x {shape[2] - 1}); {flips} "
+          f"near-tie "
           f"divergences ({smi})")
     del plain, plain_log, path_log
     return kern, counts
@@ -4142,6 +4189,8 @@ P12_BOTH = (1060, 16)                    # (c): prompt tokens, new tokens
 P12_BOTH_SLOTS = 4                       # (c): the engine's n_max, (b)'s
 P12_SWAP_ROUND = 7          # (a): the swap probe's earliest drive round
 P12_NARROW = 512            # (b): a window below the ring's length
+P12_LAYERS = 8              # (b), (c): of 32; the per-token prefill is
+                            # host-bound, one decode_step a token column
 
 
 @contextlib.contextmanager
@@ -4536,7 +4585,8 @@ def _p12_window(cfg, params, smi):
     held = {f"{k[2]}": f"{v[0]:.3e}" for k, v in run["held"].items()}
     held.update({f"window {P12_NARROW}": f"{v[0]:.3e}"
                  for v in narrow.values()})
-    print(f"[kv] (b) minitron-8b full width, attention_window {P12_WINDOW}: "
+    print(f"[kv] (b) minitron-8b widths, {cfg.num_layers} of 32 layers, "
+          f"attention_window {P12_WINDOW}: "
           f"engine n_max 4, c_max 4096 (ring {eng.cache['kv']['k'].shape[2]}"
           f" rows), decode_k 4, prompts {P12_PROMPTS} + {P12_NEW} new, "
           f"{run['secs']:.2f} s; positions reached {run['seen']}; per-token "
@@ -4574,7 +4624,8 @@ def _p12_both(cfg, params, smi):
     if kv["k"].dtype != torch.int8 or "k_scale" not in kv:
         fail("(c) the engine's cache is not int8")
     held = {k[2]: f"{v[0]:.3e}" for k, v in run["held"].items()}
-    print(f"[kv] (c) int8 + window {P12_WINDOW}, n_max "
+    print(f"[kv] (c) int8 + window {P12_WINDOW}, {cfg.num_layers} layers, "
+          f"n_max "
           f"{run['eng'].n_max}: one request of {n_prompt} + {n_new} in "
           f"{run['secs']:.2f} s, position "
           f"{run['seen'][0]}, gqa_decode launches "
@@ -4590,12 +4641,15 @@ def phase_kv(smi):
     """Phase 12: the int8 KV cache through the fleet and the ring caches
     through the dense engine (module docstring). Returns the launches."""
     import torch
+    from repro_torch.training import tree
     t0 = time.perf_counter()
     cfg, params = _full_width()
     n = _p12_int8(cfg, params, smi)
-    n += _p12_window(cfg, params, smi)
-    n += _p12_both(cfg, params, smi)
-    del params
+    cut = dataclasses.replace(cfg, num_layers=P12_LAYERS)
+    layers = tree.map(lambda a: a[:P12_LAYERS], params["layers"])
+    n += _p12_window(cut, dict(params, layers=layers), smi)
+    n += _p12_both(cut, dict(params, layers=layers), smi)
+    del params, layers
     torch.cuda.empty_cache()
     print(f"[kv] phase 12: {time.perf_counter() - t0:.1f} s; gqa_decode "
           f"launches {n}")
@@ -4609,6 +4663,7 @@ P13_NO_DROP = 8.0             # (b): capacity_factor, the reference test's
 P13_BLOCK = ((1, 4), (4, 1024))   # (a): a decode step's tokens, a prefill's
 P13_BATCH = (4, 1024, 17)     # (b): batch, prompt, new tokens (16 decodes)
 P13_NEW = 16                  # (c): new tokens a request
+P13_FLEET_LAYERS = 6          # (c): the first 6 of the 12 (host-bound)
 P13_LONG_CTX = 2048           # (c): contexts 256 / 2048, half phase 5's,
 P13_C_CHUNK = 128             # with the boundary at 2 x c_chunk
 P13_SHORT = (100, 180)        # (c): prompt tokens, the short pool
@@ -5003,6 +5058,19 @@ def _fleet_ms(run) -> tuple:
             cols, 1e3 * sum(t for t, _, _ in run["prefill"]) / cols)
 
 
+def _p13_fleet_cut(cfg, params):
+    """(c)'s config and weights: ``cfg``'s first P13_FLEET_LAYERS layers
+    (the stacked leaves sliced, not re-drawn), registered under its own
+    name."""
+    from repro_torch.configs import base
+    from repro_torch.training import tree
+    cut = base.register(dataclasses.replace(
+        cfg, num_layers=P13_FLEET_LAYERS,
+        name=f"{P13_ARCH}-{P13_FLEET_LAYERS}-layers"))
+    return cut, dict(params, layers=tree.map(lambda a: a[:P13_FLEET_LAYERS],
+                                             params["layers"]))
+
+
 def _p13_fleet(cfg, params, smi):
     """(c) the K=2 fleet behind the C&R gateway (module docstring).
     Returns its launches."""
@@ -5149,7 +5217,7 @@ def phase_moe(smi):
     parts.append(time.perf_counter())
     n = {"gqa_decode": _p13_batch(cfg, nd, params, smi)}
     parts.append(time.perf_counter())
-    for k, v in _p13_fleet(cfg, params, smi).items():
+    for k, v in _p13_fleet(*_p13_fleet_cut(cfg, params), smi).items():
         n[k] = n.get(k, 0) + v
     parts.append(time.perf_counter())
     peak = torch.cuda.max_memory_allocated()
@@ -5166,6 +5234,449 @@ def phase_moe(smi):
     if peak >= PEAK_LIMIT:
         fail(f"phase 13 peak device memory {peak / 1e9:.2f} GB")
     return n
+
+
+# ---------------------------------------------------------------- phase 14
+P14_HYBRID, P14_SSM = "zamba2-1.2b", "xlstm-350m"
+P14_SHAPE = (4, 1024)          # (a): batch, tokens of a block's forward
+P14_BATCH = (4, 1024, 32)      # (b), (c): batch, prompt, new tokens
+P14_CONTEXTS = ((1, 1024, 16), (1, 8192, 16))   # (c): decode vs context
+P14_FWD_REL = 2e-2             # tests/test_decode_consistency.py:51, f32
+# (b), (c): bf16 decode vs the bf16 teacher-forced forward, of max|logit|:
+# about twice the sound readings (zamba2 at 38 layers 0.04927 on the H100;
+# the JAX package's own bf16 model at the published widths on the CPU,
+# tests/ssm_bf16_drift.py: xlstm at 4 layers 0.03891, zamba2 at 16 layers
+# 0.02622). xlstm's full depth is no sound reading: the same script reads
+# the JAX package's bf16 xlstm 0.07886 at 8 layers and 0.2629 at 16
+P14_BF16_REL = 0.1
+P14_SSM_CUT = 4                # (c): xlstm's bf16 gate, its first group
+# (d): tests/test_torch_ssm_model.py's (xLSTM's exp gates amplify f32
+# rounding past 1e-5 of max|logit| between two summation orders)
+P14_CPU_TOL = {"hybrid": 1e-5, "ssm": 3e-5}
+P14_CPU_GAP = 1e-5             # (d): a token flip's CPU top-2 logit gap
+P14_SLSTM_ITERS = 3            # (a): timed sLSTM forwards (host-bound)
+P14_BLOCKS = (("mamba2", P14_HYBRID), ("mlstm", P14_SSM),
+              ("slstm", P14_SSM))
+
+
+def _p14_event_ms(fn, iters: int) -> float:
+    """Milliseconds per call between CUDA events around ``iters`` calls,
+    the device synchronised before, without ``cuda_ms``'s hold: a
+    host-bound call (the sLSTM's loop over T) queues slower than the
+    device runs it, so no hold can cover its queueing; the events then
+    span the host's pace, which is the call's time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _p14_costs(kind, cfg, p, b: int, t: int):
+    """(bytes, FLOP) floors of one block call on ``b`` x ``t`` tokens
+    (``t`` = 1: the decode step): the layer's weights read once, the
+    input read and the output written (bf16), the state written (decode:
+    read and written); the matmuls' FLOP (projections, the chunked scan's
+    decay-kernel, chunk-state and inter-chunk products, the sLSTM's
+    recurrent product)."""
+    from repro_torch.models import ssm as S
+    d = cfg.d_model
+    io = 2 * b * t * d * 2
+    if kind == "mamba2":
+        d_inner, nh, n = S.mamba2_dims(cfg)
+        hp = S.HEAD_P
+        state = b * nh * hp * n * 4 + b * 3 * (d_inner + 2 * n) * 2
+        proj = 2 * b * t * d * (2 * d_inner + 2 * n + nh + d_inner)
+        if t == 1:
+            return _nbytes(p) + io + 2 * state, proj + 4 * b * nh * hp * n
+        q = min(cfg.ssm.chunk_size, t)
+        scan = 2 * b * t * q * (n + nh * hp) + 4 * b * t * nh * hp * n
+        return _nbytes(p) + io + b * nh * hp * n * 4, proj + scan
+    nh = cfg.num_heads
+    if kind == "mlstm":
+        d_up = cfg.ssm.expand * d
+        hp = d_up // nh
+        state = b * nh * hp * hp * 4
+        proj = 2 * b * t * (d * 2 * d_up + 3 * d_up * d_up + d_up * 2 * nh
+                            + d_up * d)
+        if t == 1:
+            return _nbytes(p) + io + 2 * state, proj + 4 * b * nh * hp * hp
+        q = min(cfg.ssm.chunk_size, t)
+        scan = 4 * b * t * q * nh * hp + 4 * b * t * nh * hp * hp
+        return _nbytes(p) + io + state, proj + scan
+    hp = d // nh
+    state = 3 * b * nh * hp * 4
+    flops = 2 * b * t * (5 * d * d + nh * hp * 4 * hp)
+    return _nbytes(p) + io + (2 if t == 1 else 1) * state, flops
+
+
+def _p14_blocks(smi):
+    """(a) Each recurrent block alone at its model's published widths,
+    bf16, on one layer of random weights (module docstring)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import ssm as S
+    b, t = P14_SHAPE
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    for kind, arch in P14_BLOCKS:
+        cfg = get_config(arch)
+        init, fwd, dec = {
+            "mamba2": (S.init_mamba2, S.mamba2_forward, S.mamba2_decode),
+            "mlstm": (S.init_mlstm, S.mlstm_forward, S.mlstm_decode),
+            "slstm": (S.init_slstm, S.slstm_forward, S.slstm_decode)}[kind]
+        p = init(gen, cfg, (), torch.bfloat16, DEVICE)
+        u = torch.randn((b, t, cfg.d_model), generator=gen,
+                        device=DEVICE).to(torch.bfloat16)
+        u1 = u[:, -1:].contiguous()
+        y, state = fwd(p, cfg, u)
+        if kind == "mamba2":
+            state = {"h": state,
+                     "conv": S._split_proj(p, cfg, u)[1][:, -3:].clone()}
+        y1, new = dec(p, cfg, u1, state)
+        if not (torch.isfinite(y).all() and torch.isfinite(y1).all()):
+            fail(f"(a) {kind}: non-finite output")
+        busy = ""
+        if kind == "slstm":
+            f_ms = _p14_event_ms(lambda: fwd(p, cfg, u), P14_SLSTM_ITERS)
+            rows, wall = profile_calls(lambda: fwd(p, cfg, u), 1)
+            dev_ms = sum(r[1] for r in rows) / 1e3
+            busy = (f", device busy {100 * dev_ms / (1e3 * wall):.1f}% "
+                    f"({dev_ms:.2f} ms of kernels in {1e3 * wall:.2f} ms "
+                    f"profiled)")
+        else:
+            f_ms = cuda_ms(lambda: fwd(p, cfg, u), iters=10)
+        d_ms = cuda_ms(lambda: dec(p, cfg, u1, state), iters=20)
+        out = []
+        for name, ms, tt in ((f"{kind}_forward", f_ms, t),
+                             (f"{kind}_decode", d_ms, 1)):
+            nbytes, flops = _p14_costs(kind, cfg, p, b, tt)
+            b_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+            o_ms = 1e3 * flops / PEAK_OPS["bfloat16"]
+            out.append(f"{name} {ms:.4f} ms (bytes floor {b_ms:.4f} ms: "
+                       f"{nbytes / 1e6:.2f} MB; FLOP floor {o_ms:.4f} ms: "
+                       f"{flops:.3e})")
+        print(f"[recurrent] (a) {cfg.name} widths, bf16, B={b}, T={t}: "
+              f"{'; '.join(out)}{busy} ({smi})")
+        del p, u, y, state, new
+    torch.cuda.empty_cache()
+
+
+def _p14_forward(cfg, params, run):
+    """Teacher-forced ``forward`` over ``run``'s prompt + fed tokens: the
+    f32 logits at each generated position, (B, new, V). A sequence past
+    one chunk must be a multiple of it (ssm.py's assert), so the input is
+    padded at its tail with filler tokens up to the next multiple; the
+    three blocks are causal, so the tail changes no earlier position,
+    and only the real positions are returned."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import model as M
+    p = run.prompt.shape[1]
+    seq = torch.cat([run.prompt, run.tokens[:, :-1]], dim=1)
+    n = seq.shape[1]
+    chunk = cfg.ssm.chunk_size
+    seq = F.pad(seq, (0, -n % chunk if n > chunk else 0), value=1)
+    return M.forward(params, cfg, {"tokens": seq})[0][:, p - 1:n].float()
+
+
+def _p14_rel(run, fwd) -> float:
+    """Largest max|decode - forward| / max|forward| over the generated
+    positions."""
+    return max(float((lg.float() - fwd[:, j]).abs().max()
+                     / fwd[:, j].abs().max())
+               for j, lg in enumerate(run.logits))
+
+
+def _p14_f32(cfg, params):
+    """``cfg`` in f32 (registered under its own name so the launcher's
+    ``--arch`` finds it) on ``params`` upcast: the same weights, exactly."""
+    from repro_torch.configs import base
+    from repro_torch.training import tree
+    cfg32 = base.register(dataclasses.replace(cfg, dtype="float32",
+                                              name=f"{cfg.name}-f32"))
+    return cfg32, tree.map(lambda t: t.float(), params)
+
+
+def _p14_bf16(cfg, params, run, what, gate):
+    """The bf16 decode logits' distance from the bf16 teacher-forced
+    forward (``_p14_rel``), held to P14_BF16_REL when ``gate``. Returns
+    it and a note for the phase's line (the limit; the share of
+    positions where the forward's argmax is the emitted token)."""
+    fb = _p14_forward(cfg, params, run)
+    rel = _p14_rel(run, fb)
+    agree = float((fb.argmax(-1) == run.tokens).float().mean())
+    if gate and rel >= P14_BF16_REL:
+        fail(f"{what}: bf16 decode logits {rel:.5f} of max|logit| from the "
+             f"bf16 teacher-forced forward (limit {P14_BF16_REL})")
+    return rel, (f"{f'limit {P14_BF16_REL}' if gate else 'reported'}; "
+                 f"forward's argmax the emitted token at {100 * agree:.2f}% "
+                 f"of positions")
+
+
+def _p14_consistency(cfg, params, run, shape, need, what, gate):
+    """Decode against teacher forcing, in bf16 and in f32. bf16: the
+    decode logits against the bf16 teacher-forced forward, held to
+    P14_BF16_REL when ``gate`` (the module docstring says why xlstm's
+    full depth is not); and against the f32 forward on the same weights
+    (reported). f32: the launcher on the same weights upcast, its decode
+    logits against an f32 teacher-forced forward over its own tokens,
+    held to the reference's 2e-2 of max|logit|
+    (tests/test_decode_consistency.py:51, an f32 test). Returns the f32
+    run's launch counts."""
+    import torch
+    bf16, note = _p14_bf16(cfg, params, run, what, gate)
+    cfg32, p32 = _p14_f32(cfg, params)
+    truth = _p14_rel(run, _p14_forward(cfg32, p32, run))
+    run32, counts = _serve_batch(batch_args(cfg32.name, shape), p32,
+                                 tokens=run.prompt, need=need)
+    f32 = _p14_rel(run32, _p14_forward(cfg32, p32, run32))
+    print(f"[recurrent] {what}: decode vs teacher-forced forward over "
+          f"prompt + {shape[2] - 1} fed tokens (padded to the chunk): bf16 "
+          f"{bf16:.5f} of max|logit| ({note}), the bf16 decode against the "
+          f"f32 forward on the same weights {truth:.5f} (reported); f32 "
+          f"launcher run {f32:.3e} (limit {P14_FWD_REL}), prefill "
+          f"{run32.prefill_ms:.2f} ms, decode {run32.decode_tok_s:.1f} "
+          f"tokens/s, launches {counts}")
+    if f32 >= P14_FWD_REL:
+        fail(f"{what}: f32 decode logits {f32:.3e} of max|logit| from the "
+             f"teacher-forced forward (limit {P14_FWD_REL})")
+    del p32, run32
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _p14_xlstm_cut(cfg, params):
+    """(c)'s bf16 gate: xlstm-350m cut to its first P14_SSM_CUT layers
+    (the stacked pattern-group leaves sliced, not re-drawn) through the
+    batch launcher, the bf16 decode logits against the bf16
+    teacher-forced forward within P14_BF16_REL of max|logit|."""
+    from repro_torch.configs import base
+    from repro_torch.training import tree
+    cut = base.register(dataclasses.replace(
+        cfg, num_layers=P14_SSM_CUT, name=f"{cfg.name}-{P14_SSM_CUT}l"))
+    groups = P14_SSM_CUT // len(cfg.ssm.block_pattern)
+    p = dict(params, layers=tree.map(lambda a: a[:groups], params["layers"]))
+    run, _ = _serve_batch(batch_args(cut.name, P14_BATCH), p)
+    what = f"(c) xlstm-350m cut to {P14_SSM_CUT} layers"
+    bf16, note = _p14_bf16(cut, p, run, what, gate=True)
+    print(f"[recurrent] {what}: bf16 decode vs teacher-forced forward "
+          f"{bf16:.5f} of max|logit| ({note}), prefill "
+          f"{run.prefill_ms:.2f} ms, decode {run.decode_tok_s:.1f} tokens/s")
+
+
+def _p14_zamba2(smi):
+    """(b) zamba2-1.2b through the batch launcher (module docstring).
+    Returns its gqa_decode launches."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(P14_HYBRID)
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, seed=0, device=DEVICE)
+    args = batch_args(P14_HYBRID, P14_BATCH)
+    held = {}
+    with _live_kernel_hold(held):
+        kern, counts = _serve_batch(args, params, need=("gqa_decode",))
+    plain, _ = _serve_batch(args, params, tokens=kern.prompt, impl="torch")
+    want, plain_log = _run_log(plain)
+    got, path_log = _run_log(kern)
+    flips = _bf16_flips(plain_log, path_log, want, got, "(b) zamba2-1.2b "
+                        "kernel vs torch path", tag="recurrent")
+    b, p, new = P14_BATCH
+    shape = ("gqa_decode", (b, p + new))
+    if shape not in held:
+        fail(f"(b) no gqa_decode launch held at (B, S) = {shape[1]}")
+    del plain_log, path_log
+    peak = torch.cuda.max_memory_allocated()
+    c32 = _p14_consistency(cfg, params, kern, P14_BATCH, ("gqa_decode",),
+                           "(b) zamba2-1.2b", gate=True)
+    print(f"[recurrent] (b) zamba2-1.2b, {cfg.num_layers} layers "
+          f"({_nbytes(params) / 1e9:.2f} GB of bf16 weights), batch {b}, "
+          f"prompt {p}, {new} new tokens: kernel: prefill "
+          f"{kern.prefill_ms:.2f} ms, decode {kern.decode_tok_s:.1f} "
+          f"tokens/s, {1e3 * b / kern.decode_tok_s:.2f} ms a step; torch "
+          f"path: prefill {plain.prefill_ms:.2f} ms, decode "
+          f"{plain.decode_tok_s:.1f} tokens/s, "
+          f"{1e3 * b / plain.decode_tok_s:.2f} ms a step; gqa_decode "
+          f"launches {counts['gqa_decode']} (= {_decode_launches(cfg)} x "
+          f"{new - 1}); kernel vs torch path: {flips} near-tie divergences "
+          f"(the drift above); the kernel held on live inputs "
+          f"(max abs err, max|plain|): {held[shape][0]:.3e}, "
+          f"{held[shape][1]:.4f}; peak device memory (bf16 runs) "
+          f"{peak / 1e9:.2f} GB, with the f32 check "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({smi})")
+    n = counts["gqa_decode"] + c32["gqa_decode"]
+    del params, kern, plain
+    torch.cuda.empty_cache()
+    return n
+
+
+def _p14_xlstm(smi):
+    """(c) xlstm-350m through the batch launcher (module docstring)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(P14_SSM)
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, seed=0, device=DEVICE)
+    run, counts = _serve_batch(batch_args(P14_SSM, P14_BATCH), params)
+    peak = torch.cuda.max_memory_allocated()
+    _p14_consistency(cfg, params, run, P14_BATCH, (), "(c) xlstm-350m",
+                     gate=False)
+    _p14_xlstm_cut(cfg, params)
+    b, p, new = P14_BATCH
+    ctx = []
+    for shape in P14_CONTEXTS:
+        r, _ = _serve_batch(batch_args(P14_SSM, shape), params)
+        ctx.append(f"1 x {shape[1]}: prefill {r.prefill_ms:.2f} ms, decode "
+                   f"{1e3 * shape[0] / r.decode_tok_s:.2f} ms a step")
+        del r
+    print(f"[recurrent] (c) xlstm-350m, {cfg.num_layers} layers "
+          f"({_nbytes(params) / 1e9:.2f} GB of bf16 weights), batch {b}, "
+          f"prompt {p}, {new} new tokens: prefill {run.prefill_ms:.2f} ms, "
+          f"decode {run.decode_tok_s:.1f} tokens/s, "
+          f"{1e3 * b / run.decode_tok_s:.2f} ms a step; launches {counts} "
+          f"(no attention: no kernel); peak device memory (bf16 run) "
+          f"{peak / 1e9:.2f} GB; decode against context, "
+          f"{'; '.join(ctx)} ({smi})")
+    del params, run
+    torch.cuda.empty_cache()
+
+
+def _p14_rows(cfg, cache, b: int):
+    """Row ``b`` of every leaf of a recurrent cache (its batch axis
+    follows the layer axes: 2 in zamba2's stacked layout, else 1)."""
+    from repro_torch.training import tree
+    out = []
+    for name, sub in cache.items():
+        lead = 2 if (name == "ssm" and cfg.family == "hybrid" and
+                     cfg.num_layers % cfg.ssm.shared_attn_every == 0) else 1
+        out += [t.select(lead, b).clone() for t in tree.leaves(sub)]
+    return out
+
+
+def _p14_card_vs_cpu():
+    """(d) reduced f32, the card against the CPU (module docstring).
+    Returns the card's gqa_decode launches."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.training import tree
+    launches, report = 0, []
+    for name, kw in ((P14_SSM, {}), (P14_HYBRID, {}),
+                     (P14_HYBRID, {"num_layers": 4})):
+        cfg = dataclasses.replace(get_config(name).reduced(),
+                                  dtype="float32", **kw)
+        what = f"(d) {cfg.name} {cfg.num_layers} layers"
+        tol = P14_CPU_TOL[cfg.family]
+        params = M.init_params(cfg, seed=0, device=DEVICE)
+        cpu = _to_cpu(params)
+        gen = torch.Generator()
+        gen.manual_seed(14)
+        toks = torch.randint(1, cfg.vocab_size, (3, 40), generator=gen)
+        worst = [0.0]
+
+        def close(got, want, label):
+            err = float((got.cpu() - want).abs().max()
+                        / max(float(want.abs().max()), 1e-30))
+            worst[0] = max(worst[0], err)
+            if err > tol:
+                fail(f"{what}: {label} card vs CPU {err:.3g} of max "
+                     f"(limit {tol})")
+        _reset_launches()
+        batch = {"tokens": toks[:, :32], "cache_len": 64}
+        kl, kc = M.prefill(params, cfg, dict(
+            batch, tokens=batch["tokens"].to(DEVICE)))
+        cl, cc = M.prefill(cpu, cfg, batch)
+        close(kl, cl, "prefill logits")
+        for i, (a, b) in enumerate(zip(tree.leaves(kc), tree.leaves(cc))):
+            close(a, b, f"prefill cache leaf {i}")
+        k0 = tree.map(lambda t: t.clone(), kc)
+        c0 = tree.map(lambda t: t.clone(), cc)
+        # greedy decode, each side feeding its own tokens
+        kt, ct = kl.argmax(-1)[:, None], cl.argmax(-1)[:, None]
+        got, want, same = [kt.cpu()], [ct], [True] * 3
+        for j in range(8):
+            kl, kc = M.decode_step(params, cfg, kt, kc, 32 + j)
+            cl, cc = M.decode_step(cpu, cfg, ct, cc, 32 + j)
+            for r in range(3):
+                if same[r]:
+                    close(kl[r], cl[r], f"decode step {j} row {r}")
+            kt, ct = kl.argmax(-1)[:, None], cl.argmax(-1)[:, None]
+            got.append(kt.cpu())
+            want.append(ct)
+            for r in range(3):
+                if same[r] and int(kt[r]) != int(ct[r]):
+                    top = torch.topk(cl[r], 2).values.tolist()
+                    if top[0] - top[1] >= P14_CPU_GAP:
+                        fail(f"{what}: row {r} step {j}: tokens differ away "
+                             f"from a CPU near-tie ({top})")
+                    same[r] = False
+        # one masked step: row 2 inactive keeps every state bit
+        row2 = _p14_rows(cfg, kc, 2)
+        active = torch.tensor([True, True, False])
+        M.decode_step(params, cfg, kt, kc, 40, active=active.to(DEVICE))
+        if not all(torch.equal(a, b) for a, b in zip(_p14_rows(cfg, kc, 2),
+                                                     row2)):
+            fail(f"{what}: an inactive decode row's state changed")
+        # prefill_chunk on the prefilled caches, row 2 idle
+        start = torch.tensor([32, 32, 32])
+        lengths = torch.tensor([8, 5, 0])
+        idle = _p14_rows(cfg, k0, 2)
+        kl, k0 = M.prefill_chunk(params, cfg, toks[:, 32:].to(DEVICE), k0,
+                                 start.to(DEVICE),
+                                 lengths.to(DEVICE))
+        cl, c0 = M.prefill_chunk(cpu, cfg, toks[:, 32:], c0, start, lengths)
+        close(kl[:2], cl[:2], "prefill_chunk logits")
+        for i, (a, b) in enumerate(zip(tree.leaves(k0), tree.leaves(c0))):
+            close(a, b, f"prefill_chunk cache leaf {i}")
+        if not all(torch.equal(a, b) for a, b in zip(_p14_rows(cfg, k0, 2),
+                                                     idle)):
+            fail(f"{what}: an idle prefill_chunk row's state changed")
+        counts = _launch_counts(("gqa_decode",) if cfg.family == "hybrid"
+                                else (), what)
+        if cfg.family == "ssm" and any(counts.values()):
+            fail(f"{what}: an xLSTM launched {counts}")
+        launches += counts["gqa_decode"]
+        report.append(f"{cfg.name} at {cfg.num_layers} layers within "
+                      f"{worst[0]:.3g} (limit {tol}), "
+                      f"{sum(not s for s in same)} near-tie flips, "
+                      f"gqa_decode {counts['gqa_decode']}")
+        del params, cpu, kc, k0
+    torch.cuda.empty_cache()
+    print(f"[recurrent] (d) reduced f32, card vs CPU (prefill, 8 greedy "
+          f"decode steps, prefill_chunk with an idle row; logits and every "
+          f"cache leaf, idle and inactive rows bitwise): "
+          f"{'; '.join(report)}")
+    return launches
+
+
+def phase_recurrent(smi):
+    """Phase 14: the recurrent families (module docstring). Returns the
+    launches."""
+    import torch
+    t0 = time.perf_counter()
+    parts = [t0]
+    _p14_blocks(smi)
+    parts.append(time.perf_counter())
+    n = _p14_zamba2(smi)
+    parts.append(time.perf_counter())
+    _p14_xlstm(smi)
+    parts.append(time.perf_counter())
+    n += _p14_card_vs_cpu()
+    parts.append(time.perf_counter())
+    torch.cuda.empty_cache()
+    print(f"[recurrent] phase 14: {parts[-1] - t0:.1f} s ((a) "
+          f"{parts[1] - parts[0]:.1f}, (b) {parts[2] - parts[1]:.1f}, (c) "
+          f"{parts[3] - parts[2]:.1f}, (d) {parts[4] - parts[3]:.1f}); "
+          f"gqa_decode launches {n} ({smi})")
+    return {"gqa_decode": n}
 
 
 def main() -> int:
@@ -5204,6 +5715,8 @@ def main() -> int:
     for name, n in phase_kv(smi).items():
         launches[name] += n
     for name, n in phase_moe(smi).items():
+        launches[name] += n
+    for name, n in phase_recurrent(smi).items():
         launches[name] += n
     sources = {"gqa_decode": ("src/repro_torch/kernels/csrc/gqa_decode.cu",
                               "src/repro/kernels/gqa_decode.py:29"),

@@ -260,4 +260,4 @@ def _ensure_loaded() -> None:
     # import registers
     from repro_torch.configs import (  # noqa: F401
         nemotron_4_340b, minitron_8b, qwen1_5_32b, llama4_scout_17b_a16e,
-        nemotron_4_15b, llama3_70b)
+        zamba2_1_2b, nemotron_4_15b, xlstm_350m, llama3_70b)

@@ -1,8 +1,9 @@
-"""Model assembly for the dense GQA decoder and the MoE decoder, in
-PyTorch.
+"""Model assembly for the dense GQA decoder, the MoE decoder and the
+recurrent families (xLSTM, and Zamba2's Mamba2 backbone with a shared
+attention block), in PyTorch.
 
-The DENSE and MOE branches of ``repro/models/model.py`` (without MLA),
-with the same functional API and layouts:
+The DENSE, MOE, SSM and HYBRID branches of ``repro/models/model.py``
+(without MLA), with the same functional API and layouts:
 
   init_params(cfg, seed, device)                           -> params
   forward(params, cfg, batch)                    -> (logits (B, S, V), aux)
@@ -26,8 +27,22 @@ attention only, as there. An MoE layer (``cfg.moe``) holds ``moe``
 leaves instead of ``mlp`` and runs ``models/moe.py::moe_block`` as its
 feed-forward on every path; ``forward`` returns the load-balance losses
 summed over layers as its aux, and the other entry points drop them, as
-the reference does. Other families and MLA raise NotImplementedError
-everywhere: they are later slices of the port.
+the reference does.
+
+The recurrent families (``models/ssm.py``) keep the reference's layouts:
+SSM (xLSTM) stacks each position of ``block_pattern`` on its own
+(``layers["blk{i}_{kind}"]``, (n_groups, ...)); HYBRID (Zamba2) stacks
+its Mamba2 layers as (n_groups, every, ...) where ``shared_attn_every``
+divides the depth and keeps them flat otherwise (grouped at run time,
+with a tail of the remaining layers), and applies one weight-shared
+attention + MLP block (``shared_attn``) after each group. Their cache
+holds the recurrent states under "ssm" in the layer layout and, for
+HYBRID, one dense fp KV entry per shared-block application (n_groups,
+B, S, Hkv, hd). ``forward`` returns a zero aux; ``prefill_chunk``,
+``verify_step`` and ``mixed_step`` take the masked per-token decode
+loop; the paged pool refuses both families, with the reference's
+reason. VLM, ENCDEC and MLA raise NotImplementedError everywhere: they
+are later slices of the port.
 """
 from __future__ import annotations
 
@@ -41,30 +56,37 @@ from repro_torch.configs.base import (DENSE, ENCDEC, HYBRID, MOE, SSM, VLM,
                                       ModelConfig)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE_MOD
+from repro_torch.models import ssm as S
+from repro_torch.training import tree
 
 Params = Dict[str, Any]
 
 # the slice of the port that brings each other family
 FAMILY_SLICES = {
-    SSM: "the SSM slice (mLSTM, sLSTM, Mamba2)",
-    HYBRID: "the SSM slice (mLSTM, sLSTM, Mamba2)",
     VLM: "the cross-attention slice (VLM and encoder-decoder)",
     ENCDEC: "the cross-attention slice (VLM and encoder-decoder)"}
 
+RECURRENT = (SSM, HYBRID)
+
 
 def check_supported(cfg: ModelConfig, paged: bool = False) -> None:
-    """Raise NotImplementedError for what the port does not run: anything
-    but a dense or MoE decoder without MLA (a later slice each), and on
-    the paged pool (``paged``) a window or an int8 cache, which the JAX
-    package refuses there too, for the same reasons."""
-    if cfg.family not in (DENSE, MOE):
+    """Raise NotImplementedError for what the port does not run: VLM,
+    ENCDEC and MLA (a later slice each), and on the paged pool
+    (``paged``) the recurrent families, a window or an int8 cache, which
+    the JAX package refuses there too, for the same reasons."""
+    if cfg.family in FAMILY_SLICES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port runs dense and MoE decoders; "
-            f"{FAMILY_SLICES[cfg.family]} is a later slice of the port")
+            f"family {cfg.family!r}: the port runs dense, MoE and "
+            f"recurrent decoders; {FAMILY_SLICES[cfg.family]} is a later "
+            "slice of the port")
     if cfg.mla is not None:
         raise NotImplementedError(
             "MLA (multi-head latent attention) is the MLA slice, a later "
             "slice of the port")
+    if paged and cfg.family not in (DENSE, MOE):
+        raise NotImplementedError(
+            "paged KV cache supports dense/MoE full-attention models; "
+            f"family={cfg.family!r} mla={cfg.mla is not None}")
     if paged and cfg.attention_window:
         raise NotImplementedError(
             "windowed attention already bounds KV by the window; paging "
@@ -86,7 +108,8 @@ def _window(cfg: ModelConfig, window: Optional[int]) -> int:
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     """Random parameters with the JAX package's distributions (embedding
     N(0, 0.02^2), projections N(0, 1/in_dim), ``wo`` at half that std,
-    norms at one; an MoE layer's leaves as ``moe.init_moe`` draws them),
+    norms at one; an MoE layer's leaves as ``moe.init_moe`` draws them,
+    a recurrent layer's as ``ssm.init_*``), in the reference's layout,
     drawn from a ``torch.Generator`` seeded with ``seed``
     on ``device``. The numbers differ from JAX's for the same seed; the
     tests carry JAX's parameters across with params.from_jax_numpy."""
@@ -94,8 +117,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     dtype = L.torch_dtype(cfg.dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    n, d, hd = cfg.num_layers, cfg.d_model, cfg.resolved_head_dim
-    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    n, d = cfg.num_layers, cfg.d_model
 
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=device)
@@ -109,34 +131,75 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     p: Params = {"embed": embed, "final_ln": ones(d)}
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(gen, (d, cfg.vocab_size), dtype, device)
-    attn = {"wq": L.dense_init(gen, (n, d, h * hd), dtype, device),
-            "wk": L.dense_init(gen, (n, d, hkv * hd), dtype, device),
-            "wv": L.dense_init(gen, (n, d, hkv * hd), dtype, device),
-            "wo": L.dense_init(gen, (n, h * hd, d), dtype, device,
-                               scale=0.5)}
-    if cfg.qkv_bias:
-        attn["bq"] = torch.zeros((n, h * hd), dtype=dtype, device=device)
-        attn["bk"] = torch.zeros((n, hkv * hd), dtype=dtype, device=device)
-        attn["bv"] = torch.zeros((n, hkv * hd), dtype=dtype, device=device)
-    p["layers"] = {"ln1": ones(n, d), "ln2": ones(n, d), "attn": attn}
+    if cfg.family == HYBRID:
+        n_groups, rem = divmod(n, cfg.ssm.shared_attn_every)
+        lead = (n,) if rem else (n_groups, cfg.ssm.shared_attn_every)
+        p["layers"] = {"ln": ones(*lead, d),
+                       "mamba": S.init_mamba2(gen, cfg, lead, dtype, device)}
+        p["shared_attn"] = {"ln1": ones(d),
+                            "attn": _init_attention(gen, cfg, (), dtype,
+                                                    device),
+                            "ln2": ones(d),
+                            "mlp": _init_mlp(gen, cfg, (), dtype, device)}
+        return p
+    if cfg.family == SSM:
+        pattern = _pattern(cfg)
+        n_groups = n // len(pattern)
+        p["layers"] = {
+            f"blk{i}_{kind}": {
+                "ln": ones(n_groups, d),
+                "core": (S.init_mlstm if kind == "mlstm" else S.init_slstm)(
+                    gen, cfg, (n_groups,), dtype, device)}
+            for i, kind in enumerate(pattern)}
+        return p
+    p["layers"] = {"ln1": ones(n, d), "ln2": ones(n, d),
+                   "attn": _init_attention(gen, cfg, (n,), dtype, device)}
     if cfg.moe is not None:
         p["layers"]["moe"] = MOE_MOD.init_moe(gen, cfg, n, dtype, device)
-        return p
-    mlp = {"up": L.dense_init(gen, (n, d, cfg.d_ff), dtype, device)}
-    if cfg.activation != "squared_relu":     # gated MLP; nemotron has none
-        mlp["gate"] = L.dense_init(gen, (n, d, cfg.d_ff), dtype, device)
-    mlp["down"] = L.dense_init(gen, (n, cfg.d_ff, d), dtype, device)
-    p["layers"]["mlp"] = mlp
+    else:
+        p["layers"]["mlp"] = _init_mlp(gen, cfg, (n,), dtype, device)
     return p
 
 
-def _unstack(tree) -> List:
-    """Per-layer views of a tree of stacked tensors: [tree[..][i]]."""
-    if isinstance(tree, dict):
-        parts = {k: _unstack(v) for k, v in tree.items()}
-        n = len(next(iter(parts.values())))
-        return [{k: parts[k][i] for k in parts} for i in range(n)]
-    return list(tree.unbind(0))
+def _init_attention(gen, cfg: ModelConfig, lead, dtype, device) -> Params:
+    """Attention projections of ``lead`` stacked layers (``()``: one)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    attn = {"wq": L.dense_init(gen, (*lead, d, h * hd), dtype, device),
+            "wk": L.dense_init(gen, (*lead, d, hkv * hd), dtype, device),
+            "wv": L.dense_init(gen, (*lead, d, hkv * hd), dtype, device),
+            "wo": L.dense_init(gen, (*lead, h * hd, d), dtype, device,
+                               scale=0.5)}
+    if cfg.qkv_bias:
+        for name, width in (("bq", h * hd), ("bk", hkv * hd),
+                            ("bv", hkv * hd)):
+            attn[name] = torch.zeros((*lead, width), dtype=dtype,
+                                     device=device)
+    return attn
+
+
+def _init_mlp(gen, cfg: ModelConfig, lead, dtype, device) -> Params:
+    """MLP of ``lead`` stacked layers: gated unless squared ReLU
+    (nemotron has no gate)."""
+    d, f = cfg.d_model, cfg.d_ff
+    mlp = {"up": L.dense_init(gen, (*lead, d, f), dtype, device)}
+    if cfg.activation != "squared_relu":
+        mlp["gate"] = L.dense_init(gen, (*lead, d, f), dtype, device)
+    mlp["down"] = L.dense_init(gen, (*lead, f, d), dtype, device)
+    return mlp
+
+
+def _pattern(cfg: ModelConfig) -> Tuple[str, ...]:
+    """An SSM config's block kinds, cycled over its layers."""
+    return cfg.ssm.block_pattern or ("mlstm",)
+
+
+def _unstack(stacked) -> List:
+    """Per-layer views of a tree (dicts, tuples) of stacked tensors:
+    [stacked[..][i]]."""
+    flat = [t.unbind(0) for t in tree.leaves(stacked)]
+    return [tree.unflatten(stacked, [f[i] for f in flat])
+            for i in range(len(flat[0]))]
 
 
 def _head(params: Params, cfg: ModelConfig, x):
@@ -197,8 +260,10 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict, remat=False,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forcing full-sequence pass. batch: {"tokens": (B, S) int}.
     Returns (logits (B, S, V), aux): aux is the MoE load-balancing loss
-    summed over layers, a 0-d f32 (zero for the dense decoder). ``remat`` (for training under
-    autograd): "layer" checkpoints each decoder block, True / "full" the
+    summed over layers, a 0-d f32 (zero for the dense decoder and the
+    recurrent families). ``remat`` (for training under autograd):
+    "layer" checkpoints each decoder block (a recurrent model: each
+    Mamba2 layer and group, each xLSTM pattern group), True / "full" the
     whole pass, False / None nothing (the JAX package's
     ``LAYER_REMAT`` and ``jax.checkpoint`` of ``forward``). ``window``:
     sliding-window attention over that many positions
@@ -208,10 +273,100 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict, remat=False,
         return checkpoint(forward, params, cfg, batch, False, window,
                           use_reentrant=False, preserve_rng_state=False)
     x, positions = _seq_inputs(params, batch["tokens"])
-    x, lb = _run_decoder_stack(params["layers"], cfg, x, positions,
-                               remat=remat == "layer",
-                               window=_window(cfg, window))
-    return _head(params, cfg, x), lb
+    w, layer = _window(cfg, window), remat == "layer"
+    if cfg.family == HYBRID:
+        x = _hybrid_forward(params, cfg, x, positions, w, layer)
+    elif cfg.family == SSM:
+        x = _ssm_forward(params, cfg, x, layer)
+    else:
+        x, lb = _run_decoder_stack(params["layers"], cfg, x, positions,
+                                   remat=layer, window=w)
+        return _head(params, cfg, x), lb
+    return _head(params, cfg, x), torch.zeros((), dtype=torch.float32,
+                                              device=x.device)
+
+
+# -- the recurrent families ---------------------------------------------------
+def _maybe_remat(remat: bool, fn, *args):
+    """fn(*args), checkpointed when ``remat`` (the bodies the reference's
+    ``_scan`` checkpoints under ``LAYER_REMAT``)."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
+def _hybrid_split(stacked, cfg: ModelConfig):
+    """Per-layer views of a HYBRID stack (``params["layers"]`` or
+    ``cache["ssm"]``) in either layout: (n_groups lists of
+    ``shared_attn_every`` layers, the tail: the flat layout's remaining
+    layers, run after the last group)."""
+    every = cfg.ssm.shared_attn_every
+    n_groups, rem = divmod(cfg.num_layers, every)
+    if rem == 0:
+        return [_unstack(g) for g in _unstack(stacked)], []
+    flat = _unstack(stacked)
+    return ([flat[g * every:(g + 1) * every] for g in range(n_groups)],
+            flat[n_groups * every:])
+
+
+def _store_state(old, new, active=None) -> None:
+    """Write a recurrent state into the cache's own views ``old`` (a
+    dict or tuple of tensors, as ``new``) in place; rows with ``active``
+    False keep their old bits (the reference's ``_mask_state``)."""
+    for o, n in zip(tree.leaves(old), tree.leaves(new)):
+        if active is not None:
+            n = torch.where(active.view(-1, *(1,) * (n.dim() - 1)), n, o)
+        o.copy_(n)
+
+
+def _shared_attn_block(sp, cfg: ModelConfig, x, positions, window: int):
+    h = L.rmsnorm(x, sp["ln1"], cfg.norm_eps)
+    x = x + L.attention(sp["attn"], cfg, h, positions, window=window)
+    h = L.rmsnorm(x, sp["ln2"], cfg.norm_eps)
+    return x + L.mlp(sp["mlp"], cfg, h)
+
+
+def _mamba_layer(lp, cfg: ModelConfig, x):
+    h = L.rmsnorm(x, lp["ln"], cfg.norm_eps)
+    return x + S.mamba2_forward(lp["mamba"], cfg, h)[0]
+
+
+def _hybrid_group(lps, sp, cfg: ModelConfig, x, positions, window: int,
+                  remat: bool):
+    for lp in lps:
+        x = _maybe_remat(remat, _mamba_layer, lp, cfg, x)
+    return _shared_attn_block(sp, cfg, x, positions, window)
+
+
+def _hybrid_forward(params, cfg: ModelConfig, x, positions, window: int,
+                    remat: bool = False):
+    """Zamba2: each group of Mamba2 layers, then the shared block; the
+    flat layout's tail last. ``remat`` checkpoints each group and each
+    Mamba2 layer in it."""
+    groups, tail = _hybrid_split(params["layers"], cfg)
+    for lps in groups:
+        x = _maybe_remat(remat, _hybrid_group, lps, params["shared_attn"],
+                         cfg, x, positions, window, remat)
+    for lp in tail:
+        x = _maybe_remat(remat, _mamba_layer, lp, cfg, x)
+    return x
+
+
+def _ssm_group(lps, cfg: ModelConfig, x):
+    """One xLSTM pattern group: each block kind's residual in turn."""
+    for i, kind in enumerate(_pattern(cfg)):
+        lp = lps[f"blk{i}_{kind}"]
+        h = L.rmsnorm(x, lp["ln"], cfg.norm_eps)
+        fwd = S.mlstm_forward if kind == "mlstm" else S.slstm_forward
+        x = x + fwd(lp["core"], cfg, h)[0]
+    return x
+
+
+def _ssm_forward(params, cfg: ModelConfig, x, remat: bool = False):
+    for lps in _unstack(params["layers"]):
+        x = _maybe_remat(remat, _ssm_group, lps, cfg, x)
+    return x
 
 
 # ===========================================================================
@@ -226,8 +381,34 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     check_supported(cfg)
     eff = min(cache_len, cfg.attention_window) if cfg.attention_window \
         else cache_len
+    if cfg.family in RECURRENT:
+        return _recurrent_cache(cfg, batch, eff, device)
     return {"kv": L.init_kv_cache(cfg, cfg.num_layers, batch, eff,
                                   device=device)}
+
+
+def _recurrent_cache(cfg: ModelConfig, batch: int, eff: int, device):
+    """The recurrent states under "ssm" in the layer layout of the
+    params (SSM: (n_groups, B, ...) per block kind; HYBRID: (n_groups,
+    every, B, ...) or flat (n, B, ...)); HYBRID adds a dense fp KV entry
+    per shared-block application, (n_groups, B, eff, Hkv, hd)."""
+    def stacked(state, lead):
+        return tree.map(lambda a: a.expand(*lead, *a.shape).clone(), state)
+    if cfg.family == SSM:
+        n_groups = cfg.num_layers // len(_pattern(cfg))
+        return {"ssm": {
+            f"blk{i}_{kind}": stacked(
+                (S.init_mlstm_state if kind == "mlstm"
+                 else S.init_slstm_state)(cfg, batch, device), (n_groups,))
+            for i, kind in enumerate(_pattern(cfg))}}
+    every = cfg.ssm.shared_attn_every
+    n_groups, rem = divmod(cfg.num_layers, every)
+    lead = (cfg.num_layers,) if rem else (n_groups, every)
+    shape = (n_groups, batch, eff, cfg.num_kv_heads, cfg.resolved_head_dim)
+    dtype = L.torch_dtype(cfg.dtype)
+    return {"ssm": stacked(S.init_mamba2_state(cfg, batch, device), lead),
+            "kv": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                   "v": torch.zeros(shape, dtype=dtype, device=device)}}
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
@@ -269,6 +450,10 @@ def _fill_cache(params, cfg, tokens, cache, window: int = 0):
     cache quantizes after the padding or the roll (padding tokens get
     values 0 and the floor scale). Returns the final hidden state."""
     x, positions = _seq_inputs(params, tokens)
+    if cfg.family == HYBRID:
+        return _hybrid_fill(params, cfg, x, positions, cache, window)
+    if cfg.family == SSM:
+        return _ssm_fill(params, cfg, x, cache)
     s_len, eff = tokens.shape[1], cache["kv"]["k"].shape[2]
     for lp, kv in zip(_unstack(params["layers"]), _unstack(cache["kv"])):
         h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
@@ -287,6 +472,100 @@ def _fill_cache(params, cfg, tokens, cache, window: int = 0):
     return x
 
 
+def _hybrid_fill(params, cfg: ModelConfig, x, positions, cache, window):
+    """Zamba2's prefill: each Mamba2 layer's final state and its conv
+    state (the last three pre-activation ``xbc`` rows of the layer's one
+    input projection), each shared-block application's K/V zero-padded
+    to the cache length."""
+    sp = params["shared_attn"]
+    s_len, eff = x.shape[1], cache["kv"]["k"].shape[2]
+    if eff < s_len:
+        raise ValueError(f"a hybrid cache of {eff} entries cannot take a "
+                         f"prompt of {s_len} tokens")
+
+    def mamba(lp, st, x):
+        h = L.rmsnorm(x, lp["ln"], cfg.norm_eps)
+        proj = S._split_proj(lp["mamba"], cfg, h)
+        y, h_final = S.mamba2_scan(lp["mamba"], cfg, *proj)
+        _store_state(st, {"h": h_final, "conv": proj[1][:, -3:]})
+        return x + y
+    groups, tail = _hybrid_split(params["layers"], cfg)
+    states, st_tail = _hybrid_split(cache["ssm"], cfg)
+    for g, (lps, sts) in enumerate(zip(groups, states)):
+        for lp, st in zip(lps, sts):
+            x = mamba(lp, st, x)
+        h = L.rmsnorm(x, sp["ln1"], cfg.norm_eps)
+        k, v = L._kv(sp["attn"], cfg, h)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+        for name, t in (("k", k), ("v", v)):
+            cache["kv"][name][g].copy_(F.pad(t, (0, 0, 0, 0, 0,
+                                                 eff - s_len)))
+        x = _shared_attn_block(sp, cfg, x, positions, window)
+    for lp, st in zip(tail, st_tail):
+        x = mamba(lp, st, x)
+    return x
+
+
+def _ssm_fill(params, cfg: ModelConfig, x, cache):
+    """xLSTM's prefill: each block's final state."""
+    for lps, sts in zip(_unstack(params["layers"]), _unstack(cache["ssm"])):
+        for i, kind in enumerate(_pattern(cfg)):
+            key = f"blk{i}_{kind}"
+            h = L.rmsnorm(x, lps[key]["ln"], cfg.norm_eps)
+            fwd = S.mlstm_forward if kind == "mlstm" else S.slstm_forward
+            y, st = fwd(lps[key]["core"], cfg, h)
+            _store_state(sts[key], st)
+            x = x + y
+    return x
+
+
+def _hybrid_decode(params, cfg: ModelConfig, x, cache, pos, decode_impl,
+                   active, window: int):
+    """Zamba2's decode step: the Mamba2 layers' O(1) updates (inactive
+    rows keep their state bits), and each shared-block application's
+    attention over its own KV entry. Unlike the reference, which always
+    takes its XLA path here, ``decode_impl`` reaches the shared block:
+    on the card it runs the decode kernel."""
+    sp = params["shared_attn"]
+    kvs = [{"k": k, "v": v} for k, v in zip(cache["kv"]["k"].unbind(0),
+                                            cache["kv"]["v"].unbind(0))]
+    # a model shallower than one group has no shared block, so no KV
+    idx = L.decode_index(cfg, pos, kvs[0], active, window) if kvs else None
+
+    def mamba(lp, st, x):
+        h = L.rmsnorm(x, lp["ln"], cfg.norm_eps)
+        y, new = S.mamba2_decode(lp["mamba"], cfg, h, st)
+        _store_state(st, new, active)
+        return x + y
+    groups, tail = _hybrid_split(params["layers"], cfg)
+    states, st_tail = _hybrid_split(cache["ssm"], cfg)
+    for lps, sts, kv in zip(groups, states, kvs):
+        for lp, st in zip(lps, sts):
+            x = mamba(lp, st, x)
+        h = L.rmsnorm(x, sp["ln1"], cfg.norm_eps)
+        a, _ = L.decode_attention(sp["attn"], cfg, h, kv, idx.pos,
+                                  decode_impl=decode_impl, active=active,
+                                  idx=idx)
+        x = x + a
+        x = x + L.mlp(sp["mlp"], cfg, L.rmsnorm(x, sp["ln2"], cfg.norm_eps))
+    for lp, st in zip(tail, st_tail):
+        x = mamba(lp, st, x)
+    return x
+
+
+def _ssm_decode(params, cfg: ModelConfig, x, cache, active):
+    """xLSTM's decode step; inactive rows keep their state bits."""
+    for lps, sts in zip(_unstack(params["layers"]), _unstack(cache["ssm"])):
+        for i, kind in enumerate(_pattern(cfg)):
+            key = f"blk{i}_{kind}"
+            h = L.rmsnorm(x, lps[key]["ln"], cfg.norm_eps)
+            step = S.mlstm_decode if kind == "mlstm" else S.slstm_decode
+            y, new = step(lps[key]["core"], cfg, h, sts[key])
+            _store_state(sts[key], new, active)
+            x = x + y
+    return x
+
+
 def decode_step(params: Params, cfg: ModelConfig, token, cache: Params, pos,
                 decode_impl: str = "kernel", active=None,
                 window: Optional[int] = None
@@ -296,9 +575,18 @@ def decode_step(params: Params, cfg: ModelConfig, token, cache: Params, pos,
     bit-identical and get garbage logits. The cache may be fp or int8
     (init_cache, prefill), and with a window (``window``, or the
     config's when None) a ring. One :class:`layers.DecodeIndex` serves
-    every layer. Returns (logits (B,V), cache)."""
+    every layer. A recurrent model updates its states (inactive rows
+    keep theirs bit for bit) and, for HYBRID, the shared block's KV.
+    Returns (logits (B,V), cache)."""
     check_supported(cfg)
     x = params["embed"][token.long()]
+    if cfg.family == HYBRID:
+        x = _hybrid_decode(params, cfg, x, cache, pos, decode_impl, active,
+                           _window(cfg, window))
+        return _head(params, cfg, x)[:, 0], cache
+    if cfg.family == SSM:
+        x = _ssm_decode(params, cfg, x, cache, active)
+        return _head(params, cfg, x)[:, 0], cache
     layer_kv = _unstack(cache["kv"])
     idx = L.decode_index(cfg, pos, layer_kv[0], active, _window(cfg, window))
     for lp, kv in zip(_unstack(params["layers"]), layer_kv):
@@ -374,10 +662,11 @@ def prefill_chunk(params: Params, cfg: ModelConfig, tokens, cache: Params,
     lengths: (B,) valid tokens (0 => bitwise no-op row). Returns
     (logits after each row's last valid token (B, V), cache). Full
     attention runs the fused sequence-level chunk (``decode_impl`` is
-    unused there); a window (``window``, or the config's when None) the
-    masked per-token decode loop, as in the JAX package."""
+    unused there); a window (``window``, or the config's when None) and
+    the recurrent families the masked per-token decode loop, as in the
+    JAX package."""
     check_supported(cfg)
-    if _window(cfg, window):
+    if cfg.family in RECURRENT or _window(cfg, window):
         return _per_token_chunk(params, cfg, tokens, cache, start_pos,
                                 lengths, decode_impl, window)
     return _prefill_chunk_fused(params, cfg, tokens, cache, start_pos,
@@ -388,13 +677,13 @@ def _per_token_chunk(params, cfg, tokens, cache, start_pos, lengths,
                      decode_impl, window, all_logits: bool = False):
     """The masked per-token fallback of :func:`prefill_chunk` and
     :func:`verify_step`: token column t goes through :func:`decode_step`
-    at ``start_pos + t`` with ``active = t < lengths``, on the cache's
-    device and through ``decode_impl``. Returns each row's logits where
+    at ``start_pos + t`` with ``active = t < lengths``, on the
+    parameters' device and through ``decode_impl``. Returns each row's logits where
     it was last active, zeros for an idle row (``all_logits``: every
     step's, (B, L, V)), and the cache; a ``lengths == 0`` row is a
     bitwise no-op."""
     b, l = tokens.shape
-    dev = cache["kv"]["k"].device
+    dev = params["embed"].device
     tokens = torch.as_tensor(tokens, device=dev)
     start_pos = torch.as_tensor(start_pos, device=dev).long()
     lengths = torch.as_tensor(lengths, device=dev).long()
@@ -479,11 +768,12 @@ def verify_step(params: Params, cfg: ModelConfig, tokens, cache: Params,
     per-token loop) with the LM head over all L positions; ``lengths ==
     0`` rows stay bitwise no-ops, and a rejected position's K/V is
     overwritten by the next write there (not so on a ring: the engine
-    refuses speculation with a window). tokens: (B, L);
+    refuses speculation with a window; a recurrent state is advanced by
+    every position below ``lengths``). tokens: (B, L);
     start_pos/lengths: (B,). Returns (logits (B, L, V), cache); positions
     past ``lengths`` and idle rows hold garbage the caller masks."""
     check_supported(cfg)
-    if _window(cfg, window):
+    if cfg.family in RECURRENT or _window(cfg, window):
         return _per_token_chunk(params, cfg, tokens, cache, start_pos,
                                 lengths, decode_impl, window,
                                 all_logits=True)

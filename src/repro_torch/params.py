@@ -19,8 +19,10 @@ from repro_torch.training.optimizer import AdamWState
 
 
 # leaves the model keeps in f32 whatever its dtype: the MoE router (a
-# bf16 router would move routing decisions)
-F32_LEAVES = ("router",)
+# bf16 router would move routing decisions), Mamba2's decay rates and
+# step bias, the mLSTM gates and the sLSTM recurrent weights (the
+# recurrent blocks' init_* draw them in f32)
+F32_LEAVES = ("router", "a_log", "dt_bias", "wif", "rh")
 
 
 def from_jax_numpy(tree: Dict[str, Any], device="cuda",

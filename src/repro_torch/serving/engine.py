@@ -180,6 +180,10 @@ class InferenceEngine:
             overrides = dict(overrides, c_chunk=c_chunk)
         if overrides:
             scfg = scfg.replace(**overrides)
+        if cfg.family in M.RECURRENT:
+            raise NotImplementedError(
+                "engine supports attention-family models (the paper serves "
+                "Llama-3-70B); SSM decode runs through models.decode_step")
         check_slice(scfg)
         if scfg.spec_k > 1 and cfg.attention_window:
             # a rejected draft's KV write at ring slot (p + i) % window

@@ -17,6 +17,11 @@ def leaves(tree) -> List[Any]:
     return [] if tree is None else [tree]
 
 
+def map(fn, tree):
+    """A tree of ``tree``'s structure holding ``fn`` of each leaf."""
+    return unflatten(tree, [fn(x) for x in leaves(tree)])
+
+
 def unflatten(like, flat: List[Any]):
     """A tree of ``like``'s structure whose leaves are ``flat``, in
     :func:`leaves` order."""
