@@ -69,8 +69,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    8192 - 64 tokens with the kernel scorer and the numpy scorer; prints
    the kept-set agreement, compression_ms of each and the split between
    tfidf_matrix, the similarity product and TextRank.
-7. speculation and overload survival, minitron-8b bf16 at full width
-   unless said otherwise; the launch counts are reset before each part.
+7. speculation and overload survival, minitron-8b bf16 at its published
+   widths, its first 8 of 32 layers (``P7_LAYERS``, the stacked leaves
+   sliced and the cut config registered under its own name: every part
+   but (c) is host-bound and its dispatches' time grows with the depth;
+   each check holds at any depth) unless said otherwise; the launch
+   counts are reset before each part.
    (b) the phase-5 fleet, paged, with ``--spec-k 4`` against spec_k 1
    (random weights: drafts mostly rejected): every request completes;
    both runs log the logits behind each emitted token, which may differ
@@ -217,7 +221,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    from the card and restored onto it, bitwise.
 
 12. the int8 KV cache and the sliding-window ring caches, minitron-8b at
-   its published widths, bf16, the port's ``init_params`` at seed 0.
+   its published widths, bf16, the port's ``init_params`` at seed 0, its
+   first 8 of 32 layers (``P12_LAYERS``, the stacked leaves sliced: (a)'s
+   fleet dispatches and (b), (c)'s per-token prefill, one
+   ``decode_step`` a token column, are host-bound).
    (a) phase 9's stream through phase 5's dense fleet (``from_plan``)
    with the bf16 cache and with ``kv_cache_dtype="int8"``: every request
    completes in both; the int8 fleet's caches hold 130/256 of the bf16
@@ -233,10 +240,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    dequantized inputs. Prints decode ms per dispatch of both fleets, the
    cache bytes, and one profiled decode dispatch of each long pool with
    ``dequantize_kv`` marked (its device share), beside a CUDA-event time
-   of one dequantized leaf. (b) and (c) run 8 of the 32 layers (the
-   stacked layer leaves of (a)'s weights sliced, ``P12_LAYERS``): the
-   per-token prefill is host-bound, one ``decode_step`` a token column.
-   (b) ``attention_window=1024`` (llama4-scout's
+   of one dequantized leaf. (b) ``attention_window=1024`` (llama4-scout's
    8192 cut so the per-token prefill fits the phase), a dense engine with
    n_max 4, c_max 4096 (a ring of 1024 rows), decode_k 4: four prompts
    of 1,200-1,500 tokens and 64 new each, prefilled token by token; every
@@ -335,6 +339,50 @@ Phases, each of which fails the run (non-zero exit, no result line):
    step and ``prefill_chunk`` with an idle row (those rows bitwise),
    within 1e-5 (zamba2) / 3e-5 (xlstm) of max. The phase's launches are
    added to the ``kernels`` line.
+
+15. the VLM family (``models/model.py``'s VLM branch: a tanh-gated
+   cross-attention layer over a stubbed frontend after every 5 decoder
+   layers) on llama-3.2-vision-11b at its published widths and full depth
+   (40 layers, 8 cross layers over 1601 frontend rows, d_model 4096, 32 /
+   8 heads, vocab 128256; 23.04 GB in bf16), the port's ``init_params`` at
+   seed 0 with every cross layer's gate and gate_mlp set to 0.5 / -0.7
+   (the reference draws them zero: every cross layer the identity). At
+   this depth two valid bf16 roundings of one decode step (the kernel,
+   its f32 plain version, the torch path) sit farther apart than
+   BF16_DRIFT_ULPS, so each bf16 path is held to an f32 truth instead: a
+   teacher-forced ``forward`` of the weights upcast over the path's own
+   history, its largest distance from which must stay within
+   P15_TRUTH_RATIO of the torch path's (the reference's rounding); the
+   drifts are reported and the near-tie rule holds each first
+   divergence. (a) the batch launcher, 4 x 1024 + 16, the launcher's
+   constant frontend, through the kernel (held on its live inputs) and
+   through the torch path: prefill ms against its FLOP floor, decode ms a step against its
+   bytes floor (the weights but the embedding, the KV and the cross
+   memory, 52.5 MB a slot), launches exactly 40 x 15. (b) the launcher on
+   a random frontend (normal x 0.02), 2 x 512 + 16, against the
+   teacher-forced bf16 ``forward`` (the drift reported; the decode's
+   distance from the f32 truth held to P15_TRUTH_RATIO of the forward's),
+   and in f32 on the weights upcast at full depth, decode against its
+   own teacher-forced forward within P15_FWD_REL = 1e-4 of max|logit|
+   (the reference's f32 test holds 2e-2, which passes planted faults
+   here). (c) phase 5's K=2 dense fleet
+   at contexts 256 / 2048 (c_chunk 128, n_max 4, decode_k 4), each
+   pool's cross memory the K/V of a random frontend (the engine never
+   writes it), behind the C&R gateway: two short requests and two
+   in-band ones compressed into the short pool (TextRank launched),
+   prefilled token by token, 16 new tokens each; every request
+   completes; the kernel run (each decode kernel shape held on live
+   inputs) against the torch run by the near-tie rule and the f32 truth;
+   decode ms a dispatch, per-token prefill ms a column. (d) the same
+   stream with the short pool reprovisioned to c_max 384 once a slot
+   decodes: every request completes, every swap-in read back bitwise,
+   the cross memory (F = 1601 rows; the rebuilt pool's own rows another
+   frontend's) included. (e) reduced f32 (4 layers, 2 KV heads: two
+   groups, q_per_kv 2), gates as above, a random frontend, card against
+   CPU: ``prefill`` logits and every cache leaf, 8 greedy decode steps
+   (a flip only at a CPU top-2 gap under 1e-5), a masked step and
+   ``prefill_chunk`` with an idle row (those rows bitwise), within 1e-5
+   of max. The phase's launches are added to the ``kernels`` line.
 
 Then it prints the ``kernels`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -1675,6 +1723,9 @@ OVERLOAD_LENS, OVERLOAD_NEW = (1000, 2500), 64
 OVERLOAD_BLOCKS = 320                    # 5120 tokens: ~2 worst cases fit
 LOUT_PROMPT, LOUT_CLAIM, LOUT_HINT = 310, 1024, 16
 LOUT_BLOCKS = 84          # one worst case (84 blocks) or four hints (21)
+P7_LAYERS = 8             # of 32: every part but (c) is host-bound, its
+                          # dispatches' time ~ the depth; the checks hold
+                          # at any depth (phase 15 needs the time)
 # the model's step functions the engine dispatches emit tokens from, with
 # the names of their (fed tokens, positions, rows' window lengths) inputs
 _STEP_ARGS = {"decode_step": ("token", "pos", "active"),
@@ -1698,6 +1749,19 @@ def _full_width():
     from repro_torch.models import model as M
     cfg = get_config("minitron-8b")
     return cfg, M.init_params(cfg, seed=0, device=DEVICE)
+
+
+def _depth_cut(cfg, params, layers: int, arch=None):
+    """``cfg``'s first ``layers`` layers at full width, registered as
+    "{arch or cfg.name}-{layers}-layers" (so a launcher's ``--arch`` finds
+    it), and ``params`` with its stacked layer leaves sliced (views, not
+    re-drawn)."""
+    from repro_torch.configs import base
+    from repro_torch.training import tree
+    cut = base.register(dataclasses.replace(
+        cfg, num_layers=layers, name=f"{arch or cfg.name}-{layers}-layers"))
+    return cut, dict(params, layers=tree.map(lambda a: a[:layers],
+                                             params["layers"]))
 
 
 @contextlib.contextmanager
@@ -1778,12 +1842,14 @@ def _logged(log, rid, j, tok, what):
 
 
 def _bf16_flips(plain_log, path_log, want, got, what,
-                tag="spec/overload") -> int:
+                tag="spec/overload", limit=BF16_DRIFT_ULPS) -> int:
     """Hold a full-width bf16 run (``got`` tokens, ``path_log``) against
     the plain run (``want``, ``plain_log``) by the drift and near-tie rule
-    above. Prints the plain run's top-2 gap over every emitted position,
-    the largest drift where the histories agree, and each first divergence
-    with the plain run's preference there. Returns the divergences."""
+    above (``limit``: the drift's; None reports the drift and holds only
+    the near-tie rule). Prints the plain run's top-2 gap over every
+    emitted position, the largest drift where the histories agree, and
+    each first divergence with the plain run's preference there. Returns
+    the divergences."""
     import torch
     gaps, drift, n_drift, flips = [], 0.0, 0, 0
     for rid, toks in want.items():
@@ -1822,7 +1888,7 @@ def _bf16_flips(plain_log, path_log, want, got, what,
     q = lambda f: gaps[min(len(gaps) - 1, int(f * len(gaps)))]  # noqa
     print(f"[{tag}] {what}: largest |logit - plain logit| over "
           f"{n_drift} positions with the plain run's history: {drift:.2f} "
-          f"bf16 ulps of the top logit (limit {BF16_DRIFT_ULPS}; a shift "
+          f"bf16 ulps of the top logit (limit {limit}; a shift "
           f"of the plain history by one position: least {shift[0]:.2f}, "
           f"median {shift[len(shift) // 2]:.2f}); "
           f"plain top-2 gap over {len(gaps)} emitted positions, in ulps: min "
@@ -1830,9 +1896,9 @@ def _bf16_flips(plain_log, path_log, want, got, what,
           f"{q(.5):.2f}, p90 {q(.9):.2f}, max {gaps[-1]:.2f}; "
           f"{sum(g <= BF16_GAP_ULPS for g in gaps)}/{len(gaps)} within the "
           f"near-tie limit ({BF16_GAP_ULPS} ulps)")
-    if drift > BF16_DRIFT_ULPS:
+    if limit is not None and drift > limit:
         fail(f"{what}: logits drift {drift:.2f} ulps from the plain run's "
-             f"where the histories agree (limit {BF16_DRIFT_ULPS})")
+             f"where the histories agree (limit {limit})")
     return flips
 
 
@@ -1871,8 +1937,8 @@ def phase_spec_overload():
     reservation on the card (module docstring)."""
     import torch
     t0 = time.perf_counter()
-    _spec_fleet()
-    cfg, base = _full_width()
+    cfg, base = _depth_cut(*_full_width(), P7_LAYERS)
+    _spec_fleet(cfg, base)
     _spec_agent_loop(cfg, base)
     _reduced_parity()
     _overload(cfg, base)
@@ -1898,10 +1964,10 @@ def _request_log(log):
         InferenceEngine.submit = orig
 
 
-def _spec_fleet():
-    """(b) ``launch.serve --fleet 2 --paged --decode-k 4 --spec-k 4`` at
-    full width with random weights (drafts mostly rejected) against the
-    same fleet at spec_k 1."""
+def _spec_fleet(cfg, base):
+    """(b) ``launch.serve --fleet 2 --paged --decode-k 4 --spec-k 4`` on
+    ``cfg`` (registered) and its random weights ``base`` (drafts mostly
+    rejected) against the same fleet at spec_k 1."""
     import torch
     from repro_torch.launch import serve
     out, launches, logs = {}, {}, {}
@@ -1911,9 +1977,9 @@ def _spec_fleet():
         with _decode_timer(log, ("_run_decode_scan", "_run_spec_scan")), \
                 _logit_log(logs[sk]):
             rt, results, secs = serve.serve_fleet(
-                fleet_args(paged=True, spec_k=sk, device=DEVICE),
-                slots_per_pool=4,
-                c_chunk=256, long_ctx=4096)
+                fleet_args(arch=cfg.name, paged=True, spec_k=sk,
+                           device=DEVICE),
+                slots_per_pool=4, c_chunk=256, long_ctx=4096, params=base)
         launches[sk] = _launch_counts(("paged_decode",), f"fleet spec_k={sk}")
         for rid, res in results.items():
             if res.timed_out or not res.output_tokens:
@@ -1923,7 +1989,7 @@ def _spec_fleet():
         spec = {n: (round(e.spec_kappa(), 4),
                     round(e.spec_acceptance_rate(), 4),
                     dict(e.spec_stats)) for n, e in rt.engines.items()}
-        print(f"[spec/overload] (b) fleet minitron-8b bf16 full width, paged,"
+        print(f"[spec/overload] (b) fleet {cfg.name} bf16, paged,"
               f" decode_k=4, spec_k={sk}: {len(results)} requests, "
               f"{sum(map(len, out[sk].values()))} tokens in {secs:.2f} s "
               f"(logit log included); "
@@ -1949,7 +2015,7 @@ def _cycle_requests(cycle, starts, l_in, max_new, **extra):
 
 
 def _spec_agent_loop(cfg, base):
-    """(a) The agent-loop weights at full width: acceptance 1, kappa ==
+    """(a) The agent-loop weights on ``cfg``: acceptance 1, kappa ==
     spec_k, tokens equal the spec_k = 1 run's bitwise, dense and paged."""
     import torch
     from repro_torch.serving.engine import InferenceEngine
@@ -1977,8 +2043,8 @@ def _spec_agent_loop(cfg, base):
                 fail(f"(a) agent loop spec_k={sk} paged={paged}: acceptance "
                      f"{acc}, kappa {kappa}; stats {eng.spec_stats}")
             dec_s, dec_tok = sum(t for t, _ in log), sum(n for _, n in log)
-            print(f"[spec/overload] (a) agent loop minitron-8b bf16 full "
-                  f"width, paged={paged}, n_max 4, c_max 4096, decode_k 4, "
+            print(f"[spec/overload] (a) agent loop {cfg.name} bf16, "
+                  f"paged={paged}, n_max 4, c_max 4096, decode_k 4, "
                   f"spec_k={sk}: acceptance {acc:.4f}, kappa {kappa:.4f}, "
                   f"{dec_tok} decode tokens in {len(log)} dispatches: "
                   f"{dec_tok / dec_s:.1f} tokens/s, "
@@ -2053,15 +2119,18 @@ def _reduced_parity():
 def _check_restored(eng, s, state, what, pad_from=None):
     """The KV just swapped into slot ``s`` of ``eng``, read back from the
     card, equals the host copy ``state.host_kv`` bitwise (paged: the
-    slot's fresh blocks; dense: its row); a dense row's tail past
-    ``pad_from`` tokens, where the host copy was zero-padded, is zero."""
+    slot's fresh blocks; dense: its row, a VLM's cross memory included);
+    a dense KV row's tail past ``pad_from`` tokens, where the host copy
+    was zero-padded, is zero."""
     import torch
-    for k, a in eng.cache["kv"].items():
+    leaves = eng.cache["kv"] if eng.paged else eng._row_leaves()
+    for k, a in leaves.items():
         got = (a[:, eng._slot_blocks[s]] if eng.paged else a[:, s]).cpu()
         if not torch.equal(got, state.host_kv[k]):
             fail(f"{what}: the KV restored for rid {state.req.rid} differs "
                  f"from the bits swapped out ({k})")
-        if pad_from is not None and not eng.paged and got[:, pad_from:].any():
+        if pad_from is not None and not eng.paged \
+                and k not in ("xk", "xv") and got[:, pad_from:].any():
             fail(f"{what}: rid {state.req.rid}'s padded tail past "
                  f"{pad_from} is not zero ({k})")
 
@@ -2107,7 +2176,7 @@ def _swap_probe(log):
 
 
 def _overload(cfg, base):
-    """(d) The paged long pool at full width under 8 requests of
+    """(d) The paged long pool of ``cfg`` under 8 requests of
     1,000-2,500 tokens that its blocks cannot all reserve: preemption
     swaps, every request completes with the unloaded run's tokens (bf16
     near-tie rule), the swapped bits come back exactly; then the same
@@ -2138,7 +2207,7 @@ def _overload(cfg, base):
     counts = _launch_counts(("paged_decode",), "(d)")
     st = eng.overload_stats
     if st["swapped_out"] < 1 or st["swapped_in"] < 1:
-        fail(f"(d) no swap at full width: {st}")
+        fail(f"(d) no swap: {st}")
     if sorted(got) != list(range(8)) or not all(map(len, got.values())):
         fail(f"(d) not every request completed: {sorted(got)}")
     if eng.host_tier_blocks() != 0:
@@ -2153,7 +2222,7 @@ def _overload(cfg, base):
     per = {d: [1e3 * t / n for dd, n, t in swaps if dd == d and n]
            for d in ("out", "in")}
     med = lambda v: sorted(v)[len(v) // 2] if v else float("nan")  # noqa
-    print(f"[spec/overload] (d) overload, minitron-8b bf16 full width, paged"
+    print(f"[spec/overload] (d) overload, {cfg.name} bf16, paged"
           f" long pool (c_max 4096, n_max 4, {OVERLOAD_BLOCKS} blocks of 16 "
           f"for {worst} worst-case blocks), 8 requests of "
           f"{min(map(len, prompts.values()))}-"
@@ -2234,7 +2303,7 @@ def _lout(cfg, base):
             fail(f"(e) lout={lout}: a request did not stop at its EOS")
         runs[lout] = (got, peak[0], dict(eng.overload_stats))
         print(f"[spec/overload] (e) lout_reservation={lout}, agent loop "
-              f"minitron-8b bf16 full width, {LOUT_BLOCKS} blocks, 8 requests "
+              f"{cfg.name} bf16, {LOUT_BLOCKS} blocks, 8 requests "
               f"of {LOUT_PROMPT} tokens claiming {LOUT_CLAIM} (hint "
               f"{LOUT_HINT}), outputs {sorted(map(len, got.values()))}: peak "
               f"concurrent admitted {peak[0]}; overload {runs[lout][2]}; "
@@ -2328,15 +2397,17 @@ def _decode_launches(cfg) -> int:
     return 0 if cfg.family == "ssm" else cfg.num_layers
 
 
-def _serve_batch(args, params, tokens=None, need=(), impl="kernel"):
-    """One batch-launcher run (decode attention through ``impl``) with the
-    launch counts reset just before; fails unless each kernel in ``need``
+def _serve_batch(args, params, tokens=None, need=(), impl="kernel",
+                 frontend=None):
+    """One batch-launcher run (decode attention through ``impl``; a VLM
+    given ``frontend``, else the launcher's constant one) with the launch
+    counts reset just before; fails unless each kernel in ``need``
     launched exactly ``_decode_launches`` times per decode step, and
     nothing else launched."""
     from repro_torch.launch import serve
     _reset_launches()
     run = serve.serve_batch(args, params=params, tokens=tokens,
-                            decode_impl=impl)
+                            decode_impl=impl, frontend=frontend)
     counts = _launch_counts(need, f"batch launcher {args.arch}")
     want = {k: 0 for k in counts}
     want.update({k: _decode_launches(run.cfg) * (args.new_tokens - 1)
@@ -4189,8 +4260,9 @@ P12_BOTH = (1060, 16)                    # (c): prompt tokens, new tokens
 P12_BOTH_SLOTS = 4                       # (c): the engine's n_max, (b)'s
 P12_SWAP_ROUND = 7          # (a): the swap probe's earliest drive round
 P12_NARROW = 512            # (b): a window below the ring's length
-P12_LAYERS = 8              # (b), (c): of 32; the per-token prefill is
-                            # host-bound, one decode_step a token column
+P12_LAYERS = 8              # of 32: (b), (c)'s per-token prefill is
+                            # host-bound, one decode_step a token column,
+                            # and (a)'s fleet dispatches too
 
 
 @contextlib.contextmanager
@@ -4433,8 +4505,9 @@ def _p12_int8(cfg, params, smi):
     swap_ms = {d: 1e3 * t for d, _, t in i8["swaps"]}
     p8, p16 = prof["int8"], prof["bf16"]
     layer_leaves = 2 * cfg.num_layers
-    print(f"[kv] (a) minitron-8b full width, phase 5's dense fleet, "
-          f"{len(i8['tokens'])} requests x {P9_NEW} tokens, bf16 vs int8 "
+    print(f"[kv] (a) minitron-8b widths, {cfg.num_layers} of 32 layers, "
+          f"phase 5's dense fleet, {len(i8['tokens'])} requests x "
+          f"{P9_NEW} tokens, bf16 vs int8 "
           f"KV: cache {b16['bytes']} B vs {i8['bytes']} B ({ratio:.4f}x); "
           f"decode-only {ms['bf16']:.2f} vs {ms['int8']:.2f} ms per dispatch "
           f"({len(b16['decode'])} / {len(i8['decode'])} dispatches; "
@@ -4641,15 +4714,12 @@ def phase_kv(smi):
     """Phase 12: the int8 KV cache through the fleet and the ring caches
     through the dense engine (module docstring). Returns the launches."""
     import torch
-    from repro_torch.training import tree
     t0 = time.perf_counter()
-    cfg, params = _full_width()
+    cfg, params = _depth_cut(*_full_width(), P12_LAYERS)
     n = _p12_int8(cfg, params, smi)
-    cut = dataclasses.replace(cfg, num_layers=P12_LAYERS)
-    layers = tree.map(lambda a: a[:P12_LAYERS], params["layers"])
-    n += _p12_window(cut, dict(params, layers=layers), smi)
-    n += _p12_both(cut, dict(params, layers=layers), smi)
-    del params, layers
+    n += _p12_window(cfg, params, smi)
+    n += _p12_both(cfg, params, smi)
+    del params
     torch.cuda.empty_cache()
     print(f"[kv] phase 12: {time.perf_counter() - t0:.1f} s; gqa_decode "
           f"launches {n}")
@@ -5058,19 +5128,6 @@ def _fleet_ms(run) -> tuple:
             cols, 1e3 * sum(t for t, _, _ in run["prefill"]) / cols)
 
 
-def _p13_fleet_cut(cfg, params):
-    """(c)'s config and weights: ``cfg``'s first P13_FLEET_LAYERS layers
-    (the stacked leaves sliced, not re-drawn), registered under its own
-    name."""
-    from repro_torch.configs import base
-    from repro_torch.training import tree
-    cut = base.register(dataclasses.replace(
-        cfg, num_layers=P13_FLEET_LAYERS,
-        name=f"{P13_ARCH}-{P13_FLEET_LAYERS}-layers"))
-    return cut, dict(params, layers=tree.map(lambda a: a[:P13_FLEET_LAYERS],
-                                             params["layers"]))
-
-
 def _p13_fleet(cfg, params, smi):
     """(c) the K=2 fleet behind the C&R gateway (module docstring).
     Returns its launches."""
@@ -5217,7 +5274,8 @@ def phase_moe(smi):
     parts.append(time.perf_counter())
     n = {"gqa_decode": _p13_batch(cfg, nd, params, smi)}
     parts.append(time.perf_counter())
-    for k, v in _p13_fleet(*_p13_fleet_cut(cfg, params), smi).items():
+    for k, v in _p13_fleet(*_depth_cut(cfg, params, P13_FLEET_LAYERS,
+                                           P13_ARCH), smi).items():
         n[k] = n.get(k, 0) + v
     parts.append(time.perf_counter())
     peak = torch.cuda.max_memory_allocated()
@@ -5679,6 +5737,566 @@ def phase_recurrent(smi):
     return {"gqa_decode": n}
 
 
+# ---------------------------------------------------------------- phase 15
+P15_ARCH = "llama-3.2-vision-11b"
+P15_GATES = (0.5, -0.7)        # every cross layer's gate, gate_mlp: at the
+                               # reference's zeros a cross layer is the
+                               # identity and would hide a wrong one
+P15_BATCH = (4, 1024, 16)      # (a): batch, prompt, new tokens
+P15_TF = (2, 512, 16)          # (b): teacher forcing, random frontend
+# (b) in f32: decode against its own teacher-forced forward, of
+# max|logit|. The reference's f32 test bound (2e-2,
+# tests/test_decode_consistency.py:51) passes planted faults here: the
+# RMSNorm's mean square rounded to bf16 reads 1.795e-02, cross-attention
+# dropped at decode 3.201e-04; every sound path 1.774e-05
+# (tests/vlm_truth_controls.py, PERF.md section 6).
+P15_FWD_REL = 1e-4
+# A bf16 path's largest distance from the f32 truth (ulps of the truth's
+# top logit), at most this times the torch path's (the reference's
+# rounding: bf16 scores and P.V). At 40 + 8 layers two valid bf16
+# roundings of one decode step (the kernel, its f32 plain version, the
+# torch path) sit 10.6-13.8 ulps apart, past BF16_DRIFT_ULPS, and each
+# 17.6-20.1 from the truth. Sound paths read 0.837-1.065 of the base,
+# K/V rounded through fp8 2.946-3.399, the cross gates without tanh
+# 1.315-2.266 (tests/vlm_truth_controls.py, PERF.md section 6).
+P15_TRUTH_RATIO = 1.25
+P15_LONG_CTX = 2048            # (c): contexts 256 / 2048 (phase 13's), the
+P15_C_CHUNK = 128              # boundary at 2 x c_chunk
+P15_SHORT = (60, 120)          # (c): prompt tokens, the short pool
+P15_INBAND = (330, 420)        # (c): B < L_total <= gamma * B: C&R
+P15_NEW = 16                   # (c), (d): new tokens a request
+P15_TO = dict(c_max=384)       # (d): the short pool's new context
+P15_CPU_TOL = 1e-5             # (e): card vs CPU, of max
+P15_CPU_GAP = 1e-5             # (e): a token flip's CPU top-2 logit gap
+
+
+def _p15_model():
+    """llama-3.2-vision-11b at its published widths and full depth, bf16,
+    the port's ``init_params`` at seed 0 with every cross layer's gates
+    set to P15_GATES."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(P15_ARCH)
+    params = M.init_params(cfg, seed=0, device=DEVICE)
+    _p15_gates(params)
+    return cfg, params
+
+
+def _p15_gates(params):
+    params["cross"]["gate"].fill_(P15_GATES[0])
+    params["cross"]["gate_mlp"].fill_(P15_GATES[1])
+
+
+def _p15_frontend(cfg, b, dtype, seed=15):
+    """A random frontend, normal x 0.02, (b, frontend_tokens, d_model)."""
+    import torch
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    return (torch.randn((b, cfg.frontend_tokens, cfg.d_model),
+                        generator=gen, device=DEVICE) * 0.02).to(dtype)
+
+
+def _p15_cross_bytes(cfg) -> int:
+    """The cross memory a decode step reads a slot: xk and xv of every
+    group, F rows each."""
+    from repro_torch.models import layers as L
+    return (2 * (cfg.num_layers // cfg.cross_attn_every)
+            * cfg.frontend_tokens * cfg.num_kv_heads * cfg.resolved_head_dim
+            * L.torch_dtype(cfg.dtype).itemsize)
+
+
+def _p15_prefill_flop(cfg, params, b: int, p: int) -> float:
+    """Operations of ``prefill`` on b x p tokens: every decoder and cross
+    layer's projections and MLP on the tokens, but the cross layers' K/V
+    projections, which run on the F frontend rows; causal self-attention
+    (the triangle), cross-attention over F rows; the LM head on the last
+    token of each row."""
+    from repro_torch.training import tree
+    n_self = sum(t.numel() for t in tree.leaves(params["layers"]))
+    x = params["cross"]["xattn"]
+    n_kv = x["wk"].numel() + x["wv"].numel()
+    n_cross = sum(t.numel() for t in tree.leaves(params["cross"])) - n_kv
+    hhd = cfg.num_heads * cfg.resolved_head_dim
+    groups, f = cfg.num_layers // cfg.cross_attn_every, cfg.frontend_tokens
+    return (2.0 * (n_self + n_cross) * b * p + 2.0 * n_kv * b * f
+            + 2.0 * cfg.num_layers * b * hhd * p * p
+            + 4.0 * groups * b * hhd * p * f
+            + 2.0 * cfg.d_model * cfg.vocab_size * b)
+
+
+def _p15_rows(run, fe):
+    """A batch run's rows as ``_p15_truth`` takes them: (prompt ids,
+    emitted ids, {j: the logits behind token j}, the row's frontend)."""
+    return [(run.prompt[r].tolist(), run.tokens[r].tolist(),
+             {j: lg[r] for j, lg in enumerate(run.logits)}, fe[r:r + 1])
+            for r in range(run.prompt.shape[0])]
+
+
+def _p15_truth(cfg32, p32, rows) -> float:
+    """The f32 truth of a bf16 path: a teacher-forced ``forward`` of the
+    weights upcast over each row's prompt + emitted tokens (its own
+    history) on the row's frontend upcast. Returns the path's largest
+    distance from it over every emitted position, in bf16 ulps of the
+    truth's top logit."""
+    import torch
+    from repro_torch.models import model as M
+    worst = 0.0
+    for prompt, out, logs, fe in rows:
+        ids = torch.tensor([prompt + out[:-1]], device=DEVICE)
+        truth = M.forward(p32, cfg32, {"tokens": ids,
+                                       "frontend": fe.float()})[0][0]
+        for j in range(len(out)):
+            ref = truth[len(prompt) - 1 + j]
+            err = float((logs[j].to(DEVICE).float() - ref).abs().max())
+            worst = max(worst, err / _bf16_ulp(float(ref.max())))
+        del truth
+    return worst
+
+
+def _p15_truth_gate(what, got, plain, plain_name):
+    """Hold a path's distance from the f32 truth to P15_TRUTH_RATIO x the
+    plain path's."""
+    if got > P15_TRUTH_RATIO * plain:
+        fail(f"{what}: {got:.2f} ulps from the f32 truth, past "
+             f"{P15_TRUTH_RATIO} x the {plain_name}'s {plain:.2f}")
+    return (f"{got:.2f} ulps from the f32 truth against the {plain_name}'s "
+            f"{plain:.2f} (at most {P15_TRUTH_RATIO}x)")
+
+
+def _p15_launcher(cfg, params):
+    """(a) the batch launcher through the kernel (held on live inputs)
+    and through the torch path on the same prompts, the launcher's
+    constant frontend; the kernel path against the torch path by the
+    near-tie rule, the drift reported. Returns ({"kernel", "torch":
+    run}, launches, held, divergences)."""
+    held = {}
+    args = batch_args(cfg.name, P15_BATCH)
+    with _live_kernel_hold(held):
+        kern, counts = _serve_batch(args, params, need=("gqa_decode",))
+    plain, _ = _serve_batch(args, params, tokens=kern.prompt, impl="torch")
+    (want, plain_log), (got, kern_log) = _run_log(plain), _run_log(kern)
+    flips = _bf16_flips(plain_log, kern_log, want, got,
+                        "(a) kernel vs torch path", tag="vlm", limit=None)
+    kern.cache = plain.cache = None
+    return {"kernel": kern, "torch": plain}, counts, held, flips
+
+
+def _p15_report_a(cfg, params, runs, counts, held, flips, truth, smi):
+    kern, plain = runs["kernel"], runs["torch"]
+    b, p, n = P15_BATCH
+    step_ms = 1e3 * b / kern.decode_tok_s
+    w_bytes = _nbytes(params)
+    # a step reads every weight but the embedding table (b rows gathered),
+    # the self-attention KV up to the last position, the cross memory
+    w_read = w_bytes - _nbytes(params["embed"])
+    kv_bytes = (cfg.num_layers * 2 * b * (p + n) * cfg.num_kv_heads
+                * cfg.resolved_head_dim * 2)
+    x_bytes = b * _p15_cross_bytes(cfg)
+    floor_ms = 1e3 * (w_read + kv_bytes + x_bytes) / HBM_BYTES_PER_S
+    flop = _p15_prefill_flop(cfg, params, b, p)
+    hs = {f"B={k[1][0]} S={k[1][1]}": f"{v[0]:.3e}" for k, v in held.items()}
+    print(f"[vlm] (a) {cfg.name} bf16 ({w_bytes / 1e9:.2f} GB of weights, "
+          f"{cfg.num_layers} layers, {cfg.num_layers // cfg.cross_attn_every}"
+          f" cross layers over {cfg.frontend_tokens} frontend rows, gates "
+          f"{P15_GATES}), batch launcher {b} x {p} + {n} new, the "
+          f"launcher's constant frontend: prefill {kern.prefill_ms:.2f} ms "
+          f"in the kernel run (the phase's first), {plain.prefill_ms:.2f} "
+          f"ms in the torch run (prefill runs no decode kernel; compute "
+          f"floor {1e3 * flop / PEAK_OPS['bfloat16']:.2f} ms: {flop:.3e} "
+          f"FLOP); kernel "
+          f"decode {step_ms:.2f} ms a step ({kern.decode_tok_s:.1f} "
+          f"tokens/s) against a bytes floor of {floor_ms:.2f} ms (weights "
+          f"but the embedding {w_read / 1e9:.2f} GB, self-attention KV "
+          f"{kv_bytes / 1e6:.1f} MB, cross memory {x_bytes / 1e6:.1f} MB "
+          f"= {b} x {_p15_cross_bytes(cfg) / 1e6:.1f} MB a slot); torch "
+          f"path decode {1e3 * b / plain.decode_tok_s:.2f} ms a step; "
+          f"gqa_decode "
+          f"launches {counts['gqa_decode']} (= {cfg.num_layers} x {n - 1}); "
+          f"{flips} near-tie divergences from the torch path; {truth}; "
+          f"kernel held on live inputs {hs} ({smi})")
+
+
+def _p15_teacher(cfg, params):
+    """(b) bf16: the launcher on a random frontend and the teacher-forced
+    ``forward`` over its prompt + fed tokens. Returns (the run, its
+    frontend, the forward's logits at each generated position, the
+    decode-vs-forward drift in ulps, launches)."""
+    import torch
+    b, p, n = P15_TF
+    fe = _p15_frontend(cfg, b, torch.bfloat16)
+    run, counts = _serve_batch(batch_args(cfg.name, P15_TF), params,
+                               need=("gqa_decode",), frontend=fe)
+    run.cache = None
+    seq = torch.cat([run.prompt, run.tokens[:, :-1]], dim=1)
+    from repro_torch.models import model as M
+    fwd = M.forward(params, cfg, {"tokens": seq, "frontend": fe})[0][
+        :, p - 1:].clone()
+    drift = _ulps(torch.stack(run.logits, dim=1), fwd)
+    return run, fe, fwd, drift, counts["gqa_decode"]
+
+
+def _p15_f32(cfg, params, tf, smi):
+    """The f32 truth (module docstring): (a)'s, (b)'s and (c)'s paths
+    against it, and (b) in f32 at full depth, decode against its own
+    teacher-forced forward. ``tf``: "a" (a)'s runs, "b"
+    ``_p15_teacher``'s result, "c" (kernel run, torch run, the short
+    pool's frontend). Returns (the notes for (a), (b)'s line and (c)'s
+    note, the f32 run's launches)."""
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.models import model as M
+    from repro_torch.training import tree
+    cfg32 = base.register(dataclasses.replace(cfg, dtype="float32",
+                                              name=f"{cfg.name}-f32"))
+    p32 = tree.map(lambda t: t.float(), params)
+    notes = {}
+    with torch.no_grad():
+        fe = (torch.ones((P15_BATCH[0], cfg.frontend_tokens, cfg.d_model),
+                         device=DEVICE) * 0.01).to(torch.bfloat16)
+        t = {k: _p15_truth(cfg32, p32, _p15_rows(r, fe))
+             for k, r in tf["a"].items()}
+        notes["a"] = "the kernel path " + _p15_truth_gate(
+            "(a) the kernel path", t["kernel"], t["torch"], "torch path")
+        run, fe, fwd, drift, _ = tf["b"]
+        t_dec = _p15_truth(cfg32, p32, _p15_rows(run, fe))
+        fwd_rows = [(pr, out, {j: fwd[r, j] for j in range(len(out))}, f)
+                    for r, (pr, out, _, f) in enumerate(_p15_rows(run, fe))]
+        b_note = _p15_truth_gate("(b) bf16 decode", t_dec,
+                                 _p15_truth(cfg32, p32, fwd_rows),
+                                 "bf16 forward")
+        kfl, pfl, mem = tf["c"]
+        notes["c"] = "the kernel path " + _p15_truth_gate(
+            "(c) the kernel fleet", _p15_truth(cfg32, p32, _p15_fleet_rows(
+                kfl, mem)), _p15_truth(cfg32, p32, _p15_fleet_rows(pfl, mem)),
+            "torch path")
+    run32, c32 = _serve_batch(batch_args(cfg32.name, P15_TF), p32,
+                              tokens=run.prompt, need=("gqa_decode",),
+                              frontend=fe.float())
+    seq = torch.cat([run32.prompt, run32.tokens[:, :-1]], dim=1)
+    with torch.no_grad():
+        f32 = M.forward(p32, cfg32, {"tokens": seq,
+                                     "frontend": fe.float()})[0][
+            :, P15_TF[1] - 1:]
+    rel = max(float((lg.float() - f32[:, j]).abs().max()
+                    / f32[:, j].abs().max())
+              for j, lg in enumerate(run32.logits))
+    b, p, n = P15_TF
+    notes["b"] = (
+        f"[vlm] (b) decode vs teacher-forced forward, {b} x {p} + {n - 1} "
+        f"fed tokens, a random frontend (normal x 0.02), gates "
+        f"{P15_GATES}: bf16 at {cfg.num_layers} layers, decode (kernel) vs "
+        f"forward {drift:.2f} ulps of the top logit (BF16_DRIFT_ULPS "
+        f"{BF16_DRIFT_ULPS}, reported), decode {b_note}; decode "
+        f"{1e3 * b / run.decode_tok_s:.2f} ms a step; f32 on the same "
+        f"weights upcast, decode (kernel) vs its own teacher-forced forward "
+        f"{rel:.3e} of max|logit| (limit {P15_FWD_REL}), f32 prefill "
+        f"{run32.prefill_ms:.2f} ms, decode "
+        f"{1e3 * b / run32.decode_tok_s:.2f} ms a step, gqa_decode "
+        f"{c32['gqa_decode']} ({smi})")
+    if rel >= P15_FWD_REL:
+        fail(f"(b) f32 decode logits {rel:.3e} of max|logit| from the "
+             f"teacher-forced forward (limit {P15_FWD_REL})")
+    del p32, run32, f32
+    torch.cuda.empty_cache()
+    return notes, c32["gqa_decode"]
+
+
+@contextlib.contextmanager
+def _p15_memory(params, frontends, seed=150):
+    """Every VLM cache built inside holds in each slot the cross K/V of
+    one random frontend (``_p15_frontend``, seed ``seed`` + the caches
+    built so far; appended to ``frontends``), as ``prefill`` computes
+    them. The engine never writes the memory (the reference's engine
+    serves tokens only), so a pool's cross layers would attend zeros;
+    with these rows they attend a frontend, the f32 truth can be
+    computed, and a swap that restores them has bits to restore (a
+    rebuilt pool's rows hold another frontend's)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    orig = M.init_cache
+    cross = M._unstack(params["cross"])
+
+    def init_cache(cfg, *a, **kw):
+        cache = orig(cfg, *a, **kw)
+        if "xk" in cache:
+            fe = _p15_frontend(cfg, 1, cache["xk"].dtype,
+                               seed=seed + len(frontends))
+            frontends.append(fe)
+            for g, cp in enumerate(cross):
+                k, v = L._kv(cp["xattn"], cfg, fe)
+                cache["xk"][g].copy_(k.expand_as(cache["xk"][g]))
+                cache["xv"][g].copy_(v.expand_as(cache["xv"][g]))
+        return cache
+    M.init_cache = init_cache
+    try:
+        yield
+    finally:
+        M.init_cache = orig
+
+
+def _p15_requests(tokenizer):
+    """(c) two short prompts (rids 0-1) and two in-band ones for C&R
+    (20-21), P15_NEW new tokens each: all served by the short pool."""
+    import numpy as np
+    from repro_torch.serving.pools import GatewayRequest
+    rng = np.random.default_rng(15)
+    reqs = [GatewayRequest(i, varied_prompt(rng, n, tokenizer), P15_NEW)
+            for i, n in enumerate(P15_SHORT)]
+    reqs += [GatewayRequest(20 + i, varied_prompt(rng, n, tokenizer),
+                            P15_NEW, category="rag")
+             for i, n in enumerate(P15_INBAND)]
+    return reqs
+
+
+def _p15_fleet_run(cfg, params, impl, event=None, held=None,
+                   pad_from=None):
+    """P15's stream through phase 5's dense fleet at contexts 256 / 2048
+    (``_p9_serve``) with ``decode_impl=impl``, each cache's cross memory
+    a frontend's (``_p15_memory``), every emitted token's logits logged,
+    decode and prefill dispatches timed, every swap-in read back
+    (``_restore_probe``; a rebuilt engine's row tail past its old context
+    ``pad_from[engine]``); ``held``: each decode kernel launch shape held
+    against its plain version; ``event``: a reprovision. Returns the run
+    (``frontends[i]``: the i-th cache built's)."""
+    run = dict(prompts={}, log={}, decode=[], prefill=[], swaps=[],
+               frontends=[], pad_from={} if pad_from is None else pad_from)
+    with contextlib.ExitStack() as wraps:
+        wraps.enter_context(_p15_memory(params, run["frontends"]))
+        wraps.enter_context(_engine_prompts(run["prompts"]))
+        wraps.enter_context(_decode_timer(run["decode"]))
+        wraps.enter_context(_prefill_timer(run["prefill"]))
+        wraps.enter_context(_restore_probe(run["swaps"], run["pad_from"]))
+        if held is not None:
+            wraps.enter_context(_live_kernel_hold(held))
+        served = _p9_serve(cfg, params, False, run["log"], event=event,
+                           reqs=_p15_requests, new=P15_NEW,
+                           decode_impl=impl, long_ctx=P15_LONG_CTX,
+                           c_chunk=P15_C_CHUNK)
+    run.update(served)
+    return run
+
+
+def _p15_fleet_rows(run, fe):
+    """A fleet run's requests as ``_p15_truth`` takes them, on the short
+    pool's frontend ``fe`` (every P15 request is served there). The
+    engine prefills the prompt and then decodes its last token again at
+    position len(prompt) (``_batch_path``'s convention), so the history
+    of output token j is prompt + [prompt[-1]] + out[:j]."""
+    return [(list(run["prompts"][rid]) + [run["prompts"][rid][-1]], toks,
+             run["log"][rid], fe) for rid, toks in run["tokens"].items()]
+
+
+class _P15Reprovision:
+    """(d) once a short-pool slot decodes, the short pool goes to
+    P15_TO's c_max (n_max kept), mid-stream."""
+
+    def __init__(self):
+        self.pad_from, self.info = {}, None
+
+    def pending(self):
+        return False
+
+    def on_round(self, rt, rounds, rebuilt):
+        short = rt.engines[rt.router.names[0]]
+        decoding = any(short.slot_req[s] is not None
+                       and not short.slot_prefill_left[s]
+                       and 0 < len(short.slot_out[s]) < P15_NEW
+                       for s in range(short.n_max))
+        old_c = short.c_max
+        del short
+        if self.info is None and decoding:
+            self.info = rt.reprovision(rt.router.names[0], **P15_TO)
+            new = rt.engines[rt.router.names[0]]
+            self.pad_from[new] = old_c
+            rebuilt.add(new)
+            del new
+
+
+def _p15_fleet(cfg, params):
+    """(c) the K=2 fleet behind the C&R gateway, kernel and torch path.
+    Returns (kernel run, torch run, held)."""
+    held = {}
+    kern = _p15_fleet_run(cfg, params, "kernel", held=held)
+    c = kern["counts"]
+    if c["textrank"] < len(P15_INBAND) or c["paged_decode"]:
+        fail(f"(c) launches {c}: TextRank once per in-band request, no "
+             f"paged kernel")
+    need = {("gqa_decode", (4, P15_LONG_CTX // 8))}
+    if not need <= set(held):
+        fail(f"(c) decode kernel held at {sorted(held)}, not {sorted(need)}")
+    plain = _p15_fleet_run(cfg, params, "torch")
+    if plain["frontends"][0].ne(kern["frontends"][0]).any():
+        fail("(c) the two runs' short pools hold other frontends")
+    kern["flips"] = _bf16_flips(plain["log"], kern["log"], plain["tokens"],
+                                kern["tokens"], "(c) kernel vs torch path",
+                                tag="vlm", limit=None)
+    return kern, plain, held
+
+
+def _p15_report_c(cfg, kern, plain, held, truth, smi):
+    dec_ms, cols, col_ms = _fleet_ms(kern)
+    c = kern["counts"]
+    lens = sorted(len(t) for t in kern["prompts"].values())
+    hs = {f"B={k[1][0]} S={k[1][1]}": f"{v[0]:.3e}" for k, v in held.items()}
+    print(f"[vlm] (c) {cfg.name} {cfg.num_layers} layers, phase 5's K=2 "
+          f"dense fleet at contexts {P15_LONG_CTX // 8} / {P15_LONG_CTX}, "
+          f"c_chunk {P15_C_CHUNK}, n_max 4, decode_k 4, each pool's cross "
+          f"memory a random frontend's: prompts {lens} tokens (after C&R) "
+          f"+ {P15_NEW} new: {kern['secs']:.2f} s (logits logged), "
+          f"{kern['rounds']} drive rounds; decode {dec_ms:.2f} ms per "
+          f"dispatch ({len(kern['decode'])}); per-token prefill {cols} "
+          f"token columns, {col_ms:.2f} ms a column; torch path "
+          f"{plain['secs']:.2f} s; {kern['flips']} near-tie divergences; "
+          f"{truth}; launches gqa_decode {c['gqa_decode']}, "
+          f"textrank {c['textrank']}; kernel held on live inputs: {hs} "
+          f"({smi})")
+
+
+def _p15_reprovision(cfg, params, smi):
+    """(d) the fleet's short pool reprovisioned mid-stream (module
+    docstring). Returns the launches."""
+    ev = _P15Reprovision()
+    run = _p15_fleet_run(cfg, params, "kernel", event=ev,
+                         pad_from=ev.pad_from)
+    ins = [b for d, b, _ in run["swaps"] if d == "in"]
+    if ev.info is None or not ins or ev.info["rerouted"]:
+        fail(f"(d) reprovision {ev.info}: {len(ins)} swap-ins")
+    d = run["counts"]
+    print(f"[vlm] (d) the short pool reprovisioned mid-stream to {P15_TO} "
+          f"(n_max kept): checkpointed {ev.info['checkpointed']}, migrated "
+          f"{ev.info['migrated']}, rerouted {ev.info['rerouted']}; "
+          f"{len(ins)} swap-ins ({sum(ins) / 2 ** 20:.1f} MiB) read back "
+          f"bitwise, the cross memory (F = {cfg.frontend_tokens} rows, the "
+          f"rebuilt pool's own rows another frontend's) included; every "
+          f"request completes ({run['secs']:.2f} s); launches gqa_decode "
+          f"{d['gqa_decode']}, textrank {d['textrank']} ({smi})")
+    return d
+
+
+def _p15_card_vs_cpu():
+    """(e) reduced f32 (4 layers, 2 KV heads: two groups), the card
+    against the CPU (module docstring). Returns the card's launches."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.training import tree
+    cfg = dataclasses.replace(get_config(P15_ARCH).reduced(),
+                              dtype="float32", num_layers=4, num_kv_heads=2)
+    params = M.init_params(cfg, seed=0, device=DEVICE)
+    _p15_gates(params)
+    cpu = _to_cpu(params)
+    gen = torch.Generator()
+    gen.manual_seed(15)
+    toks = torch.randint(1, cfg.vocab_size, (3, 40), generator=gen)
+    fe = torch.randn((3, cfg.frontend_tokens, cfg.d_model),
+                     generator=gen) * 0.02
+    worst = [0.0]
+
+    def close(got, want, label):
+        err = float((got.cpu() - want).abs().max()
+                    / max(float(want.abs().max()), 1e-30))
+        worst[0] = max(worst[0], err)
+        if err > P15_CPU_TOL:
+            fail(f"(e) {label} card vs CPU {err:.3g} of max (limit "
+                 f"{P15_CPU_TOL})")
+
+    def rows(cache, b):
+        return [t.select(1, b).clone() for t in tree.leaves(cache)]
+    _reset_launches()
+    batch = {"tokens": toks[:, :32], "frontend": fe, "cache_len": 64}
+    kl, kc = M.prefill(params, cfg, {k: v.to(DEVICE) if k != "cache_len"
+                                     else v for k, v in batch.items()})
+    cl, cc = M.prefill(cpu, cfg, batch)
+    close(kl, cl, "prefill logits")
+    for i, (a, b) in enumerate(zip(tree.leaves(kc), tree.leaves(cc))):
+        close(a, b, f"prefill cache leaf {i}")
+    k0 = tree.map(lambda t: t.clone(), kc)
+    c0 = tree.map(lambda t: t.clone(), cc)
+    kt, ct = kl.argmax(-1)[:, None], cl.argmax(-1)[:, None]
+    same = [True] * 3
+    for j in range(8):
+        kl, kc = M.decode_step(params, cfg, kt, kc, 32 + j)
+        cl, cc = M.decode_step(cpu, cfg, ct, cc, 32 + j)
+        for r in range(3):
+            if same[r]:
+                close(kl[r], cl[r], f"decode step {j} row {r}")
+        kt, ct = kl.argmax(-1)[:, None], cl.argmax(-1)[:, None]
+        for r in range(3):
+            if same[r] and int(kt[r]) != int(ct[r]):
+                top = torch.topk(cl[r], 2).values.tolist()
+                if top[0] - top[1] >= P15_CPU_GAP:
+                    fail(f"(e) row {r} step {j}: tokens differ away from a "
+                         f"CPU near-tie ({top})")
+                same[r] = False
+    row2 = rows(kc, 2)
+    M.decode_step(params, cfg, kt, kc, 40,
+                  active=torch.tensor([True, True, False], device=DEVICE))
+    if not all(torch.equal(a, b) for a, b in zip(rows(kc, 2), row2)):
+        fail("(e) an inactive decode row's cache changed")
+    start, lengths = torch.tensor([32, 32, 32]), torch.tensor([8, 5, 0])
+    idle = rows(k0, 2)
+    kl, k0 = M.prefill_chunk(params, cfg, toks[:, 32:].to(DEVICE), k0,
+                             start.to(DEVICE), lengths.to(DEVICE))
+    cl, c0 = M.prefill_chunk(cpu, cfg, toks[:, 32:], c0, start, lengths)
+    close(kl[:2], cl[:2], "prefill_chunk logits")
+    for i, (a, b) in enumerate(zip(tree.leaves(k0), tree.leaves(c0))):
+        close(a, b, f"prefill_chunk cache leaf {i}")
+    if not all(torch.equal(a, b) for a, b in zip(rows(k0, 2), idle)):
+        fail("(e) an idle prefill_chunk row's cache changed")
+    counts = _launch_counts(("gqa_decode",), "(e)")
+    print(f"[vlm] (e) reduced {cfg.name} f32 at {cfg.num_layers} layers (2 "
+          f"groups, q_per_kv {cfg.q_per_kv}), gates {P15_GATES}, a random "
+          f"frontend, card vs CPU (prefill, 8 greedy decode steps, a masked "
+          f"step, prefill_chunk with an idle row; logits and every cache "
+          f"leaf, xk / xv included): within {worst[0]:.3g} of max (limit "
+          f"{P15_CPU_TOL}), {sum(not s for s in same)} near-tie flips, idle "
+          f"and inactive rows bitwise; gqa_decode {counts['gqa_decode']}")
+    del params, cpu, kc, k0
+    torch.cuda.empty_cache()
+    return counts["gqa_decode"]
+
+
+def phase_vlm(smi):
+    """Phase 15: the VLM family (module docstring). Returns the
+    launches."""
+    import torch
+    t0 = time.perf_counter()
+    parts = [t0]
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = _p15_model()
+    runs, counts, held, flips = _p15_launcher(cfg, params)
+    n = counts["gqa_decode"]
+    parts.append(time.perf_counter())
+    tf = _p15_teacher(cfg, params)
+    n += tf[-1]
+    parts.append(time.perf_counter())
+    kfl, pfl, fheld = _p15_fleet(cfg, params)
+    parts.append(time.perf_counter())
+    notes, n32 = _p15_f32(cfg, params, {
+        "a": runs, "b": tf, "c": (kfl, pfl, kfl["frontends"][0])}, smi)
+    n += n32
+    _p15_report_a(cfg, params, runs, counts, held, flips, notes["a"], smi)
+    print(notes["b"])
+    _p15_report_c(cfg, kfl, pfl, fheld, notes["c"], smi)
+    parts.append(time.perf_counter())
+    d = _p15_reprovision(cfg, params, smi)
+    parts.append(time.perf_counter())
+    del params, runs, tf, pfl
+    torch.cuda.empty_cache()
+    n += _p15_card_vs_cpu()
+    parts.append(time.perf_counter())
+    peak = torch.cuda.max_memory_allocated()
+    out = {"gqa_decode": n + kfl["counts"]["gqa_decode"] + d["gqa_decode"],
+           "textrank": kfl["counts"]["textrank"] + d["textrank"]}
+    print(f"[vlm] phase 15: {parts[-1] - t0:.1f} s ((a) "
+          f"{parts[1] - parts[0]:.1f} with the init, (b) "
+          f"{parts[2] - parts[1]:.1f}, (c) {parts[3] - parts[2]:.1f}, the "
+          f"f32 truth and (b) in f32 {parts[4] - parts[3]:.1f}, (d) "
+          f"{parts[5] - parts[4]:.1f}, (e) {parts[6] - parts[5]:.1f}); peak "
+          f"device memory {peak / 1e9:.2f} GB; launches {out} ({smi})")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5717,6 +6335,8 @@ def main() -> int:
     for name, n in phase_moe(smi).items():
         launches[name] += n
     for name, n in phase_recurrent(smi).items():
+        launches[name] += n
+    for name, n in phase_vlm(smi).items():
         launches[name] += n
     sources = {"gqa_decode": ("src/repro_torch/kernels/csrc/gqa_decode.cu",
                               "src/repro/kernels/gqa_decode.py:29"),

@@ -97,16 +97,19 @@ class BatchRun:
 
 
 def serve_batch(args, params=None, tokens=None,
-                decode_impl: str = "kernel") -> BatchRun:
+                decode_impl: str = "kernel", frontend=None) -> BatchRun:
     """The batch launcher: prefill ``--batch`` prompts of
     ``--prompt-len`` tokens into a cache of prompt + ``--new-tokens``,
     then ``new_tokens - 1`` greedy decode steps at the uniform position
-    ``prompt_len + t``. ``params`` / ``tokens`` default to
-    ``init_params(seed=0)`` and prompt ids drawn from a generator seeded
-    with 0 on the device; a caller may pass its own (the tests pass the
-    JAX launcher's). ``decode_impl``: decode attention through the CUDA
-    kernel (its plain version on the CPU) or the torch ``_sdpa`` path,
-    which a caller may ask for to hold the kernel against it."""
+    ``prompt_len + t``. A model with a frontend (VLM) gets ``frontend``,
+    (B, F, d_model), or the reference launcher's stub, ``ones((B,
+    frontend_tokens, d_model)) * 0.01`` in the model dtype. ``params`` /
+    ``tokens`` default to ``init_params(seed=0)`` and prompt ids drawn
+    from a generator seeded with 0 on the device; a caller may pass its
+    own (the tests pass the JAX launcher's). ``decode_impl``: decode
+    attention through the CUDA kernel (its plain version on the CPU) or
+    the torch ``_sdpa`` path, which a caller may ask for to hold the
+    kernel against it."""
     if args.mesh not in ("", "1x1"):
         raise NotImplementedError(
             f"--mesh {args.mesh}: sharded serving is a later slice of the "
@@ -121,12 +124,18 @@ def serve_batch(args, params=None, tokens=None,
         tokens = torch.randint(1, cfg.vocab_size,
                                (args.batch, args.prompt_len), generator=gen,
                                device=device)
+    batch = {"tokens": tokens, "cache_len": args.prompt_len + args.new_tokens}
+    if cfg.frontend_tokens and frontend is None:
+        frontend = torch.ones((args.batch, cfg.frontend_tokens, cfg.d_model),
+                              dtype=params["embed"].dtype,
+                              device=device) * 0.01
+    if frontend is not None:
+        batch["frontend"] = frontend
     sync = (torch.cuda.synchronize if device.type == "cuda"
             else lambda: None)
     sync()
     t0 = time.perf_counter()
-    logits, cache = M.prefill(params, cfg, {
-        "tokens": tokens, "cache_len": args.prompt_len + args.new_tokens})
+    logits, cache = M.prefill(params, cfg, batch)
     nxt = logits.argmax(-1)[:, None]
     sync()
     t1 = time.perf_counter()

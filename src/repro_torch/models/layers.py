@@ -3,8 +3,8 @@
 The dense-GQA subset of ``repro/models/layers.py``: norms, rotary
 embedding, MLP, attention (full-sequence ``attention`` with its
 block-causal ``_flash_causal`` above ``FLASH_MIN_SEQ``, the chunk path's
-``_sdpa`` and single-token decode, over a plain or a windowed ring
-cache), the int8 KV quantizer, and the dense (fp or int8) and paged (fp)
+``_sdpa``, the VLM's ``cross_attention`` and single-token decode, over a
+plain or a windowed ring cache), the int8 KV quantizer, and the dense (fp or int8) and paged (fp)
 KV caches with their masked writes. Layouts
 match the JAX package at every public function: activations
 ``(B, S, D)``, heads ``(B, S, H, hd)``, caches token-major.
@@ -137,11 +137,15 @@ def mlp(p: Params, cfg: ModelConfig, x):
 # attention
 # ---------------------------------------------------------------------------
 def _qkv(p, cfg: ModelConfig, x, x_kv):
+    return (_q(p, cfg, x), *_kv(p, cfg, x_kv))
+
+
+def _q(p, cfg: ModelConfig, x):
+    """The query half of :func:`_qkv`."""
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
-    q = q.reshape(*x.shape[:-1], cfg.num_heads, cfg.resolved_head_dim)
-    return (q, *_kv(p, cfg, x_kv))
+    return q.reshape(*x.shape[:-1], cfg.num_heads, cfg.resolved_head_dim)
 
 
 def _kv(p, cfg: ModelConfig, x_kv):
@@ -171,6 +175,15 @@ def _sdpa(q, k, v, mask, q_per_kv: int):
     w = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bgqst,btgd->bsgqd", w, v)
     return out.reshape(b, s, h * hd)
+
+
+def cross_attention(p: Params, cfg: ModelConfig, x, memory, kv=None):
+    """VLM / encoder-decoder cross-attention of x (B, S, D) over memory
+    (B, F, D): no rope, no mask. ``kv``: the memory's (K, V) where the
+    caller has already projected them (prefill stores them in the
+    cache)."""
+    k, v = _kv(p, cfg, memory) if kv is None else kv
+    return _sdpa(_q(p, cfg, x), k, v, None, cfg.q_per_kv) @ p["wo"]
 
 
 def causal_mask(s: int, t: int, window: int = 0, offset: int = 0,

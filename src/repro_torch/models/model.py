@@ -41,8 +41,25 @@ HYBRID, one dense fp KV entry per shared-block application (n_groups,
 B, S, Hkv, hd). ``forward`` returns a zero aux; ``prefill_chunk``,
 ``verify_step`` and ``mixed_step`` take the masked per-token decode
 loop; the paged pool refuses both families, with the reference's
-reason. VLM, ENCDEC and MLA raise NotImplementedError everywhere: they
-are later slices of the port.
+reason.
+
+VLM (llama-3.2-vision) interleaves a gated cross-attention layer over a
+stubbed frontend (``batch["frontend"]``, (B, F, D) patch embeddings)
+after every ``cross_attn_every`` decoder layers. Its parameters keep the
+reference's layout: ``layers`` grouped (n_groups, every, ...) and
+``cross`` (n_groups, ...) with scalar ``gate`` / ``gate_mlp`` per group
+(tanh-gated, zero at init as in the reference, so a fresh cross layer is
+the identity). Its cache does not: the self-attention K/V stay flat,
+(num_layers, B, S, Hkv, hd) as the dense decoder's, where the reference
+groups them (n_groups, every, B, S, ...), so every row mover
+(``layers.gather_slot_row``, the engine's host tier, ``_adopt_state``)
+and ``decode_index`` find the batch on axis 1 and the row on axis 2
+whatever the family; the cross memory's K/V are ``xk`` / ``xv``,
+(n_groups, B, F, Hkv, hd), batch on axis 1 too. Decode reads the cached
+memory (the reference's decode query carries no ``bq``); the chunk,
+verify and mixed steps take the per-token loop; the paged pool refuses
+it. ENCDEC and MLA raise NotImplementedError everywhere: they are later
+slices of the port.
 """
 from __future__ import annotations
 
@@ -62,21 +79,22 @@ from repro_torch.training import tree
 Params = Dict[str, Any]
 
 # the slice of the port that brings each other family
-FAMILY_SLICES = {
-    VLM: "the cross-attention slice (VLM and encoder-decoder)",
-    ENCDEC: "the cross-attention slice (VLM and encoder-decoder)"}
+FAMILY_SLICES = {ENCDEC: "the encoder-decoder slice"}
 
 RECURRENT = (SSM, HYBRID)
+# families whose chunk / verify steps run the masked per-token loop
+PER_TOKEN = RECURRENT + (VLM,)
 
 
 def check_supported(cfg: ModelConfig, paged: bool = False) -> None:
-    """Raise NotImplementedError for what the port does not run: VLM,
-    ENCDEC and MLA (a later slice each), and on the paged pool
-    (``paged``) the recurrent families, a window or an int8 cache, which
-    the JAX package refuses there too, for the same reasons."""
+    """Raise NotImplementedError for what the port does not run: ENCDEC
+    and MLA (a later slice each), and on the paged pool
+    (``paged``) the recurrent families and VLM, a window or an int8
+    cache, which the JAX package refuses there too, for the same
+    reasons."""
     if cfg.family in FAMILY_SLICES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port runs dense, MoE and "
+            f"family {cfg.family!r}: the port runs dense, MoE, VLM and "
             f"recurrent decoders; {FAMILY_SLICES[cfg.family]} is a later "
             "slice of the port")
     if cfg.mla is not None:
@@ -109,7 +127,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     """Random parameters with the JAX package's distributions (embedding
     N(0, 0.02^2), projections N(0, 1/in_dim), ``wo`` at half that std,
     norms at one; an MoE layer's leaves as ``moe.init_moe`` draws them,
-    a recurrent layer's as ``ssm.init_*``), in the reference's layout,
+    a recurrent layer's as ``ssm.init_*``; a VLM cross layer's gates at
+    zero), in the reference's layout,
     drawn from a ``torch.Generator`` seeded with ``seed``
     on ``device``. The numbers differ from JAX's for the same seed; the
     tests carry JAX's parameters across with params.from_jax_numpy."""
@@ -152,12 +171,25 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
                     gen, cfg, (n_groups,), dtype, device)}
             for i, kind in enumerate(pattern)}
         return p
-    p["layers"] = {"ln1": ones(n, d), "ln2": ones(n, d),
-                   "attn": _init_attention(gen, cfg, (n,), dtype, device)}
+    lead = (n,)
+    if cfg.family == VLM:
+        n_groups = n // cfg.cross_attn_every
+        lead = (n_groups, cfg.cross_attn_every)
+        p["cross"] = {"ln": ones(n_groups, d),
+                      "xattn": _init_attention(gen, cfg, (n_groups,), dtype,
+                                               device),
+                      "gate": torch.zeros(n_groups, dtype=dtype,
+                                          device=device),
+                      "ln_mlp": ones(n_groups, d),
+                      "mlp": _init_mlp(gen, cfg, (n_groups,), dtype, device),
+                      "gate_mlp": torch.zeros(n_groups, dtype=dtype,
+                                              device=device)}
+    p["layers"] = {"ln1": ones(*lead, d), "ln2": ones(*lead, d),
+                   "attn": _init_attention(gen, cfg, lead, dtype, device)}
     if cfg.moe is not None:
         p["layers"]["moe"] = MOE_MOD.init_moe(gen, cfg, n, dtype, device)
     else:
-        p["layers"]["mlp"] = _init_mlp(gen, cfg, (n,), dtype, device)
+        p["layers"]["mlp"] = _init_mlp(gen, cfg, lead, dtype, device)
     return p
 
 
@@ -200,6 +232,14 @@ def _unstack(stacked) -> List:
     flat = [t.unbind(0) for t in tree.leaves(stacked)]
     return [tree.unflatten(stacked, [f[i] for f in flat])
             for i in range(len(flat[0]))]
+
+
+def _layer_list(params: Params, cfg: ModelConfig) -> List:
+    """The decoder layers' per-layer views in order; a VLM's grouped
+    (n_groups, every, ...) leaves read group by group."""
+    if cfg.family == VLM:
+        return [lp for g in _unstack(params["layers"]) for lp in _unstack(g)]
+    return _unstack(params["layers"])
 
 
 def _head(params: Params, cfg: ModelConfig, x):
@@ -258,13 +298,14 @@ def _seq_inputs(params, tokens):
 def forward(params: Params, cfg: ModelConfig, batch: Dict, remat=False,
             window: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Teacher-forcing full-sequence pass. batch: {"tokens": (B, S) int}.
-    Returns (logits (B, S, V), aux): aux is the MoE load-balancing loss
-    summed over layers, a 0-d f32 (zero for the dense decoder and the
-    recurrent families). ``remat`` (for training under autograd):
-    "layer" checkpoints each decoder block (a recurrent model: each
-    Mamba2 layer and group, each xLSTM pattern group), True / "full" the
-    whole pass, False / None nothing (the JAX package's
+    """Teacher-forcing full-sequence pass. batch: {"tokens": (B, S) int},
+    and for VLM "frontend" (B, F, D) in the model dtype. Returns (logits
+    (B, S, V), aux): aux is the MoE load-balancing loss summed over
+    layers, a 0-d f32 (zero for the dense decoder, VLM and the recurrent
+    families). ``remat`` (for training under autograd): "layer"
+    checkpoints each decoder block (a VLM's cross blocks too; a recurrent
+    model: each Mamba2 layer and group, each xLSTM pattern group), True /
+    "full" the whole pass, False / None nothing (the JAX package's
     ``LAYER_REMAT`` and ``jax.checkpoint`` of ``forward``). ``window``:
     sliding-window attention over that many positions
     (``cfg.attention_window`` when None; 0 is full attention)."""
@@ -278,12 +319,43 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict, remat=False,
         x = _hybrid_forward(params, cfg, x, positions, w, layer)
     elif cfg.family == SSM:
         x = _ssm_forward(params, cfg, x, layer)
+    elif cfg.family == VLM:
+        x = _vlm_forward(params, cfg, x, positions, batch["frontend"], w,
+                         layer)
     else:
         x, lb = _run_decoder_stack(params["layers"], cfg, x, positions,
                                    remat=layer, window=w)
         return _head(params, cfg, x), lb
     return _head(params, cfg, x), torch.zeros((), dtype=torch.float32,
                                               device=x.device)
+
+
+# -- VLM ----------------------------------------------------------------------
+def _cross_block(cp, cfg: ModelConfig, x, memory, kv=None):
+    """A gated cross layer: tanh(gate) x cross-attention over ``memory``
+    (``kv``: its K/V, already projected), then tanh(gate_mlp) x its MLP,
+    each on its normed residual."""
+    h = L.rmsnorm(x, cp["ln"], cfg.norm_eps)
+    return _gated_residuals(cp, cfg, x, L.cross_attention(
+        cp["xattn"], cfg, h, memory, kv))
+
+
+def _gated_residuals(cp, cfg: ModelConfig, x, a):
+    """x plus tanh(gate) x the cross-attention output ``a``, then plus
+    tanh(gate_mlp) x the MLP of that residual, normed."""
+    x = x + torch.tanh(cp["gate"]) * a
+    h = L.rmsnorm(x, cp["ln_mlp"], cfg.norm_eps)
+    return x + torch.tanh(cp["gate_mlp"]) * L.mlp(cp["mlp"], cfg, h)
+
+
+def _vlm_forward(params, cfg: ModelConfig, x, positions, memory, window: int,
+                 remat: bool = False):
+    """Each group's decoder blocks, then its cross layer over the
+    frontend; ``remat`` checkpoints each block and each cross layer."""
+    for lps, cp in zip(_unstack(params["layers"]), _unstack(params["cross"])):
+        x = _run_decoder_stack(lps, cfg, x, positions, remat, window)[0]
+        x = _maybe_remat(remat, _cross_block, cp, cfg, x, memory)
+    return x
 
 
 # -- the recurrent families ---------------------------------------------------
@@ -373,18 +445,29 @@ def _ssm_forward(params, cfg: ModelConfig, x, remat: bool = False):
 # caches
 # ===========================================================================
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               device="cuda") -> Params:
+               device="cuda", frontend_len: Optional[int] = None) -> Params:
     """Dense KV cache for ``batch`` slots of ``cache_len`` tokens (int8
     values with per-token scales when cfg.kv_cache_dtype == "int8"); with
     ``cfg.attention_window`` a ring of min(cache_len, window) entries, as
-    in the JAX package."""
+    in the JAX package. VLM adds the cross memory's K/V, zeros, "xk" /
+    "xv" (n_groups, B, F, Hkv, hd) with F = ``frontend_len`` or
+    ``cfg.frontend_tokens``; its self-attention K/V stay flat (module
+    docstring)."""
     check_supported(cfg)
     eff = min(cache_len, cfg.attention_window) if cfg.attention_window \
         else cache_len
     if cfg.family in RECURRENT:
         return _recurrent_cache(cfg, batch, eff, device)
-    return {"kv": L.init_kv_cache(cfg, cfg.num_layers, batch, eff,
-                                  device=device)}
+    cache = {"kv": L.init_kv_cache(cfg, cfg.num_layers, batch, eff,
+                                   device=device)}
+    if cfg.family == VLM:
+        shape = (cfg.num_layers // cfg.cross_attn_every, batch,
+                 frontend_len or cfg.frontend_tokens, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        for name in ("xk", "xv"):
+            cache[name] = torch.zeros(shape, dtype=L.torch_dtype(cfg.dtype),
+                                      device=device)
+    return cache
 
 
 def _recurrent_cache(cfg: ModelConfig, batch: int, eff: int, device):
@@ -427,35 +510,44 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
 def prefill(params: Params, cfg: ModelConfig, batch: Dict,
             window: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
     """Full-prompt prefill. batch: {"tokens": (B, S) int, optional
-    "cache_len" (default S)}. Returns (last-token logits (B, V), a new
-    dense cache of ``cache_len`` tokens, or of the config's window when
-    that is shorter, holding the prompt's K/V; a cache shorter than S
-    keeps the last entries in ring layout). ``window`` as in
+    "cache_len" (default S); VLM: "frontend" (B, F, D)}. Returns
+    (last-token logits (B, V), a new dense cache of ``cache_len`` tokens,
+    or of the config's window when that is shorter, holding the prompt's
+    K/V; a cache shorter than S keeps the last entries in ring layout;
+    VLM: and the frontend's cross K/V, F rows). ``window`` as in
     :func:`forward`."""
     check_supported(cfg)
     tokens = batch["tokens"]
+    memory = batch.get("frontend")
     cache = init_cache(cfg, tokens.shape[0],
                        batch.get("cache_len", tokens.shape[1]),
-                       device=params["embed"].device)
-    x = _fill_cache(params, cfg, tokens, cache, _window(cfg, window))
+                       device=params["embed"].device,
+                       frontend_len=None if memory is None
+                       else memory.shape[1])
+    x = _fill_cache(params, cfg, tokens, cache, _window(cfg, window), memory)
     return _head(params, cfg, x[:, -1:])[:, 0], cache
 
 
-def _fill_cache(params, cfg, tokens, cache, window: int = 0):
+def _fill_cache(params, cfg, tokens, cache, window: int = 0, memory=None):
     """Run the stack, storing each layer's K/V into the cache: K/V are
     recomputed from the hidden state entering the block (one extra K/V
     product per layer, as in the JAX package). A cache of ``eff`` >= S
     entries takes them zero-padded; a shorter one (a ring) the last
     ``eff`` rolled by S % eff, so position p sits at p % eff. An int8
     cache quantizes after the padding or the roll (padding tokens get
-    values 0 and the floor scale). Returns the final hidden state."""
+    values 0 and the floor scale). A VLM stores, after each group, its
+    cross layer's K/V of ``memory`` (the frontend) into "xk" / "xv".
+    Returns the final hidden state."""
     x, positions = _seq_inputs(params, tokens)
     if cfg.family == HYBRID:
         return _hybrid_fill(params, cfg, x, positions, cache, window)
     if cfg.family == SSM:
         return _ssm_fill(params, cfg, x, cache)
     s_len, eff = tokens.shape[1], cache["kv"]["k"].shape[2]
-    for lp, kv in zip(_unstack(params["layers"]), _unstack(cache["kv"])):
+    every = cfg.cross_attn_every if cfg.family == VLM else 0
+    cross = _unstack(params["cross"]) if every else []
+    for i, (lp, kv) in enumerate(zip(_layer_list(params, cfg),
+                                     _unstack(cache["kv"]))):
         h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
         k, v = L._kv(lp["attn"], cfg, h)
         k = L.apply_rope(k, positions, cfg.rope_theta)
@@ -469,6 +561,12 @@ def _fill_cache(params, cfg, tokens, cache, window: int = 0):
                 kv[name + "_scale"].copy_(scale)
             kv[name].copy_(t)           # the cache's own layer view
         x = _decoder_block(lp, cfg, x, positions, window)[0]
+        if every and (i + 1) % every == 0:
+            g = i // every
+            xk, xv = L._kv(cross[g]["xattn"], cfg, memory)
+            cache["xk"][g].copy_(xk)
+            cache["xv"][g].copy_(xv)
+            x = _cross_block(cross[g], cfg, x, memory, (xk, xv))
     return x
 
 
@@ -576,8 +674,9 @@ def decode_step(params: Params, cfg: ModelConfig, token, cache: Params, pos,
     (init_cache, prefill), and with a window (``window``, or the
     config's when None) a ring. One :class:`layers.DecodeIndex` serves
     every layer. A recurrent model updates its states (inactive rows
-    keep theirs bit for bit) and, for HYBRID, the shared block's KV.
-    Returns (logits (B,V), cache)."""
+    keep theirs bit for bit) and, for HYBRID, the shared block's KV. A
+    VLM's cross layers attend the cached memory ("xk" / "xv"), which a
+    step never writes. Returns (logits (B,V), cache)."""
     check_supported(cfg)
     x = params["embed"][token.long()]
     if cfg.family == HYBRID:
@@ -589,13 +688,31 @@ def decode_step(params: Params, cfg: ModelConfig, token, cache: Params, pos,
         return _head(params, cfg, x)[:, 0], cache
     layer_kv = _unstack(cache["kv"])
     idx = L.decode_index(cfg, pos, layer_kv[0], active, _window(cfg, window))
-    for lp, kv in zip(_unstack(params["layers"]), layer_kv):
+    every = cfg.cross_attn_every if cfg.family == VLM else 0
+    cross = _unstack(params["cross"]) if every else []
+    for i, (lp, kv) in enumerate(zip(_layer_list(params, cfg), layer_kv)):
         h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
         a, _ = L.decode_attention(lp["attn"], cfg, h, kv, idx.pos,
                                   decode_impl=decode_impl, active=active,
                                   idx=idx)
         x = _ffn_residual(lp, cfg, x + a)[0]
+        if every and (i + 1) % every == 0:
+            g = i // every
+            x = _cross_decode(cross[g], cfg, x, cache["xk"][g],
+                              cache["xv"][g])
     return _head(params, cfg, x)[:, 0], cache
+
+
+def _cross_decode(cp, cfg: ModelConfig, x, xk, xv):
+    """A cross layer at decode: the new token's query (no ``bq``, as in
+    the reference's decode) against the cached memory K/V, (B, F, Hkv,
+    hd), through ``_sdpa``; the gates and the MLP as
+    :func:`_cross_block`."""
+    h = L.rmsnorm(x, cp["ln"], cfg.norm_eps)
+    q = (h @ cp["xattn"]["wq"]).reshape(x.shape[0], 1, cfg.num_heads, -1)
+    return _gated_residuals(cp, cfg, x, L._sdpa(q, xk, xv, None,
+                                                cfg.q_per_kv)
+                            @ cp["xattn"]["wo"])
 
 
 def paged_decode_step(params: Params, cfg: ModelConfig, token,
@@ -662,11 +779,11 @@ def prefill_chunk(params: Params, cfg: ModelConfig, tokens, cache: Params,
     lengths: (B,) valid tokens (0 => bitwise no-op row). Returns
     (logits after each row's last valid token (B, V), cache). Full
     attention runs the fused sequence-level chunk (``decode_impl`` is
-    unused there); a window (``window``, or the config's when None) and
-    the recurrent families the masked per-token decode loop, as in the
-    JAX package."""
+    unused there); a window (``window``, or the config's when None), VLM
+    and the recurrent families the masked per-token decode loop, as in
+    the JAX package."""
     check_supported(cfg)
-    if cfg.family in RECURRENT or _window(cfg, window):
+    if cfg.family in PER_TOKEN or _window(cfg, window):
         return _per_token_chunk(params, cfg, tokens, cache, start_pos,
                                 lengths, decode_impl, window)
     return _prefill_chunk_fused(params, cfg, tokens, cache, start_pos,
@@ -764,16 +881,16 @@ def verify_step(params: Params, cfg: ModelConfig, tokens, cache: Params,
     [last_tok, draft_1..draft_w] window in one call and return the logits
     at EVERY window position, so the caller can accept the longest draft
     prefix matching the model's own greedy argmax. It is
-    :func:`prefill_chunk`'s pass (the fused chunk, or with a window the
-    per-token loop) with the LM head over all L positions; ``lengths ==
-    0`` rows stay bitwise no-ops, and a rejected position's K/V is
-    overwritten by the next write there (not so on a ring: the engine
-    refuses speculation with a window; a recurrent state is advanced by
-    every position below ``lengths``). tokens: (B, L);
+    :func:`prefill_chunk`'s pass (the fused chunk, or with a window, VLM
+    or a recurrent model the per-token loop) with the LM head over all L
+    positions; ``lengths == 0`` rows stay bitwise no-ops, and a rejected
+    position's K/V is overwritten by the next write there (not so on a
+    ring: the engine refuses speculation with a window; a recurrent
+    state is advanced by every position below ``lengths``). tokens: (B, L);
     start_pos/lengths: (B,). Returns (logits (B, L, V), cache); positions
     past ``lengths`` and idle rows hold garbage the caller masks."""
     check_supported(cfg)
-    if cfg.family in RECURRENT or _window(cfg, window):
+    if cfg.family in PER_TOKEN or _window(cfg, window):
         return _per_token_chunk(params, cfg, tokens, cache, start_pos,
                                 lengths, decode_impl, window,
                                 all_logits=True)

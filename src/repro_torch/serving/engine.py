@@ -156,7 +156,8 @@ class ServeResult:
 class _PreemptedState:
     """Host checkpoint of a preempted slot. ``host_kv`` is the swap
     path's device->host copy of exactly the slot's blocks (paged: (L,
-    n_blocks, BLOCK_S, Hkv, hd) per leaf; dense: its cache row), or None
+    n_blocks, BLOCK_S, Hkv, hd) per leaf; dense: its cache row, every
+    leaf of :meth:`InferenceEngine._row_leaves`), or None
     on the recompute path, where ``replay`` is prefilled again: the
     prompt, the duplicated last prompt token, and all but the last
     generated token, i.e. the tokens whose KV sat at positions 0..pos-1."""
@@ -180,7 +181,7 @@ class InferenceEngine:
             overrides = dict(overrides, c_chunk=c_chunk)
         if overrides:
             scfg = scfg.replace(**overrides)
-        if cfg.family in M.RECURRENT:
+        if cfg.family not in ("dense", "moe", "vlm"):
             raise NotImplementedError(
                 "engine supports attention-family models (the paper serves "
                 "Llama-3-70B); SSM decode runs through models.decode_step")
@@ -425,9 +426,16 @@ class InferenceEngine:
             self.step()
         return self.results
 
+    def _row_leaves(self) -> Dict[str, torch.Tensor]:
+        """The dense cache's leaves by name, each with the slots on axis
+        1: the KV leaves and, for VLM, the cross memory's "xk" / "xv"."""
+        return dict(self.cache["kv"],
+                    **{k: a for k, a in self.cache.items() if k != "kv"})
+
     def cache_row(self, s: int) -> Dict[str, Dict[str, torch.Tensor]]:
         """Host copy of slot ``s``'s cache row, (L, S, Hkv, hd) per leaf
-        (paged: materialized through the block table)."""
+        (paged: materialized through the block table); VLM adds the slot's
+        cross memory, "xk" / "xv" (n_groups, F, Hkv, hd)."""
         if self.paged:
             idx = torch.as_tensor(self.block_tables[s]).long()
 
@@ -435,7 +443,9 @@ class InferenceEngine:
                 out = a[:, :self.num_blocks].cpu()[:, idx]
                 return out.reshape(a.shape[0], -1, *a.shape[3:])
             return {"kv": {k: gather(a) for k, a in self.cache["kv"].items()}}
-        return {"kv": {k: a[:, s].cpu() for k, a in self.cache["kv"].items()}}
+        return {k: ({n: a[:, s].cpu() for n, a in v.items()}
+                    if k == "kv" else v[:, s].cpu())
+                for k, v in self.cache.items()}
 
     # ----------------------------------------------------------------- step
     def step(self) -> None:
@@ -803,15 +813,16 @@ class InferenceEngine:
     def _swap_out(self, s: int) -> Dict[str, torch.Tensor]:
         """Device->host copy of slot ``s``'s KV: exactly its block-table
         entries (shared prefix blocks included: the originals may be
-        evicted before resume), or its dense cache row. The host copy
-        aliases no device memory."""
-        kv = self.cache["kv"]
+        evicted before resume), or its dense cache row (VLM: with its
+        cross memory). The host copy aliases no device memory."""
         if self.paged:
             blocks = self._slot_blocks[s]
             self.overload_stats["swapped_blocks"] += len(blocks)
             idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
-            return {k: L.gather_blocks(a, idx).cpu() for k, a in kv.items()}
-        return {k: L.gather_slot_row(a, s).cpu() for k, a in kv.items()}
+            return {k: L.gather_blocks(a, idx).cpu()
+                    for k, a in self.cache["kv"].items()}
+        return {k: L.gather_slot_row(a, s).cpu()
+                for k, a in self._row_leaves().items()}
 
     def _swap_in(self, s: int, qi: int, state: _PreemptedState) -> str:
         """Swap-path resume into free slot ``s``: allocate fresh blocks
@@ -820,7 +831,6 @@ class InferenceEngine:
         continues where the unloaded run would. Defers like a fresh
         admission when the pool cannot cover the (unchanged) worst case."""
         req = state.req
-        kv = self.cache["kv"]
         if self.paged:
             worst = self._worst_case_blocks(req)
             if worst > self._available_blocks() - self._reserved:
@@ -841,7 +851,7 @@ class InferenceEngine:
             if n:
                 idx = torch.tensor(fresh, dtype=torch.long,
                                    device=self.device)
-                for k, a in kv.items():
+                for k, a in self.cache["kv"].items():
                     L.scatter_blocks(a, state.host_kv[k].to(self.device), idx)
             # restored blocks are PRIVATE: the slot's prefix registrations
             # were decref'd at preemption, and publishing the copies would
@@ -849,7 +859,7 @@ class InferenceEngine:
             self._slot_hashes[s] = []
             self._slot_registered[s] = 0
         else:
-            for k, a in kv.items():
+            for k, a in self._row_leaves().items():
                 L.scatter_slot_row(a, state.host_kv[k].to(self.device), s)
         self.waiting.pop(qi)
         del self._preempted[req.rid]

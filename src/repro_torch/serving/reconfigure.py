@@ -95,11 +95,14 @@ def _adopt_state(state: _PreemptedState, src: InferenceEngine,
                  dst: InferenceEngine) -> _PreemptedState:
     """Fit a host checkpoint taken on ``src`` to ``dst``'s cache geometry.
     Paged blocks move unchanged (the block size is fleet-uniform); dense
-    rows, (L, S, ...) per leaf (``layers.gather_slot_row``; int8 scales
+    KV rows, (L, S, ...) per leaf (``layers.gather_slot_row``; int8 scales
     too), pad or truncate along axis 1 to ``dst``'s row length: c_max, or
-    the ring's min(c_max, window). (The JAX package fits a ring row to
-    c_max, which no ring of a window below the new c_max can take: its
-    swap-in raises.) Any other mismatch falls back to the recompute
+    the ring's min(c_max, window). A VLM row's cross memory ("xk" / "xv",
+    (n_groups, F, Hkv, hd)) moves unchanged: F is the frontend's length,
+    not the context's. (The JAX package fits a ring row to c_max, which
+    no ring of a window below the new c_max can take, and fits the cross
+    memory's F axis to c_max, which no cross cache of F rows can take:
+    both swap-ins raise.) Any other mismatch falls back to the recompute
     path: replay and last_tok are kept on both preemption paths so this
     conversion is always available."""
     if state.host_kv is None:
@@ -109,7 +112,8 @@ def _adopt_state(state: _PreemptedState, src: InferenceEngine,
         return state
     if not src.paged and not dst.paged:
         n = dst.cache["kv"]["k"].shape[2]
-        kv = {k: _fit_seq(h, 1, n) for k, h in state.host_kv.items()}
+        kv = {k: h if k in ("xk", "xv") else _fit_seq(h, 1, n)
+              for k, h in state.host_kv.items()}
         return dataclasses.replace(state, host_kv=kv)
     return dataclasses.replace(state, host_kv=None, n_blocks=0, pos=0)
 

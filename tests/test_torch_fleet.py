@@ -63,8 +63,9 @@ VERBATIM = ["configs/minitron_8b.py", "configs/llama3_70b.py",
             "configs/nemotron_4_15b.py", "configs/nemotron_4_340b.py",
             "configs/qwen1_5_32b.py", "configs/llama4_scout_17b_a16e.py",
             "configs/xlstm_350m.py", "configs/zamba2_1_2b.py",
-            "core/naming.py", "core/workload.py", "core/queueing.py",
-            "core/profiles.py", "core/planner.py", "core/compression.py",
+            "configs/llama_3_2_vision_11b.py", "core/naming.py",
+            "core/workload.py", "core/queueing.py", "core/profiles.py",
+            "core/planner.py", "core/compression.py",
             "core/router.py", "core/cost.py", "serving/tokenizer.py",
             "serving/draft.py", "sim/__init__.py", "sim/des.py",
             "core/empirical.py", "serving/metrics.py",
@@ -91,7 +92,7 @@ def test_copied_module_matches_original(rel):
 def test_config_copies_match():
     for name in ("minitron-8b", "llama3-70b", "nemotron-4-15b",
                  "nemotron-4-340b", "qwen1.5-32b", "llama4-scout-17b-a16e",
-                 "xlstm-350m", "zamba2-1.2b"):
+                 "xlstm-350m", "zamba2-1.2b", "llama-3.2-vision-11b"):
         a, b = jax_get_config(name), get_config(name)
         assert dataclasses.asdict(a) == dataclasses.asdict(b)
         assert dataclasses.asdict(a.reduced()) == \

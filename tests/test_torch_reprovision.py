@@ -154,7 +154,10 @@ def _state(rt):
 def _host_kv_close(jrt, trt) -> int:
     """Every swap-path checkpoint's host KV: the port's CPU tensors against
     JAX's numpy rows, same shape, within HOST_KV_RTOL of the largest
-    magnitude. Returns the number of leaves compared."""
+    magnitude. A JAX VLM row holds its self-attention leaves grouped,
+    (n_groups, every, S, ...), and its cross memory beside "kv": those
+    are read at the top level and the grouped ones flattened to the
+    port's (num_layers, S, ...). Returns the number of leaves compared."""
     n = 0
     for name, je in jrt.engines.items():
         te = trt.engines[name]
@@ -162,7 +165,10 @@ def _host_kv_close(jrt, trt) -> int:
             if jst.host_kv is None:
                 continue
             for k, t in te._preempted[rid].host_kv.items():
-                j = np.asarray(jst.host_kv["kv"][k])
+                j = np.asarray(jst.host_kv[k] if k in ("xk", "xv")
+                               else jst.host_kv["kv"][k])
+                if j.ndim == t.dim() + 1:       # VLM's grouped layers
+                    j = j.reshape(-1, *j.shape[2:])
                 assert t.device.type == "cpu" and tuple(t.shape) == j.shape
                 err = float(np.abs(t.numpy() - j).max())
                 assert err <= HOST_KV_RTOL * float(np.abs(j).max()), \

@@ -425,18 +425,23 @@ def _to_port_config(jcfg):
 def test_other_families_raise_naming_their_slice(name):
     """The other families of tests/test_models_smoke.py's train case (and
     the two left) are refused by the train step, naming their slice (MLA
-    for deepseek-v2). llama4-scout, an MoE decoder without MLA, and the
-    recurrent zamba2 and xlstm train: a step on its own weights gives a
-    finite loss (with a positive load-balance term for the MoE, zero for
-    the others) and moves every parameter leaf (their parity with the JAX
-    package is tests/test_torch_moe.py's and
-    tests/test_torch_ssm_model.py's)."""
+    for deepseek-v2). llama4-scout, an MoE decoder without MLA, the
+    recurrent zamba2 and xlstm, and the VLM llama-3.2-vision (its batch
+    given the launcher's constant frontend) train: a step on its own
+    weights gives a finite loss (with a positive load-balance term for
+    the MoE, zero for the others) and moves every parameter leaf (their
+    parity with the JAX package is tests/test_torch_moe.py's,
+    tests/test_torch_ssm_model.py's and tests/test_torch_vlm.py's)."""
     tcfg = _to_port_config(dataclasses.replace(
         jax_get_config(name).reduced(), dtype="float32"))
     dc = DataConfig(vocab_size=port_cfg().vocab_size, seq_len=8,
                     global_batch=2)
     b = {k: torch.from_numpy(v) for k, v in batch_at(dc, 0).items()}
-    if name in ("llama4-scout-17b-a16e", "zamba2-1.2b", "xlstm-350m"):
+    if tcfg.frontend_tokens:
+        b["frontend"] = torch.ones((2, tcfg.frontend_tokens,
+                                    tcfg.d_model)) * 0.01
+    if name in ("llama4-scout-17b-a16e", "zamba2-1.2b", "xlstm-350m",
+                "llama-3.2-vision-11b"):
         params = TM.init_params(tcfg, seed=0, device="cpu")
         before = [p.clone() for p in tree.leaves(params)]
         step = TS.make_train_step(tcfg, TO.AdamWConfig())
