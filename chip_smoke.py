@@ -384,6 +384,45 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``prefill_chunk`` with an idle row (those rows bitwise), within 1e-5
    of max. The phase's launches are added to the ``kernels`` line.
 
+16. the encoder-decoder family (``models/model.py``'s ENCDEC branch: a
+   bidirectional encoder over a stubbed frontend of frame embeddings,
+   each decoder layer followed by an ungated cross-attention over its
+   output) on seamless-m4t-large-v2 at its published widths and full
+   depth (24 encoder + 24 decoder layers, d_model 1024, 16 heads, MHA,
+   hd 64, d_ff 8192, vocab 256206, 1024 frames; 3.87 GB in bf16), the
+   port's ``init_params`` at seed 0, nothing cut, after phase 15's
+   tensors are freed. (a) the batch launcher, 4 x 1024 + 16, on a random
+   frontend (normal x 0.02: the launcher's constant stub makes every
+   frame alike), through the kernel (held on its live inputs) and
+   through the torch path on the same prompts, then the kernel path once
+   more on the stub, timed: prefill ms against its FLOP floor (the
+   encoder included), decode ms a step against its bytes floor (the
+   decoder weights but the cross K/V projections, the LM head, the
+   self-attention KV and the cross memory, whose share is printed),
+   launches exactly 24 x 15 a run; the kernel path against the torch path
+   by the near-tie rule, and by the drift rule: within BF16_DRIFT_ULPS,
+   or else each path's distance from the f32 truth (phase 15's) within
+   P15_TRUTH_RATIO of the torch path's. (b) the bf16 decode against a
+   teacher-forced bf16 ``forward`` over (a)'s history by the same rule
+   (the bf16 forward the plain path), and in f32 on the weights upcast,
+   2 x 512 + 16, decode against its own teacher-forced forward within
+   P15_FWD_REL of max|logit|. (c) ``--int8-kv`` on (a)'s prompts and
+   frontend: the self-attention cache exactly (hd + 2) / 2hd of the bf16
+   cache's bytes (phase 12's rule: hd int8 values and a bf16 scale an
+   entry), the cross memory the bf16 run's dtype and bytes; int8 prefill
+   + decode fed (a)'s tokens, the last-token logits within INT8_REL of
+   max|logit| of the bf16 run's. (d) ``launch/train.py``'s ``train()``
+   at full width and depth, global batch 8 x 128 with the launcher's
+   frontend stub, 10 steps: every loss and grad norm finite, the
+   reference's ``min(losses[4:]) < losses[0] + 0.02``, peak under 80 GB,
+   no kernel launched; ms a step split into gradients and update beside
+   the floor. (e) reduced f32 (2 + 2 layers), a random frontend, card
+   against CPU: ``forward``, ``prefill`` logits and every cache leaf, 8
+   greedy decode steps (a flip only at a CPU top-2 gap under 1e-5), a
+   masked step (the inactive row bitwise), within 1e-5 of max. The
+   engine, and so the fleet, refuses ENCDEC, as the reference's does.
+   The phase's launches are added to the ``kernels`` line.
+
 Then it prints the ``kernels`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of
 JAX and nothing of the JAX package.
@@ -1842,14 +1881,14 @@ def _logged(log, rid, j, tok, what):
 
 
 def _bf16_flips(plain_log, path_log, want, got, what,
-                tag="spec/overload", limit=BF16_DRIFT_ULPS) -> int:
+                tag="spec/overload", limit=BF16_DRIFT_ULPS, out=None) -> int:
     """Hold a full-width bf16 run (``got`` tokens, ``path_log``) against
     the plain run (``want``, ``plain_log``) by the drift and near-tie rule
     above (``limit``: the drift's; None reports the drift and holds only
     the near-tie rule). Prints the plain run's top-2 gap over every
     emitted position, the largest drift where the histories agree, and
     each first divergence with the plain run's preference there. Returns
-    the divergences."""
+    the divergences (``out["drift"]``: the largest drift)."""
     import torch
     gaps, drift, n_drift, flips = [], 0.0, 0, 0
     for rid, toks in want.items():
@@ -1899,6 +1938,8 @@ def _bf16_flips(plain_log, path_log, want, got, what,
     if limit is not None and drift > limit:
         fail(f"{what}: logits drift {drift:.2f} ulps from the plain run's "
              f"where the histories agree (limit {limit})")
+    if out is not None:
+        out["drift"] = drift
     return flips
 
 
@@ -6173,37 +6214,38 @@ def _p15_reprovision(cfg, params, smi):
     return d
 
 
-def _p15_card_vs_cpu():
-    """(e) reduced f32 (4 layers, 2 KV heads: two groups), the card
-    against the CPU (module docstring). Returns the card's launches."""
-    import torch
-    from repro_torch.configs.base import get_config
-    from repro_torch.models import model as M
-    from repro_torch.training import tree
-    cfg = dataclasses.replace(get_config(P15_ARCH).reduced(),
-                              dtype="float32", num_layers=4, num_kv_heads=2)
-    params = M.init_params(cfg, seed=0, device=DEVICE)
-    _p15_gates(params)
-    cpu = _to_cpu(params)
-    gen = torch.Generator()
-    gen.manual_seed(15)
-    toks = torch.randint(1, cfg.vocab_size, (3, 40), generator=gen)
-    fe = torch.randn((3, cfg.frontend_tokens, cfg.d_model),
-                     generator=gen) * 0.02
-    worst = [0.0]
-
+def _card_vs_cpu_close(tol):
+    """A check of a card tensor against its CPU twin, within ``tol`` of
+    the CPU one's max; ``close.worst`` keeps the largest reading."""
     def close(got, want, label):
         err = float((got.cpu() - want).abs().max()
                     / max(float(want.abs().max()), 1e-30))
-        worst[0] = max(worst[0], err)
-        if err > P15_CPU_TOL:
-            fail(f"(e) {label} card vs CPU {err:.3g} of max (limit "
-                 f"{P15_CPU_TOL})")
+        close.worst = max(close.worst, err)
+        if err > tol:
+            fail(f"(e) {label} card vs CPU {err:.3g} of max (limit {tol})")
+    close.worst = 0.0
+    return close
 
-    def rows(cache, b):
-        return [t.select(1, b).clone() for t in tree.leaves(cache)]
-    _reset_launches()
-    batch = {"tokens": toks[:, :32], "frontend": fe, "cache_len": 64}
+
+def _rows(cache, b):
+    """Row ``b`` of every leaf of a dense cache (batch on axis 1)."""
+    from repro_torch.training import tree
+    return [t.select(1, b).clone() for t in tree.leaves(cache)]
+
+
+def _cross_card_vs_cpu(cfg, params, cpu, toks, fe, cache_len, close, gap):
+    """(e) of phases 15 and 16: ``prefill`` of toks[:, :32] over the
+    frontend ``fe`` on the card (``params``) and on the CPU (``cpu``),
+    logits and every cache leaf through ``close``; 8 greedy decode steps
+    from it (a row's tokens may part only where the CPU's top-2 logits
+    are within ``gap``; its logits are held until they part); then a
+    step with row 2 inactive, whose cache rows must stay bitwise.
+    Returns (the card's and the CPU's prefill caches, cloned before the
+    decode steps, the near-tie flips)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.training import tree
+    batch = {"tokens": toks[:, :32], "frontend": fe, "cache_len": cache_len}
     kl, kc = M.prefill(params, cfg, {k: v.to(DEVICE) if k != "cache_len"
                                      else v for k, v in batch.items()})
     cl, cc = M.prefill(cpu, cfg, batch)
@@ -6224,34 +6266,58 @@ def _p15_card_vs_cpu():
         for r in range(3):
             if same[r] and int(kt[r]) != int(ct[r]):
                 top = torch.topk(cl[r], 2).values.tolist()
-                if top[0] - top[1] >= P15_CPU_GAP:
+                if top[0] - top[1] >= gap:
                     fail(f"(e) row {r} step {j}: tokens differ away from a "
                          f"CPU near-tie ({top})")
                 same[r] = False
-    row2 = rows(kc, 2)
-    M.decode_step(params, cfg, kt, kc, 40,
+    row2 = _rows(kc, 2)
+    M.decode_step(params, cfg, kt, kc, 32 + 8,
                   active=torch.tensor([True, True, False], device=DEVICE))
-    if not all(torch.equal(a, b) for a, b in zip(rows(kc, 2), row2)):
+    if not all(torch.equal(a, b) for a, b in zip(_rows(kc, 2), row2)):
         fail("(e) an inactive decode row's cache changed")
+    return k0, c0, sum(not s for s in same)
+
+
+def _p15_card_vs_cpu():
+    """(e) reduced f32 (4 layers, 2 KV heads: two groups), the card
+    against the CPU (module docstring). Returns the card's launches."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.training import tree
+    cfg = dataclasses.replace(get_config(P15_ARCH).reduced(),
+                              dtype="float32", num_layers=4, num_kv_heads=2)
+    params = M.init_params(cfg, seed=0, device=DEVICE)
+    _p15_gates(params)
+    cpu = _to_cpu(params)
+    gen = torch.Generator()
+    gen.manual_seed(15)
+    toks = torch.randint(1, cfg.vocab_size, (3, 40), generator=gen)
+    fe = torch.randn((3, cfg.frontend_tokens, cfg.d_model),
+                     generator=gen) * 0.02
+    close = _card_vs_cpu_close(P15_CPU_TOL)
+    _reset_launches()
+    k0, c0, flips = _cross_card_vs_cpu(cfg, params, cpu, toks, fe, 64,
+                                       close, P15_CPU_GAP)
     start, lengths = torch.tensor([32, 32, 32]), torch.tensor([8, 5, 0])
-    idle = rows(k0, 2)
+    idle = _rows(k0, 2)
     kl, k0 = M.prefill_chunk(params, cfg, toks[:, 32:].to(DEVICE), k0,
                              start.to(DEVICE), lengths.to(DEVICE))
     cl, c0 = M.prefill_chunk(cpu, cfg, toks[:, 32:], c0, start, lengths)
     close(kl[:2], cl[:2], "prefill_chunk logits")
     for i, (a, b) in enumerate(zip(tree.leaves(k0), tree.leaves(c0))):
         close(a, b, f"prefill_chunk cache leaf {i}")
-    if not all(torch.equal(a, b) for a, b in zip(rows(k0, 2), idle)):
+    if not all(torch.equal(a, b) for a, b in zip(_rows(k0, 2), idle)):
         fail("(e) an idle prefill_chunk row's cache changed")
     counts = _launch_counts(("gqa_decode",), "(e)")
     print(f"[vlm] (e) reduced {cfg.name} f32 at {cfg.num_layers} layers (2 "
           f"groups, q_per_kv {cfg.q_per_kv}), gates {P15_GATES}, a random "
           f"frontend, card vs CPU (prefill, 8 greedy decode steps, a masked "
           f"step, prefill_chunk with an idle row; logits and every cache "
-          f"leaf, xk / xv included): within {worst[0]:.3g} of max (limit "
-          f"{P15_CPU_TOL}), {sum(not s for s in same)} near-tie flips, idle "
+          f"leaf, xk / xv included): within {close.worst:.3g} of max (limit "
+          f"{P15_CPU_TOL}), {flips} near-tie flips, idle "
           f"and inactive rows bitwise; gqa_decode {counts['gqa_decode']}")
-    del params, cpu, kc, k0
+    del params, cpu, k0
     torch.cuda.empty_cache()
     return counts["gqa_decode"]
 
@@ -6297,6 +6363,452 @@ def phase_vlm(smi):
     return out
 
 
+P16_ARCH = "seamless-m4t-large-v2"
+P16_BATCH = (4, 1024, 16)      # (a), (c): batch, prompt, new tokens
+P16_TF = (2, 512, 16)          # (b) in f32: batch, prompt, new tokens
+P16_TRAIN = (8, 128, 10)       # (d): global batch, sequence, steps
+P16_XKV = ("xattn.wk", "xattn.wv")   # the cross K/V projections: run on
+                                     # the encoder rows, not the tokens
+P16_CPU_TOL = 1e-5             # (e): card vs CPU, of max
+P16_CPU_GAP = 1e-5             # (e): a token flip's CPU top-2 logit gap
+
+
+def _p16_model():
+    """seamless-m4t-large-v2 at its published widths and full depth,
+    bf16, the port's ``init_params`` at seed 0."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(P16_ARCH)
+    return cfg, M.init_params(cfg, seed=0, device=DEVICE)
+
+
+def _per_layer(stacked, skip=()) -> int:
+    """Parameters of one layer of a stacked layer tree, the leaves named
+    in ``skip`` (dotted paths) left out."""
+    from repro_torch.training import tree
+    return sum(t[0].numel() for n, t in zip(_leaf_names(stacked),
+                                            tree.leaves(stacked))
+               if n not in skip)
+
+
+def _p16_layer_flop(cfg, params, b: int, s: int, causal: bool) -> float:
+    """Operations of every encoder and decoder layer on b x s tokens over
+    F frames: the encoder's projections and MLP on the frames and its
+    attention over the full F x F square; the decoder's projections and
+    MLP on the tokens but the cross K/V projections, which run on the F
+    encoder rows; self-attention (``causal``: the triangle, else the
+    square ``_sdpa`` computes), cross-attention over F rows."""
+    f, hhd = cfg.frontend_tokens, cfg.num_heads * cfg.resolved_head_dim
+    n_dec = _per_layer(params["layers"], P16_XKV)
+    n_kv = _per_layer(params["layers"]) - n_dec
+    self_attn = (2.0 if causal else 4.0) * hhd * s * s
+    return (cfg.encoder_layers * b
+            * (2.0 * _per_layer(params["encoder"]) * f + 4.0 * hhd * f * f)
+            + cfg.num_layers * b * (2.0 * n_dec * s + 2.0 * n_kv * f
+                                    + self_attn + 4.0 * hhd * s * f))
+
+
+def _p16_decode_bytes(cfg, params, b: int, s: int):
+    """What a decode step must read: (the weights: every decoder layer's
+    but the cross K/V projections, the final norm and the LM head; the
+    self-attention KV of b rows of s entries; the cross memory, b x F
+    rows a layer)."""
+    from repro_torch.models import layers as L
+    x = params["layers"]["xattn"]
+    w = (_nbytes(params["layers"]) - _nbytes({"k": x["wk"], "v": x["wv"]})
+         + _nbytes(params["lm_head"]) + _nbytes(params["final_ln"]))
+    row = (cfg.num_layers * 2 * cfg.num_kv_heads * cfg.resolved_head_dim
+           * L.torch_dtype(cfg.dtype).itemsize)
+    return w, row * b * s, row * b * cfg.frontend_tokens
+
+
+def _p16_launcher(cfg, params, fe):
+    """(a) the batch launcher on the random frontend ``fe`` through the
+    kernel (held on live inputs) and through the torch path on the same
+    prompts, the near-tie rule holding the first, its drift read; then
+    the kernel path once more on the launcher's constant stub, timed.
+    Returns ({"kernel", "torch", "stub": run}, launches, held,
+    divergences, drift, the kernel run's cache bytes (self-attention,
+    cross memory))."""
+    held, out = {}, {}
+    args = batch_args(cfg.name, P16_BATCH)
+    with _live_kernel_hold(held):
+        kern, counts = _serve_batch(args, params, need=("gqa_decode",),
+                                    frontend=fe)
+    plain, _ = _serve_batch(args, params, tokens=kern.prompt, impl="torch",
+                            frontend=fe)
+    (want, plain_log), (got, kern_log) = _run_log(plain), _run_log(kern)
+    flips = _bf16_flips(plain_log, kern_log, want, got,
+                        "(a) kernel vs torch path", tag="encdec", limit=None,
+                        out=out)
+    stub, c2 = _serve_batch(args, params, tokens=kern.prompt,
+                            need=("gqa_decode",))
+    if stub.cache["xk"].ne(kern.cache["xk"]).sum() == 0:
+        fail("(a) the stub and the random frontend gave one cross memory")
+    nbytes = (_nbytes(kern.cache["kv"]),
+              _nbytes({k: kern.cache[k] for k in ("xk", "xv")}))
+    for r in (kern, plain, stub):
+        r.cache = None
+    counts["gqa_decode"] += c2["gqa_decode"]
+    return ({"kernel": kern, "torch": plain, "stub": stub}, counts, held,
+            flips, out["drift"], nbytes)
+
+
+def _p16_truth_rule(what, drift, got, plain, plain_name):
+    """The rule of (a): a bf16 path within BF16_DRIFT_ULPS of the plain
+    one passes; past it, its distance from the f32 truth must stay within
+    P15_TRUTH_RATIO of the plain path's."""
+    if drift <= BF16_DRIFT_ULPS:
+        return (f"drift {drift:.2f} ulps within BF16_DRIFT_ULPS "
+                f"{BF16_DRIFT_ULPS} (from the f32 truth {got:.2f}, the "
+                f"{plain_name} {plain:.2f})")
+    return (f"drift {drift:.2f} ulps past BF16_DRIFT_ULPS, so held to the "
+            f"f32 truth: " + _p15_truth_gate(what, got, plain, plain_name))
+
+
+def _p16_f32(cfg, params, p32, runs, fe, drift):
+    """(a)'s and (b)'s bf16 paths against the f32 truth (``_p15_truth``,
+    ``p32`` the weights upcast) by the rule of (a), and (b) in f32: the
+    launcher at P16_TF on ``p32``, decode against its own teacher-forced
+    forward within P15_FWD_REL of max|logit|. Returns ((a)'s note, (b)'s
+    line, the f32 run's launches)."""
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.models import model as M
+    kern = runs["kernel"]
+    b, p, n = P16_BATCH
+    with torch.no_grad():
+        seq = torch.cat([kern.prompt, kern.tokens[:, :-1]], dim=1)
+        fwd = M.forward(params, cfg, {"tokens": seq, "frontend": fe})[0][
+            :, p - 1:].clone()
+    tf_drift = _ulps(torch.stack(kern.logits, dim=1), fwd)
+    cfg32 = base.register(dataclasses.replace(cfg, dtype="float32",
+                                              name=f"{cfg.name}-f32"))
+    with torch.no_grad():
+        t_kern, t_plain = (_p15_truth(cfg32, p32, _p15_rows(runs[k], fe))
+                           for k in ("kernel", "torch"))
+        fwd_rows = [(pr, out, {j: fwd[r, j] for j in range(len(out))}, f)
+                    for r, (pr, out, _, f) in enumerate(_p15_rows(kern,
+                                                                  fe))]
+        t_fwd = _p15_truth(cfg32, p32, fwd_rows)
+    del fwd
+    note_a = "the kernel path " + _p16_truth_rule(
+        "(a) the kernel path", drift, t_kern, t_plain, "torch path")
+    note_b = "decode (kernel) vs forward " + _p16_truth_rule(
+        "(b) bf16 decode", tf_drift, t_kern, t_fwd, "bf16 forward")
+    bt, pt, nt = P16_TF
+    fe32 = fe[:bt].float()
+    run32, c32 = _serve_batch(batch_args(cfg32.name, P16_TF), p32,
+                              tokens=kern.prompt[:bt, :pt],
+                              need=("gqa_decode",), frontend=fe32)
+    run32.cache = None
+    with torch.no_grad():
+        seq = torch.cat([run32.prompt, run32.tokens[:, :-1]], dim=1)
+        f32 = M.forward(p32, cfg32, {"tokens": seq, "frontend": fe32})[0][
+            :, pt - 1:]
+    rel = max(float((lg.float() - f32[:, j]).abs().max()
+                    / f32[:, j].abs().max())
+              for j, lg in enumerate(run32.logits))
+    if rel >= P15_FWD_REL:
+        fail(f"(b) f32 decode logits {rel:.3e} of max|logit| from the "
+             f"teacher-forced forward (limit {P15_FWD_REL})")
+    line_b = (f"[encdec] (b) decode vs teacher-forced forward: bf16 on (a)'s "
+              f"kernel run ({b} x {p} + {n - 1} fed tokens, the random "
+              f"frontend), {note_b}; f32 on the weights upcast, {bt} x {pt} "
+              f"+ {nt - 1} fed tokens, decode (kernel) vs its own "
+              f"teacher-forced forward {rel:.3e} of max|logit| (limit "
+              f"{P15_FWD_REL}), f32 prefill {run32.prefill_ms:.2f} ms, decode "
+              f"{1e3 * bt / run32.decode_tok_s:.2f} ms a step, gqa_decode "
+              f"{c32['gqa_decode']}")
+    del run32, f32
+    torch.cuda.empty_cache()
+    return note_a, line_b, c32["gqa_decode"]
+
+
+def _p16_report_a(cfg, params, runs, counts, held, flips, note, smi):
+    kern, plain, stub = runs["kernel"], runs["torch"], runs["stub"]
+    b, p, n = P16_BATCH
+    w, kv, cross = _p16_decode_bytes(cfg, params, b, p + n)
+    floor_ms = 1e3 * (w + kv + cross) / HBM_BYTES_PER_S
+    flop = _p16_layer_flop(cfg, params, b, p, causal=True) \
+        + 2.0 * cfg.d_model * cfg.vocab_size * b
+    hs = {f"B={k[1][0]} S={k[1][1]}": f"{v[0]:.3e}" for k, v in held.items()}
+    print(f"[encdec] (a) {cfg.name} bf16 ({_nbytes(params) / 1e9:.2f} GB "
+          f"of weights, {cfg.encoder_layers} encoder + {cfg.num_layers} "
+          f"decoder layers, d_model {cfg.d_model}, {cfg.num_heads} / "
+          f"{cfg.num_kv_heads} heads, hd {cfg.resolved_head_dim}, "
+          f"{cfg.frontend_tokens} frames), batch launcher {b} x {p} + {n} "
+          f"new on a random frontend (normal x 0.02): prefill "
+          f"{kern.prefill_ms:.2f} ms in the kernel run (the phase's first), "
+          f"{plain.prefill_ms:.2f} ms in the torch run, {stub.prefill_ms:.2f}"
+          f" ms on the launcher's stub (compute floor "
+          f"{1e3 * flop / PEAK_OPS['bfloat16']:.2f} ms: {flop:.4e} FLOP, the "
+          f"encoder over {cfg.frontend_tokens} frames included); decode "
+          f"{1e3 * b / kern.decode_tok_s:.2f} ms a step (kernel, random "
+          f"frontend), {1e3 * b / stub.decode_tok_s:.2f} (kernel, stub), "
+          f"{1e3 * b / plain.decode_tok_s:.2f} (torch path), against a "
+          f"bytes floor of {floor_ms:.4f} ms ({(w + kv + cross) / 1e9:.4f} "
+          f"GB: decoder weights but the cross K/V projections, the final "
+          f"norm and the LM head {w / 1e9:.4f} GB, self-attention KV "
+          f"{kv / 1e9:.4f} GB, cross memory {cross / 1e9:.4f} GB = {b} x "
+          f"{cross / b / 1e6:.1f} MB, {100 * cross / (w + kv + cross):.1f}% "
+          f"of the floor); gqa_decode launches {counts['gqa_decode']} (= 2 "
+          f"x {cfg.num_layers} x {n - 1}, kernel and stub runs); {flips} "
+          f"near-tie divergences from the torch path; {note}; kernel held "
+          f"on live inputs {hs} ({smi})")
+
+
+def _p16_fed(cfg, params, prompt, fe, tokens, impl="kernel"):
+    """``prefill`` of ``prompt`` over ``fe``, then a decode step fed each
+    of ``tokens`` but the last (through ``impl``). Returns the logits
+    behind each token, f32."""
+    import torch
+    from repro_torch.models import model as M
+    p, n = prompt.shape[1], tokens.shape[1]
+    out = []
+    with torch.no_grad():
+        logits, cache = M.prefill(params, cfg, {
+            "tokens": prompt, "frontend": fe, "cache_len": p + n})
+        for t in range(n):
+            out.append(logits.float())
+            if t < n - 1:
+                logits, cache = M.decode_step(params, cfg,
+                                              tokens[:, t:t + 1], cache,
+                                              p + t, decode_impl=impl)
+    return out
+
+
+def _rels(got, want):
+    """max|got - want| / max|want| at each position."""
+    return [float((g - w).abs().max() / w.abs().max())
+            for g, w in zip(got, want)]
+
+
+def _p16_int8(cfg, params, p32, runs, fe, nbytes, smi):
+    """(c) ``--int8-kv`` on (a)'s prompts and frontend: the
+    self-attention cache (hd int8 values and a bf16 scale an entry)
+    exactly (hd + 2) / 2hd of the bf16 cache's bytes, the cross memory
+    the bf16 run's dtype and bytes. Then int8 against the fp cache fed
+    (a)'s kernel-run tokens: in f32 on the weights upcast (``p32``), the
+    reference's measure (tests/test_perf_opts.py runs it in f32), the
+    last-token logits within INT8_REL of max|logit|; in bf16 the same
+    reading is reported beside the bf16 paths' own distance (the torch
+    path fed the same tokens against the kernel run). Returns the
+    launches."""
+    import torch
+    kern = runs["kernel"]
+    b, p, n = P16_BATCH
+    run8, c8 = _serve_batch(batch_args(cfg.name, P16_BATCH, int8=True),
+                            params, tokens=kern.prompt,
+                            need=("gqa_decode",), frontend=fe)
+    hd = cfg.resolved_head_dim
+    kv8 = _nbytes(run8.cache["kv"])
+    x8 = {k: run8.cache[k] for k in ("xk", "xv")}
+    if kv8 * 2 * hd != nbytes[0] * (hd + 2):
+        fail(f"(c) int8 self-attention cache {kv8} B, not (hd + 2) / 2hd "
+             f"of the bf16 cache's {nbytes[0]} B")
+    if x8["xk"].dtype != torch.bfloat16 or _nbytes(x8) != nbytes[1]:
+        fail(f"(c) the int8 run's cross memory {x8['xk'].dtype}, "
+             f"{_nbytes(x8)} B, not the bf16 run's {nbytes[1]} B")
+    same = float((run8.tokens == kern.tokens).float().mean())
+    run8.cache = None
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    want = [lg.float() for lg in kern.logits]
+    bf_int8 = _rels(_p16_fed(cfg8, params, kern.prompt, fe, kern.tokens),
+                    want)
+    bf_path = _rels(_p16_fed(cfg, params, kern.prompt, fe, kern.tokens,
+                             impl="torch"), want)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    fe32 = fe.float()
+    f32 = _p16_fed(cfg32, p32, kern.prompt, fe32, kern.tokens)
+    rel = _rels(_p16_fed(dataclasses.replace(cfg32, kv_cache_dtype="int8"),
+                         p32, kern.prompt, fe32, kern.tokens), f32)
+    del f32
+    print(f"[encdec] (c) --int8-kv, {b} x {p} + {n}, (a)'s prompts and "
+          f"frontend: prefill {run8.prefill_ms:.2f} ms, decode "
+          f"{1e3 * b / run8.decode_tok_s:.2f} ms a step, gqa_decode "
+          f"{c8['gqa_decode']}; self-attention cache {kv8} B int8 vs "
+          f"{nbytes[0]} B bf16 (= ({hd} + 2) / {2 * hd} exactly), cross "
+          f"memory {_nbytes(x8)} B bf16 in both; tokens equal to the bf16 "
+          f"run's at {100 * same:.2f}% of positions. Fed (a)'s kernel-run "
+          f"tokens, max|dlogit| / max|logit| at the last token (largest "
+          f"over the {n} positions): f32 int8 vs f32 fp {rel[-1]:.4f} "
+          f"({max(rel):.4f}; limit {INT8_REL}); bf16 int8 vs the bf16 run "
+          f"{bf_int8[-1]:.4f} ({max(bf_int8):.4f}), the bf16 torch path vs "
+          f"the bf16 run {bf_path[-1]:.4f} ({max(bf_path):.4f}) ({smi})")
+    if rel[-1] >= INT8_REL:
+        fail(f"(c) f32 int8 last-token logits {rel[-1]:.4f} of max|logit| "
+             f"from the fp cache's (limit {INT8_REL})")
+    return c8["gqa_decode"]
+
+
+def _p16_train(cfg, params, smi):
+    """(d) ``launch/train.py``'s ``train()`` at full width and depth on
+    ``params`` (trained in place), P16_TRAIN, the launcher's frontend
+    stub: finite losses and grad norms, the reference's loss rule, the
+    peak under PEAK_LIMIT, no kernel launched; then two more steps split
+    into gradients and update."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.training import tree
+    from repro_torch.training.optimizer import AdamWConfig, adamw_update
+    from repro_torch.training.train_step import value_and_grad
+    b, s, steps = P16_TRAIN
+    args = train.parse_args(["--arch", cfg.name, "--steps", str(steps),
+                             "--global-batch", str(b), "--seq-len", str(s),
+                             "--device", DEVICE])
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    run = train.train(args, params=params,
+                      log=lambda line: print(f"[encdec] (d) {line}"))
+    counts = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if any(counts.values()):
+        fail(f"(d) training launched a kernel of the port: {counts}")
+    bad = [i for i, (l, g) in enumerate(zip(run.losses, run.gnorms))
+           if not (math.isfinite(l) and math.isfinite(g))]
+    if bad:
+        fail(f"(d) non-finite loss or grad norm at steps {bad}")
+    if not min(run.losses[4:]) < run.losses[0] + 0.02:
+        fail(f"(d) the loss did not fall: {run.losses}")
+    if peak >= PEAK_LIMIT:
+        fail(f"(d) peak memory {_gb(peak)} >= {_gb(PEAK_LIMIT)}")
+    opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(2, steps // 10),
+                          total_steps=steps)
+    batch = _train_batch(cfg, b, s, steps)
+    batch["frontend"] = torch.ones((b, cfg.frontend_tokens, cfg.d_model),
+                                   dtype=torch.bfloat16, device=DEVICE) * 0.01
+    split = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, grads = value_and_grad(run.params, cfg, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        run.params, run.opt, _ = adamw_update(opt_cfg, grads, run.opt,
+                                              run.params)
+        torch.cuda.synchronize()
+        split.append((1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1)))
+        del grads
+    n = sum(t.numel() for t in tree.leaves(run.params))
+    flops = 4.0 * _p16_layer_flop(cfg, run.params, b, s, causal=False) \
+        + 3.0 * 2.0 * b * s * cfg.d_model * cfg.vocab_size
+    compute_ms = 1e3 * flops / PEAK_OPS["bfloat16"]
+    opt_ms = 1e3 * OPT_BYTES * n / HBM_BYTES_PER_S
+    steady = sorted(run.step_s[1:])
+    med = 1e3 * steady[len(steady) // 2]
+    print(f"[encdec] (d) train() on {cfg.name} at its published widths and "
+          f"full depth ({cfg.encoder_layers} + {cfg.num_layers} layers, "
+          f"{n / 1e9:.4f} B parameters; weights, grads and AdamW moments "
+          f"{_gb(12 * n)}), bf16, seed 0, batch {b} x {s} with the "
+          f"launcher's frontend stub ({cfg.frontend_tokens} frames), remat "
+          f"layer, {steps} steps; losses "
+          + ", ".join(f"{x:.4f}" for x in run.losses) + "; grad norms "
+          + ", ".join(f"{x:.4f}" for x in run.gnorms)
+          + f"; ms a step (host clock, device synchronised): first "
+          f"{1e3 * run.step_s[0]:.2f}, steps 1-{steps - 1} median {med:.2f} "
+          f"(min {1e3 * steady[0]:.2f}, max {1e3 * steady[-1]:.2f}); "
+          f"{b * s / med * 1e3:.1f} tokens/s; split: gradients "
+          + ", ".join(f"{g:.2f}" for g, _ in split) + " ms, AdamW update "
+          + ", ".join(f"{u:.2f}" for _, u in split) + f" ms; floor "
+          f"{compute_ms + opt_ms:.2f} ms = {flops:.4g} FLOP / 989 TFLOP/s "
+          f"({compute_ms:.2f} ms) + {OPT_BYTES} B x {n / 1e9:.4f} B "
+          f"parameters / 3.35 TB/s ({opt_ms:.2f} ms); peak "
+          f"max_memory_allocated {_gb(peak)} ({_gb(peak - base_mem)} above "
+          f"the weights held before; limit {_gb(PEAK_LIMIT)}); no kernel of "
+          f"the port launched ({smi})")
+    return run
+
+
+def _p16_card_vs_cpu():
+    """(e) reduced seamless-m4t f32, the card against the CPU: forward
+    logits, then ``_cross_card_vs_cpu`` (prefill, 8 greedy decode steps,
+    a masked step), within P16_CPU_TOL of max. Returns the card's
+    launches."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config(P16_ARCH).reduced(),
+                              dtype="float32")
+    params = M.init_params(cfg, seed=0, device=DEVICE)
+    cpu = _to_cpu(params)
+    gen = torch.Generator()
+    gen.manual_seed(16)
+    toks = torch.randint(1, cfg.vocab_size, (3, 40), generator=gen)
+    fe = torch.randn((3, cfg.frontend_tokens, cfg.d_model),
+                     generator=gen) * 0.02
+    close = _card_vs_cpu_close(P16_CPU_TOL)
+    _reset_launches()
+    with torch.no_grad():
+        close(M.forward(params, cfg, {"tokens": toks.to(DEVICE),
+                                      "frontend": fe.to(DEVICE)})[0],
+              M.forward(cpu, cfg, {"tokens": toks, "frontend": fe})[0],
+              "forward logits")
+        flips = _cross_card_vs_cpu(cfg, params, cpu, toks, fe, 48, close,
+                                   P16_CPU_GAP)[2]
+    counts = _launch_counts(("gqa_decode",), "(e)")
+    print(f"[encdec] (e) reduced {cfg.name} f32 ({cfg.encoder_layers} + "
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.frontend_tokens} frames), a random frontend, card vs CPU "
+          f"(forward, prefill, 8 greedy decode steps, a masked step; logits "
+          f"and every cache leaf, xk / xv included): within "
+          f"{close.worst:.3g} of max (limit {P16_CPU_TOL}), {flips} "
+          f"near-tie flips, the inactive row bitwise; gqa_decode "
+          f"{counts['gqa_decode']}")
+    del params, cpu
+    torch.cuda.empty_cache()
+    return counts["gqa_decode"]
+
+
+def phase_encdec(smi):
+    """Phase 16: the encoder-decoder family (module docstring). Returns
+    the launches."""
+    import gc
+    import torch
+    from repro_torch.training import tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    parts = [t0]
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = _p16_model()
+    fe = _p15_frontend(cfg, P16_BATCH[0], torch.bfloat16, seed=16)
+    runs, counts, held, flips, drift, nbytes = _p16_launcher(cfg, params,
+                                                             fe)
+    n = counts["gqa_decode"]
+    parts.append(time.perf_counter())
+    p32 = tree.map(lambda t: t.float(), params)
+    note_a, line_b, n32 = _p16_f32(cfg, params, p32, runs, fe, drift)
+    n += n32
+    _p16_report_a(cfg, params, runs, counts, held, flips, note_a, smi)
+    print(f"{line_b} ({smi})")
+    parts.append(time.perf_counter())
+    n += _p16_int8(cfg, params, p32, runs, fe, nbytes, smi)
+    parts.append(time.perf_counter())
+    del runs, p32
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    run = _p16_train(cfg, params, smi)
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    del params, run
+    torch.cuda.empty_cache()
+    parts.append(time.perf_counter())
+    n += _p16_card_vs_cpu()
+    parts.append(time.perf_counter())
+    out = {"gqa_decode": n}
+    print(f"[encdec] phase 16: {parts[-1] - t0:.1f} s ((a) "
+          f"{parts[1] - parts[0]:.1f} with the init, the f32 truth and (b) "
+          f"{parts[2] - parts[1]:.1f}, (c) {parts[3] - parts[2]:.1f}, (d) "
+          f"{parts[4] - parts[3]:.1f}, (e) {parts[5] - parts[4]:.1f}); "
+          f"device memory held from earlier phases at its start "
+          f"{mem0 / 1e9:.2f} GB; peak {peak / 1e9:.2f} GB; launches {out} "
+          f"({smi})")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6337,6 +6849,8 @@ def main() -> int:
     for name, n in phase_recurrent(smi).items():
         launches[name] += n
     for name, n in phase_vlm(smi).items():
+        launches[name] += n
+    for name, n in phase_encdec(smi).items():
         launches[name] += n
     sources = {"gqa_decode": ("src/repro_torch/kernels/csrc/gqa_decode.cu",
                               "src/repro/kernels/gqa_decode.py:29"),

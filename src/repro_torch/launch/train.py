@@ -1,6 +1,8 @@
 """Training launcher on one GPU: the port of ``repro/launch/train.py``
 without sharding. Runs AdamW train steps (layer remat) on synthetic
-token data and prints the JAX launcher's lines.
+token data and prints the JAX launcher's lines. A model with a frontend
+(VLM, ENCDEC) gets the JAX launcher's stub in every batch, ``ones((
+global_batch, frontend_tokens, d_model)) * 0.01`` in the model dtype.
 
   # reduced minitron-8b (f32) on the CPU, 10 steps
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 10 \
@@ -68,7 +70,8 @@ class TrainRun:
 
 
 def train(args, params=None, cfg=None, log=print) -> TrainRun:
-    """``args.steps`` train steps on ``batch_at(seed 0)`` batches. ``cfg``
+    """``args.steps`` train steps on ``batch_at(seed 0)`` batches (with
+    the frontend stub where ``cfg.frontend_tokens`` is set). ``cfg``
     defaults to ``--arch`` (reduced in f32 with ``--reduced``);
     ``params`` to ``init_params(cfg, seed=0)`` on the device. A caller
     may pass its own (the tests pass the JAX launcher's weights, the
@@ -93,12 +96,19 @@ def train(args, params=None, cfg=None, log=print) -> TrainRun:
         sequence_parallel=not args.no_sequence_parallel)
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                     global_batch=args.global_batch)
+    frontend = None
+    if cfg.frontend_tokens:
+        frontend = torch.ones(
+            (args.global_batch, cfg.frontend_tokens, cfg.d_model),
+            dtype=params["embed"].dtype, device=device) * 0.01
     run = TrainRun(cfg, params, opt, [], [], [])
     t0 = time.time()
     for i in range(args.steps):
         t1 = time.perf_counter()
         batch = {k: torch.from_numpy(v).to(device)
                  for k, v in batch_at(dc, i).items()}
+        if frontend is not None:
+            batch["frontend"] = frontend
         run.params, run.opt, metrics = step_fn(run.params, run.opt, batch)
         run.losses.append(float(metrics["loss"]))
         run.gnorms.append(float(metrics["grad_norm"]))

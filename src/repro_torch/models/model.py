@@ -1,9 +1,10 @@
-"""Model assembly for the dense GQA decoder, the MoE decoder and the
+"""Model assembly for the dense GQA decoder, the MoE decoder, the
 recurrent families (xLSTM, and Zamba2's Mamba2 backbone with a shared
-attention block), in PyTorch.
+attention block), the VLM and the encoder-decoder, in PyTorch.
 
-The DENSE, MOE, SSM and HYBRID branches of ``repro/models/model.py``
-(without MLA), with the same functional API and layouts:
+The DENSE, MOE, SSM, HYBRID, VLM and ENCDEC branches of
+``repro/models/model.py`` (without MLA), with the same functional API
+and layouts:
 
   init_params(cfg, seed, device)                           -> params
   forward(params, cfg, batch)                    -> (logits (B, S, V), aux)
@@ -58,8 +59,21 @@ whatever the family; the cross memory's K/V are ``xk`` / ``xv``,
 (n_groups, B, F, Hkv, hd), batch on axis 1 too. Decode reads the cached
 memory (the reference's decode query carries no ``bq``); the chunk,
 verify and mixed steps take the per-token loop; the paged pool refuses
-it. ENCDEC and MLA raise NotImplementedError everywhere: they are later
-slices of the port.
+it.
+
+ENCDEC (seamless-m4t) encodes the stubbed frontend (frame embeddings,
+``batch["frontend"]``) with a bidirectional stack (``encoder``, RoPE on
+the frame positions, no mask, ending in ``enc_ln``); each decoder layer
+then adds an ungated cross-attention (``lnx``, ``xattn``) over the
+encoder output after its self-attention block. Its cache is the dense
+self-attention K/V (int8 and rings as on every dense path) and one cross
+K/V entry a layer, ``xk`` / ``xv`` (num_layers, B, F, Hkv, hd), written
+by ``prefill``. Unlike the reference, whose ``_fill_cache`` drops int8
+on the cross-attention families, an int8 ENCDEC or VLM cache holds its
+self-attention K/V quantized. The chunk, verify and mixed steps serve
+the engine, which refuses ENCDEC as the reference's does, so they refuse
+it too; so does the paged pool. MLA raises NotImplementedError
+everywhere: it is a later slice of the port.
 """
 from __future__ import annotations
 
@@ -78,25 +92,18 @@ from repro_torch.training import tree
 
 Params = Dict[str, Any]
 
-# the slice of the port that brings each other family
-FAMILY_SLICES = {ENCDEC: "the encoder-decoder slice"}
-
 RECURRENT = (SSM, HYBRID)
 # families whose chunk / verify steps run the masked per-token loop
 PER_TOKEN = RECURRENT + (VLM,)
+# families with a cross memory ("xk" / "xv" in the cache)
+CROSS = (VLM, ENCDEC)
 
 
 def check_supported(cfg: ModelConfig, paged: bool = False) -> None:
-    """Raise NotImplementedError for what the port does not run: ENCDEC
-    and MLA (a later slice each), and on the paged pool
-    (``paged``) the recurrent families and VLM, a window or an int8
-    cache, which the JAX package refuses there too, for the same
-    reasons."""
-    if cfg.family in FAMILY_SLICES:
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the port runs dense, MoE, VLM and "
-            f"recurrent decoders; {FAMILY_SLICES[cfg.family]} is a later "
-            "slice of the port")
+    """Raise NotImplementedError for what the port does not run: MLA (a
+    later slice), and on the paged pool (``paged``) the recurrent
+    families, VLM and ENCDEC, a window or an int8 cache, which the JAX
+    package refuses there too, for the same reasons."""
     if cfg.mla is not None:
         raise NotImplementedError(
             "MLA (multi-head latent attention) is the MLA slice, a later "
@@ -114,6 +121,19 @@ def check_supported(cfg: ModelConfig, paged: bool = False) -> None:
                                   "(int8 scales need a paged layout too)")
 
 
+def _engine_step(cfg: ModelConfig, name: str) -> None:
+    """The chunk, verify and mixed steps serve the engine, which refuses
+    ENCDEC as the reference's engine does (the reference reaches these
+    steps only through it): refuse them for ENCDEC too."""
+    check_supported(cfg)
+    if cfg.family == ENCDEC:
+        raise NotImplementedError(
+            f"{name} serves the engine, which supports attention-family "
+            "decoders and refuses family 'encdec' (as the reference's "
+            "engine does); an encoder-decoder runs forward, prefill and "
+            "decode_step")
+
+
 def _window(cfg: ModelConfig, window: Optional[int]) -> int:
     """The window a call runs: ``window``, or the config's when None (0:
     full attention)."""
@@ -128,7 +148,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     N(0, 0.02^2), projections N(0, 1/in_dim), ``wo`` at half that std,
     norms at one; an MoE layer's leaves as ``moe.init_moe`` draws them,
     a recurrent layer's as ``ssm.init_*``; a VLM cross layer's gates at
-    zero), in the reference's layout,
+    zero; an ENCDEC model's ``encoder`` stack (no MoE) and ``enc_ln``, and
+    ``lnx`` / ``xattn`` in each decoder layer), in the reference's layout,
     drawn from a ``torch.Generator`` seeded with ``seed``
     on ``device``. The numbers differ from JAX's for the same seed; the
     tests carry JAX's parameters across with params.from_jax_numpy."""
@@ -184,12 +205,22 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
                       "mlp": _init_mlp(gen, cfg, (n_groups,), dtype, device),
                       "gate_mlp": torch.zeros(n_groups, dtype=dtype,
                                               device=device)}
+    if cfg.family == ENCDEC:
+        ne = cfg.encoder_layers
+        p["encoder"] = {"ln1": ones(ne, d), "ln2": ones(ne, d),
+                        "attn": _init_attention(gen, cfg, (ne,), dtype,
+                                                device),
+                        "mlp": _init_mlp(gen, cfg, (ne,), dtype, device)}
+        p["enc_ln"] = ones(d)
     p["layers"] = {"ln1": ones(*lead, d), "ln2": ones(*lead, d),
                    "attn": _init_attention(gen, cfg, lead, dtype, device)}
     if cfg.moe is not None:
         p["layers"]["moe"] = MOE_MOD.init_moe(gen, cfg, n, dtype, device)
     else:
         p["layers"]["mlp"] = _init_mlp(gen, cfg, lead, dtype, device)
+    if cfg.family == ENCDEC:
+        p["layers"]["lnx"] = ones(n, d)
+        p["layers"]["xattn"] = _init_attention(gen, cfg, lead, dtype, device)
     return p
 
 
@@ -261,28 +292,33 @@ def _ffn_residual(lp, cfg, x):
 # ===========================================================================
 # forward (teacher forcing)
 # ===========================================================================
-def _decoder_block(lp, cfg: ModelConfig, x, positions, window: int = 0):
-    """One block: (x, its MoE load-balance loss or None)."""
+def _decoder_block(lp, cfg: ModelConfig, x, positions, window: int = 0,
+                   memory=None, kv=None):
+    """One block: (x, its MoE load-balance loss or None). With
+    ``memory`` (an ENCDEC decoder layer), the ungated cross-attention of
+    ``rmsnorm(x, lnx)`` over it follows (``kv``: the memory's K/V, already
+    projected)."""
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     x = x + L.attention(lp["attn"], cfg, h, positions, window=window)
-    return _ffn_residual(lp, cfg, x)
+    x, lb = _ffn_residual(lp, cfg, x)
+    if memory is not None:
+        h = L.rmsnorm(x, lp["lnx"], cfg.norm_eps)
+        x = x + L.cross_attention(lp["xattn"], cfg, h, memory, kv)
+    return x, lb
 
 
 def _run_decoder_stack(stacked, cfg: ModelConfig, x, positions,
-                       remat: bool = False, window: int = 0):
-    """The decoder blocks in turn; ``remat`` checkpoints each one (its
+                       remat: bool = False, window: int = 0, memory=None):
+    """The decoder blocks in turn (with ``memory``, each followed by its
+    cross-attention over it); ``remat`` checkpoints each one (its
     activations are recomputed in the backward pass). The forward draws
     no random numbers, so no RNG state is stashed. Returns (x, the
     load-balance losses summed over layers, a 0-d f32: zero for a dense
     stack), summed in layer order from zero as the JAX scan sums them."""
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _unstack(stacked):
-        if remat:
-            x, lb_i = checkpoint(_decoder_block, lp, cfg, x, positions,
-                                 window, use_reentrant=False,
-                                 preserve_rng_state=False)
-        else:
-            x, lb_i = _decoder_block(lp, cfg, x, positions, window)
+        x, lb_i = _maybe_remat(remat, _decoder_block, lp, cfg, x, positions,
+                               window, memory)
         if lb_i is not None:
             lb = lb + lb_i
     return x, lb
@@ -299,12 +335,14 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict, remat=False,
             window: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forcing full-sequence pass. batch: {"tokens": (B, S) int},
-    and for VLM "frontend" (B, F, D) in the model dtype. Returns (logits
-    (B, S, V), aux): aux is the MoE load-balancing loss summed over
-    layers, a 0-d f32 (zero for the dense decoder, VLM and the recurrent
-    families). ``remat`` (for training under autograd): "layer"
-    checkpoints each decoder block (a VLM's cross blocks too; a recurrent
-    model: each Mamba2 layer and group, each xLSTM pattern group), True /
+    and for VLM and ENCDEC "frontend" (B, F, D) in the model dtype.
+    Returns (logits (B, S, V), aux): aux is the MoE load-balancing loss
+    summed over layers, a 0-d f32 (zero for the dense decoder, VLM and
+    the recurrent families). ``remat`` (for training under autograd):
+    "layer" checkpoints each decoder block (a VLM's cross blocks too; an
+    ENCDEC model's encoder layers, and its decoder layers with their
+    cross-attention; a recurrent model: each Mamba2 layer and group, each
+    xLSTM pattern group), True /
     "full" the whole pass, False / None nothing (the JAX package's
     ``LAYER_REMAT`` and ``jax.checkpoint`` of ``forward``). ``window``:
     sliding-window attention over that many positions
@@ -322,6 +360,11 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict, remat=False,
     elif cfg.family == VLM:
         x = _vlm_forward(params, cfg, x, positions, batch["frontend"], w,
                          layer)
+    elif cfg.family == ENCDEC:
+        enc = _encode(params, cfg, batch["frontend"], layer)
+        x, lb = _run_decoder_stack(params["layers"], cfg, x, positions,
+                                   remat=layer, window=w, memory=enc)
+        return _head(params, cfg, x), lb
     else:
         x, lb = _run_decoder_stack(params["layers"], cfg, x, positions,
                                    remat=layer, window=w)
@@ -356,6 +399,30 @@ def _vlm_forward(params, cfg: ModelConfig, x, positions, memory, window: int,
         x = _run_decoder_stack(lps, cfg, x, positions, remat, window)[0]
         x = _maybe_remat(remat, _cross_block, cp, cfg, x, memory)
     return x
+
+
+# -- ENCDEC -------------------------------------------------------------------
+def _encoder_layer(lp, cfg: ModelConfig, x, positions):
+    """Bidirectional self-attention over the frames (RoPE on the frame
+    positions, no mask), then the MLP, each on its normed residual."""
+    h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = L._qkv(lp["attn"], cfg, h, h)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    x = x + L._sdpa(q, k, v, None, cfg.q_per_kv) @ lp["attn"]["wo"]
+    h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    return x + L.mlp(lp["mlp"], cfg, h)
+
+
+def _encode(params, cfg: ModelConfig, frontend, remat: bool = False):
+    """The encoder over the frames (B, F, D): each layer in turn
+    (``remat`` checkpoints each), then ``enc_ln``."""
+    b, f_len, _ = frontend.shape
+    positions = torch.arange(f_len, device=frontend.device).expand(b, f_len)
+    x = frontend
+    for lp in _unstack(params["encoder"]):
+        x = _maybe_remat(remat, _encoder_layer, lp, cfg, x, positions)
+    return L.rmsnorm(x, params["enc_ln"], cfg.norm_eps)
 
 
 # -- the recurrent families ---------------------------------------------------
@@ -449,9 +516,10 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     """Dense KV cache for ``batch`` slots of ``cache_len`` tokens (int8
     values with per-token scales when cfg.kv_cache_dtype == "int8"); with
     ``cfg.attention_window`` a ring of min(cache_len, window) entries, as
-    in the JAX package. VLM adds the cross memory's K/V, zeros, "xk" /
-    "xv" (n_groups, B, F, Hkv, hd) with F = ``frontend_len`` or
-    ``cfg.frontend_tokens``; its self-attention K/V stay flat (module
+    in the JAX package. VLM and ENCDEC add the cross memory's K/V in the
+    model dtype, zeros, "xk" / "xv" (n_groups, B, F, Hkv, hd) for VLM,
+    (num_layers, B, F, Hkv, hd) for ENCDEC, with F = ``frontend_len`` or
+    ``cfg.frontend_tokens``; a VLM's self-attention K/V stay flat (module
     docstring)."""
     check_supported(cfg)
     eff = min(cache_len, cfg.attention_window) if cfg.attention_window \
@@ -460,14 +528,21 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
         return _recurrent_cache(cfg, batch, eff, device)
     cache = {"kv": L.init_kv_cache(cfg, cfg.num_layers, batch, eff,
                                    device=device)}
-    if cfg.family == VLM:
-        shape = (cfg.num_layers // cfg.cross_attn_every, batch,
+    if cfg.family in CROSS:
+        shape = (_cross_layers(cfg), batch,
                  frontend_len or cfg.frontend_tokens, cfg.num_kv_heads,
                  cfg.resolved_head_dim)
         for name in ("xk", "xv"):
             cache[name] = torch.zeros(shape, dtype=L.torch_dtype(cfg.dtype),
                                       device=device)
     return cache
+
+
+def _cross_layers(cfg: ModelConfig) -> int:
+    """Cross-attention layers: a VLM's groups, every ENCDEC decoder
+    layer."""
+    return (cfg.num_layers // cfg.cross_attn_every if cfg.family == VLM
+            else cfg.num_layers)
 
 
 def _recurrent_cache(cfg: ModelConfig, batch: int, eff: int, device):
@@ -510,11 +585,12 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
 def prefill(params: Params, cfg: ModelConfig, batch: Dict,
             window: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
     """Full-prompt prefill. batch: {"tokens": (B, S) int, optional
-    "cache_len" (default S); VLM: "frontend" (B, F, D)}. Returns
-    (last-token logits (B, V), a new dense cache of ``cache_len`` tokens,
-    or of the config's window when that is shorter, holding the prompt's
-    K/V; a cache shorter than S keeps the last entries in ring layout;
-    VLM: and the frontend's cross K/V, F rows). ``window`` as in
+    "cache_len" (default S); VLM and ENCDEC: "frontend" (B, F, D)}.
+    Returns (last-token logits (B, V), a new dense cache of ``cache_len``
+    tokens, or of the config's window when that is shorter, holding the
+    prompt's K/V; a cache shorter than S keeps the last entries in ring
+    layout; VLM: and the frontend's cross K/V, F rows; ENCDEC: the
+    encoder output's, F rows a layer). ``window`` as in
     :func:`forward`."""
     check_supported(cfg)
     tokens = batch["tokens"]
@@ -536,13 +612,15 @@ def _fill_cache(params, cfg, tokens, cache, window: int = 0, memory=None):
     ``eff`` rolled by S % eff, so position p sits at p % eff. An int8
     cache quantizes after the padding or the roll (padding tokens get
     values 0 and the floor scale). A VLM stores, after each group, its
-    cross layer's K/V of ``memory`` (the frontend) into "xk" / "xv".
-    Returns the final hidden state."""
+    cross layer's K/V of ``memory`` (the frontend) into "xk" / "xv"; an
+    ENCDEC model encodes ``memory`` first and stores each decoder layer's
+    cross K/V of the encoder output. Returns the final hidden state."""
     x, positions = _seq_inputs(params, tokens)
     if cfg.family == HYBRID:
         return _hybrid_fill(params, cfg, x, positions, cache, window)
     if cfg.family == SSM:
         return _ssm_fill(params, cfg, x, cache)
+    enc = _encode(params, cfg, memory) if cfg.family == ENCDEC else None
     s_len, eff = tokens.shape[1], cache["kv"]["k"].shape[2]
     every = cfg.cross_attn_every if cfg.family == VLM else 0
     cross = _unstack(params["cross"]) if every else []
@@ -560,7 +638,12 @@ def _fill_cache(params, cfg, tokens, cache, window: int = 0, memory=None):
                 t, scale = L.quantize_kv(t)
                 kv[name + "_scale"].copy_(scale)
             kv[name].copy_(t)           # the cache's own layer view
-        x = _decoder_block(lp, cfg, x, positions, window)[0]
+        xkv = None
+        if enc is not None:
+            xkv = L._kv(lp["xattn"], cfg, enc)
+            cache["xk"][i].copy_(xkv[0])
+            cache["xv"][i].copy_(xkv[1])
+        x = _decoder_block(lp, cfg, x, positions, window, enc, xkv)[0]
         if every and (i + 1) % every == 0:
             g = i // every
             xk, xv = L._kv(cross[g]["xattn"], cfg, memory)
@@ -675,8 +758,9 @@ def decode_step(params: Params, cfg: ModelConfig, token, cache: Params, pos,
     config's when None) a ring. One :class:`layers.DecodeIndex` serves
     every layer. A recurrent model updates its states (inactive rows
     keep theirs bit for bit) and, for HYBRID, the shared block's KV. A
-    VLM's cross layers attend the cached memory ("xk" / "xv"), which a
-    step never writes. Returns (logits (B,V), cache)."""
+    VLM's cross layers and an ENCDEC model's decoder layers attend the
+    cached memory ("xk" / "xv"), which a step never writes. Returns
+    (logits (B,V), cache)."""
     check_supported(cfg)
     x = params["embed"][token.long()]
     if cfg.family == HYBRID:
@@ -696,23 +780,32 @@ def decode_step(params: Params, cfg: ModelConfig, token, cache: Params, pos,
                                   decode_impl=decode_impl, active=active,
                                   idx=idx)
         x = _ffn_residual(lp, cfg, x + a)[0]
-        if every and (i + 1) % every == 0:
+        if cfg.family == ENCDEC:
+            h = L.rmsnorm(x, lp["lnx"], cfg.norm_eps)
+            x = x + _cross_decode_attention(lp["xattn"], cfg, h,
+                                            cache["xk"][i], cache["xv"][i])
+        elif every and (i + 1) % every == 0:
             g = i // every
             x = _cross_decode(cross[g], cfg, x, cache["xk"][g],
                               cache["xv"][g])
     return _head(params, cfg, x)[:, 0], cache
 
 
-def _cross_decode(cp, cfg: ModelConfig, x, xk, xv):
-    """A cross layer at decode: the new token's query (no ``bq``, as in
+def _cross_decode_attention(p, cfg: ModelConfig, h, xk, xv):
+    """Cross-attention at decode: the new token's query (no ``bq``, as in
     the reference's decode) against the cached memory K/V, (B, F, Hkv,
-    hd), through ``_sdpa``; the gates and the MLP as
+    hd), through ``_sdpa``."""
+    q = (h @ p["wq"]).reshape(h.shape[0], 1, cfg.num_heads, -1)
+    return L._sdpa(q, xk, xv, None, cfg.q_per_kv) @ p["wo"]
+
+
+def _cross_decode(cp, cfg: ModelConfig, x, xk, xv):
+    """A VLM cross layer at decode: :func:`_cross_decode_attention` of
+    the normed residual; the gates and the MLP as
     :func:`_cross_block`."""
     h = L.rmsnorm(x, cp["ln"], cfg.norm_eps)
-    q = (h @ cp["xattn"]["wq"]).reshape(x.shape[0], 1, cfg.num_heads, -1)
-    return _gated_residuals(cp, cfg, x, L._sdpa(q, xk, xv, None,
-                                                cfg.q_per_kv)
-                            @ cp["xattn"]["wo"])
+    return _gated_residuals(cp, cfg, x, _cross_decode_attention(
+        cp["xattn"], cfg, h, xk, xv))
 
 
 def paged_decode_step(params: Params, cfg: ModelConfig, token,
@@ -781,8 +874,8 @@ def prefill_chunk(params: Params, cfg: ModelConfig, tokens, cache: Params,
     attention runs the fused sequence-level chunk (``decode_impl`` is
     unused there); a window (``window``, or the config's when None), VLM
     and the recurrent families the masked per-token decode loop, as in
-    the JAX package."""
-    check_supported(cfg)
+    the JAX package. ENCDEC is refused (:func:`_engine_step`)."""
+    _engine_step(cfg, "prefill_chunk")
     if cfg.family in PER_TOKEN or _window(cfg, window):
         return _per_token_chunk(params, cfg, tokens, cache, start_pos,
                                 lengths, decode_impl, window)
@@ -888,8 +981,9 @@ def verify_step(params: Params, cfg: ModelConfig, tokens, cache: Params,
     ring: the engine refuses speculation with a window; a recurrent
     state is advanced by every position below ``lengths``). tokens: (B, L);
     start_pos/lengths: (B,). Returns (logits (B, L, V), cache); positions
-    past ``lengths`` and idle rows hold garbage the caller masks."""
-    check_supported(cfg)
+    past ``lengths`` and idle rows hold garbage the caller masks. ENCDEC
+    is refused (:func:`_engine_step`)."""
+    _engine_step(cfg, "verify_step")
     if cfg.family in PER_TOKEN or _window(cfg, window):
         return _per_token_chunk(params, cfg, tokens, cache, start_pos,
                                 lengths, decode_impl, window,
@@ -916,7 +1010,9 @@ def mixed_step(params: Params, cfg: ModelConfig, tokens, cache: Params, pos,
     one chunk and every decode row (decode_active) by one token in one
     call. The row sets are disjoint and each half is exactly the
     separate call, so the tokens equal the sequential path's. Returns
-    (decode logits (B, V), cache)."""
+    (decode logits (B, V), cache). ENCDEC is refused
+    (:func:`_engine_step`)."""
+    _engine_step(cfg, "mixed_step")
     _, cache = prefill_chunk(params, cfg, tokens, cache, pos, lengths,
                              decode_impl=decode_impl, window=window)
     return decode_step(params, cfg, decode_tokens, cache, pos,

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from conftest import reduced_f32
+from jax_compile_cache import jax_compile_cache  # noqa: F401
 from repro.configs.base import get_config as jax_get_config
 from repro.core import compression as JC
 from repro.core import planner as JP
@@ -63,7 +64,8 @@ VERBATIM = ["configs/minitron_8b.py", "configs/llama3_70b.py",
             "configs/nemotron_4_15b.py", "configs/nemotron_4_340b.py",
             "configs/qwen1_5_32b.py", "configs/llama4_scout_17b_a16e.py",
             "configs/xlstm_350m.py", "configs/zamba2_1_2b.py",
-            "configs/llama_3_2_vision_11b.py", "core/naming.py",
+            "configs/llama_3_2_vision_11b.py",
+            "configs/seamless_m4t_large_v2.py", "core/naming.py",
             "core/workload.py", "core/queueing.py", "core/profiles.py",
             "core/planner.py", "core/compression.py",
             "core/router.py", "core/cost.py", "serving/tokenizer.py",

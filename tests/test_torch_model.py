@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from conftest import reduced_f32
+from jax_compile_cache import jax_compile_cache  # noqa: F401
 from repro.models import model as M
 from repro_torch import params as P
 from repro_torch.configs.base import get_config

@@ -36,6 +36,7 @@ import pytest
 import torch
 
 from conftest import reduced_f32
+from jax_compile_cache import jax_compile_cache  # noqa: F401
 from repro.models import model as M
 from repro.models import moe as JMOE
 from repro.training import train_step as JT

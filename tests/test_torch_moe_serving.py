@@ -38,6 +38,7 @@ import pytest
 import torch
 
 from conftest import reduced_f32
+from jax_compile_cache import jax_compile_cache  # noqa: F401
 from repro.core import planner as JP
 from repro.core import workload as JW
 from repro.models import model as M

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from conftest import reduced_f32
+from jax_compile_cache import jax_compile_cache  # noqa: F401
 from repro.models import model as JM
 from repro.serving import config as JConfig
 from repro.serving import engine as JEngine

@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from conftest import reduced_f32
+from jax_compile_cache import jax_compile_cache  # noqa: F401
 from repro.models import model as M
 from repro.serving.draft import propose_draft as jax_propose_draft
 from repro.serving.engine import InferenceEngine as JaxEngine

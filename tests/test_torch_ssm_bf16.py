@@ -41,6 +41,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_compile_cache import jax_compile_cache  # noqa: F401
 from repro.configs.base import get_config as jax_config
 from repro.models import model as M
 from repro.models import ssm as JS

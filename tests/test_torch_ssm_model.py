@@ -54,6 +54,7 @@ import pytest
 import torch
 
 from conftest import reduced_f32
+from jax_compile_cache import jax_compile_cache  # noqa: F401
 from repro.models import model as M
 from repro.serving.engine import InferenceEngine as JaxEngine
 from repro.training import train_step as JT

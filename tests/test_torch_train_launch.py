@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from conftest import reduced_f32
+from jax_compile_cache import jax_compile_cache  # noqa: F401
 from repro.models import model as M
 from repro.training import checkpoint as JCK
 from repro.training import optimizer as JO
@@ -51,16 +52,16 @@ def _lines(text):
             for ln in text.splitlines()]
 
 
-def test_launcher_prints_jax_lines(monkeypatch, tmp_path):
-    """``--reduced --steps 4`` through both launchers from the JAX
-    launcher's weights (PRNGKey(0)): the same mesh, step and checkpoint
-    lines; the port's checkpoint restores through the JAX package."""
+def _both_launchers(argv, cfg, monkeypatch, tmp_path):
+    """``argv`` through ``repro.launch.train.main`` (Auto mesh axes) and
+    the port's ``train`` on the JAX launcher's weights (PRNGKey(0)), each
+    with a ``--ckpt-dir`` of its own under ``tmp_path``. Returns (the
+    port's lines, the JAX launcher's, the port's run, the JAX
+    weights)."""
     from jax.sharding import AxisType
     from repro.launch import train as JL
-    cfg = reduced_f32("minitron-8b")
     jparams = jax.tree.map(np.asarray,
                            M.init_params(cfg, jax.random.PRNGKey(0)))
-    argv = ["--reduced", "--steps", "4"]
     make_mesh = jax.make_mesh
     monkeypatch.setattr(jax, "make_mesh", lambda shape, names, **kw:
                         make_mesh(shape, names,
@@ -76,7 +77,16 @@ def test_launcher_prints_jax_lines(monkeypatch, tmp_path):
                                          str(tmp_path / "port")]),
                    params=P.from_jax_numpy(jparams, device="cpu"),
                    log=out.append)
-    got = _lines("\n".join(out))
+    return _lines("\n".join(out)), want, run, jparams
+
+
+def test_launcher_prints_jax_lines(monkeypatch, tmp_path):
+    """``--reduced --steps 4`` through both launchers from the JAX
+    launcher's weights (PRNGKey(0)): the same mesh, step and checkpoint
+    lines; the port's checkpoint restores through the JAX package."""
+    cfg = reduced_f32("minitron-8b")
+    got, want, run, jparams = _both_launchers(["--reduced", "--steps", "4"],
+                                              cfg, monkeypatch, tmp_path)
     assert got[0] == want[0] == f"mesh 1x1 (1 devices), arch={cfg.name}"
     assert got[1:5] == want[1:5]
     assert [ln.split(" to ")[0] for ln in (got[5], want[5])] == \
@@ -86,6 +96,27 @@ def test_launcher_prints_jax_lines(monkeypatch, tmp_path):
     back = JCK.restore(str(tmp_path / "port"), 4, jparams)
     for a, b in zip(jax.tree.leaves(back), tree.leaves(run.params)):
         assert np.array_equal(a, b.numpy())
+
+
+@pytest.mark.parametrize("arch,extra", [
+    ("llama-3.2-vision-11b", []),
+    ("seamless-m4t-large-v2", ["--microbatches", "2"])],
+    ids=["vlm", "encdec-microbatches-2"])
+def test_launcher_with_a_frontend_prints_jax_lines(monkeypatch, tmp_path,
+                                                   arch, extra):
+    """A model with a frontend (VLM, ENCDEC): both launchers put the
+    reference's stub, ``ones * 0.01`` (global_batch, frontend_tokens,
+    d_model), into every batch (the microbatch split cuts it on axis 0
+    with the tokens), and print the same step lines from the JAX
+    launcher's weights; every loss finite."""
+    cfg = reduced_f32(arch)
+    argv = ["--arch", arch, "--reduced", "--steps", "3", "--global-batch",
+            "4", "--seq-len", "16"] + extra
+    got, want, run, _ = _both_launchers(argv, cfg, monkeypatch, tmp_path)
+    assert got[0] == want[0] == f"mesh 1x1 (1 devices), arch={cfg.name}"
+    assert got[1:4] == want[1:4]
+    assert len(got) == len(want) == 5
+    assert all(np.isfinite(x) for x in run.losses + run.gnorms)
 
 
 def test_launcher_refuses_a_mesh():

@@ -28,9 +28,9 @@ softmax uniform whatever the weights).
 * ``loss_fn`` and its grads, remat none and "layer": each leaf within
   TOL of its max |g|.
 * The port's ``init_params`` gives the reference's parameter tree; its
-  cache the flat layout; VLM passes ``check_supported``, the paged pool
-  refuses it with the reference's words, ENCDEC and MLA name their
-  slices.
+  cache the flat layout; VLM and ENCDEC pass ``check_supported``, the
+  paged pool refuses both with the reference's words, MLA names its
+  slice.
 
 Every comparison is within TOL = 1e-5 of the reference's max.
 """
@@ -44,6 +44,7 @@ import pytest
 import torch
 
 from conftest import reduced_f32
+from jax_compile_cache import jax_compile_cache  # noqa: F401
 from repro.models import layers as JL
 from repro.models import model as M
 from repro.training import train_step as JT
@@ -404,7 +405,8 @@ def test_init_params_and_cache_layout(dtype):
 def test_supported_and_refused():
     """VLM passes check_supported; on the paged pool it is refused with
     the reference's words (the JAX init_paged_cache raises them too);
-    ENCDEC names the encoder-decoder slice and MLA the MLA slice."""
+    ENCDEC passes check_supported and the paged pool refuses it with
+    those words too; MLA names the MLA slice."""
     tcfg, cfg = port_cfg(), reduced_f32(ARCH)
     assert TM.check_supported(get_config(ARCH)) is None
     assert TM.check_supported(tcfg) is None
@@ -415,9 +417,11 @@ def test_supported_and_refused():
         TM.check_supported(get_config(ARCH), paged=True)
     with pytest.raises(NotImplementedError, match=re.escape(PAGED_REASON)):
         TM.init_paged_cache(tcfg, 4, 16, device="cpu")
+    encdec = dataclasses.replace(tcfg, family="encdec")
+    assert TM.check_supported(encdec) is None
     with pytest.raises(NotImplementedError,
-                       match="the encoder-decoder slice"):
-        TM.check_supported(dataclasses.replace(tcfg, family="encdec"))
+                       match=re.escape(PAGED_REASON + "; family='encdec'")):
+        TM.check_supported(encdec, paged=True)
     with pytest.raises(NotImplementedError, match="the MLA slice"):
         TM.check_supported(dataclasses.replace(get_config("minitron-8b"),
                                                mla=MLAConfig()))

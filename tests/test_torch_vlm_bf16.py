@@ -52,6 +52,7 @@ from repro_torch.configs.base import get_config
 from repro_torch.models import model as TM
 from repro_torch.training import tree
 
+from jax_compile_cache import jax_compile_cache  # noqa: F401
 from test_torch_ssm_bf16 import _np, _rel, _rms_ratio, _ulps, vs_forward
 from test_torch_vlm import GATES, set_gates
 
