@@ -423,6 +423,64 @@ Phases, each of which fails the run (non-zero exit, no result line):
    engine, and so the fleet, refuses ENCDEC, as the reference's does.
    The phase's launches are added to the ``kernels`` line.
 
+17. multi-head latent attention (``models/mla.py``: the latent cache
+   ``c_kv`` / ``k_r``, the non-absorbed prefill, the absorbed decode; no
+   kernel, as the reference computes MLA in plain ``jnp``) on
+   deepseek-v2-236b at its published widths (d_model 5120, 128 heads,
+   latent 512, rope 64, nope and v 128; 160 routed experts of d_ff 1536,
+   top-6, 2 shared; vocab 102400), the port's ``init_params`` at seed 0,
+   after phase 16's tensors are freed. (a) one layer's MLA alone
+   (``init_mla``, 0.459 GB): ``mla_attention`` at 4 x 1024 (the plain
+   branch) and ``mla_decode`` at B = 4 over 2048 latent rows, timed with
+   CUDA events against their bounds (bytes at 3.35 TB/s, FLOP at 989
+   TFLOP/s); at 1 x 8192 the flash branch against the plain branch
+   (whose f32 scores take 34.4 GB) within BF16_DRIFT_ULPS of each
+   position's largest output. (b) the depth cut from 60 to 6 layers
+   (50.72 GB; 8 would leave too little beside the per-token prefill),
+   the batch launcher at 4 x 1024 + 16: prefill ms against its FLOP
+   floor (the routed pairs and shared experts), decode ms a step against
+   two bytes floors (the function's: the experts its pairs reach,
+   attention, head and latent rows; this implementation's: every
+   expert, each buffer holding at least 8 rows), the drops (none at
+   decode), no kernel launched; then 1 x 8192 + 3, whose prefill takes
+   ``_flash_causal`` once a layer. (c) bf16 decode against a
+   teacher-forced ``forward``, the forward replaying the decode run's
+   routing, each of its own decisions that differs within twice the
+   runs' router-logit noise (phase 13 (b)'s rule), on a copy at
+   capacity_factor 4.0 (no pair may drop: phase 13's 8.0 would give 160
+   experts a 16 GB buffer): at 6 layers the drift is reported (the
+   absorbed and the expanded forms round the scores at other points);
+   then, after the other bf16 layers are freed, at full width and 2 of
+   60 layers (the f32 copy of 6 does not fit; that of 2 is 36.6 GB) the
+   bf16 decode by phase 16's rule (within BF16_DRIFT_ULPS of the bf16
+   forward, else its distance from the f32 truth, a forward of the
+   weights upcast over its history on its routing, within
+   P15_TRUTH_RATIO of the bf16 forward's), and the absorbed algebra's
+   hard gate: the launcher on the upcast weights, 2 x 512 + 16, decode
+   against its teacher-forced forward (on the decode run's
+   routing) within P15_FWD_REL = 1e-4 of max|logit|. (d) phase 13's K=2
+   dense fleet (the paged pool refuses MLA, as the reference's does) at
+   contexts 256 / 2048, c_chunk 128, n_max 4, decode_k 4, behind the C&R
+   gateway: two short, two in-band and one long request of 16 new
+   tokens, prefilled token by token; every request completes, the
+   in-band ones compressed within Eq. 15 (TextRank launched once each),
+   ``gqa_decode`` and ``paged_gqa_decode`` launched 0 times; the
+   ``decode_impl="torch"`` run emits the kernel run's tokens (MLA's
+   decode is the same code in both); then the short pool reprovisioned
+   to c_max 384 once a slot decodes (phase 15 (d)'s event): every
+   swap-in's ``c_kv`` / ``k_r`` rows read back bitwise, the padded tail
+   zero, and the uninterrupted run's tokens. Decode ms a dispatch and
+   per-token prefill ms a column are printed. (e) reduced f32, card
+   against CPU, the CPU replaying the card's routing: ``forward``,
+   ``prefill`` (logits and both latent leaves), 8 greedy decode steps (a
+   token flip only at a CPU top-2 gap under 1e-5), a masked step and
+   ``prefill_chunk`` with an idle row (those rows bitwise), within 1e-5
+   of max; a routing decision of the CPU's own only at a top-2 router
+   probability gap under 1e-5 (with top-k routing the gap between the
+   k-th and (k+1)-th, where a flip happens; ``_route_log`` logs those).
+   Peak device memory under 80 GB; the phase's launches (TextRank's) are
+   added to the ``kernels`` line.
+
 Then it prints the ``kernels`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of
 JAX and nothing of the JAX package.
@@ -2432,7 +2490,9 @@ def batch_args(arch, shape, int8=False, reduced=False):
 
 def _decode_launches(cfg) -> int:
     """Decode-kernel launches of one decode step: one a layer; HYBRID one
-    a shared-block application (n_groups); SSM none."""
+    a shared-block application (n_groups); SSM and MLA none."""
+    if cfg.mla is not None:
+        return 0
     if cfg.family == "hybrid":
         return cfg.num_layers // cfg.ssm.shared_attn_every
     return 0 if cfg.family == "ssm" else cfg.num_layers
@@ -4789,13 +4849,14 @@ def _route_log(log, key, replay=None):
     """Log the routing of every token the MoE routes inside
     ``decode_step``, ``paged_decode_step``, ``prefill`` and ``forward``
     (a chunk's tokens are not logged): ``log[key(row, b, pos)]`` is a
-    list, one (experts, top-2 router probabilities, top-2 router logits)
-    a layer, where ``row`` is the engine slot's (rid, prompt tokens) when
-    an engine step made the call (else None) and a key of None is not
-    logged. A decode_step row that is not active is not logged. The
-    records stay on the device until the context exits, so the path
-    takes no host sync for them (its ops add a router product and two
-    top-2s a layer). With ``replay`` (another run's log), every token
+    list, one (experts, router probabilities, router logits) a layer,
+    the last two the k-th and (k+1)-th largest, at the boundary of the
+    top k (top-1: the top two), where ``row`` is the engine slot's (rid,
+    prompt tokens) when an engine step made the call (else None) and a
+    key of None is not logged. A decode_step row that is not active is
+    not logged. The records stay on the device until the context exits,
+    so the path takes no host sync for them (its ops add a router product
+    and two top-(k+1)s a layer). With ``replay`` (another run's log), every token
     whose key it holds takes that run's experts at each layer in place
     of its own (its gates its own router probabilities at them,
     renormalised as ``moe.route`` does), while ``log`` keeps its own
@@ -4826,8 +4887,9 @@ def _route_log(log, key, replay=None):
         if ctx[0] is None:
             return probs, gate, eidx
         _, layers, keys = ctx[0]
-        pt = torch.topk(probs, 2).values
-        lt = torch.topk(tokens.float() @ router, 2).values
+        k = cfg.moe.top_k
+        pt = torch.topk(probs, k + 1).values[:, k - 1:]
+        lt = torch.topk(tokens.float() @ router, k + 1).values[:, k - 1:]
         layers.append(torch.cat([eidx.float(), pt, lt], 1))
         hit = [(t, replay[k][len(layers) - 1][0]) for t, k in
                enumerate(keys or ()) if k in replay] if replay else []
@@ -4905,11 +4967,12 @@ def _route_flips(plain, path, j_of, until, what, tie=None):
     path's after a flip), at the keys both hold: ``j_of(key)`` -> (owner,
     j), the token whose logits the key's position computes; only j <=
     until[owner] count (where the two histories agree). Each of the plain
-    run's own decisions that differs from the path's must be a near-tie:
-    ``tie(the plain run's record)``, or by default a top-2 router logit
-    gap within twice the largest difference of the top router logit
-    between the two runs where they route alike (a flip needs the two
-    experts' logits to move apart by the gap). Returns (flips, that
+    run's own decisions whose expert set differs from the path's (the
+    order within the top k aside) must be a near-tie: ``tie(the plain
+    run's record)``, or by default a gap between the k-th and (k+1)-th
+    router logits within twice the largest difference of the k-th router
+    logit between the two runs where they route alike (a flip needs the
+    two experts' logits to move apart by the gap). Returns (flips, that
     largest difference)."""
     flips, noise = [], 0.0
     for k in plain.keys() & path.keys():
@@ -4917,7 +4980,7 @@ def _route_flips(plain, path, j_of, until, what, tie=None):
         if j > until.get(owner, 1 << 30):
             continue
         for layer, (a, b) in enumerate(zip(plain[k], path[k])):
-            if a[0] == b[0]:
+            if sorted(a[0]) == sorted(b[0]):
                 noise = max(noise, abs(a[2][0] - b[2][0]))
             else:
                 flips.append((k, layer, a, b))
@@ -4926,9 +4989,9 @@ def _route_flips(plain, path, j_of, until, what, tie=None):
         if tie(a) if tie is not None else gap <= 2 * noise:
             continue
         print(f"[moe] {what}: routing flip at {k} layer {layer}: expert "
-              f"{b[0]} vs {a[0]}; the plain run's top-2 router "
+              f"{b[0]} vs {a[0]}; the plain run's k-th and (k+1)-th router "
               f"probabilities {a[1]}, logits {a[2]} (gap {gap:.4f}, "
-              f"largest top-logit difference where they agree "
+              f"largest k-th logit difference where they agree "
               f"{noise:.4f})")
         fail(f"{what}: routing differs away from a near-tie at {k} "
              f"layer {layer}")
@@ -6809,6 +6872,575 @@ def phase_encdec(smi):
     return out
 
 
+# ---------------------------------------------------------------- phase 17
+P17_ARCH = "deepseek-v2-236b"
+P17_LAYERS = 6                # of 60: 50.72 GB of bf16 weights
+# (c): capacity_factor of the no-drop copy. The reference test's 8.0
+# gives each of 160 experts ceil(T k cf^2 / E) rows: 1.57e6 rows (16 GB
+# of bf16 buffer) at 4 x 1039 tokens, beside 50.7 GB of weights; at 4.0
+# each expert holds 16x its mean load, and (c) fails if a pair drops (at
+# 2.0, 4x, random weights overloaded experts past it:
+# tests/mla_truth_controls.py read 986 dropped pairs at 2 layers).
+P17_NO_DROP = 4.0
+P17_BLOCK = (4, 1024)         # (a): mla_attention's batch and tokens
+P17_DECODE = (4, 2048)        # (a): mla_decode's rows and cache entries
+P17_FLASH = (1, 8192)         # (a), (b): the flash branch's shape
+P17_BATCH = (4, 1024, 16)     # (b), (c): batch, prompt, new tokens
+P17_F32_LAYERS = 2            # (c): the f32 copy (36.6 GB) at 2 of 60
+P17_TF32 = (2, 512, 16)       # (c): f32 batch, prompt, new tokens
+P17_FLEET_LAYERS = 6          # (d): the fleet's depth
+P17_LONG_CTX = 2048           # (d): contexts 256 / 2048, phase 13's,
+P17_C_CHUNK = 128             # with the boundary at 2 x c_chunk
+P17_SHORT = (100, 180)        # (d): prompt tokens, the short pool
+P17_INBAND = (330, 420)       # (d): B < L_total <= gamma * B: C&R
+P17_LONG = (530,)             # (d): > gamma * B: the long pool
+P17_NEW = P15_NEW             # (d): new tokens a request (16); the
+                              # reprovision is phase 15's (c_max 384)
+P17_CPU_TOL = 1e-5            # (e): card vs CPU, of max
+P17_CPU_GAP = 1e-5            # (e): a token flip's CPU top-2 logit gap
+
+
+def _p17_configs(layers=P17_LAYERS, dtype="bfloat16"):
+    """deepseek-v2 at its published widths with the depth cut to
+    ``layers``, and its copy at capacity_factor P17_NO_DROP, both
+    registered under their own names (the batch launcher's ``--arch``
+    finds them)."""
+    from repro_torch.configs import base
+    tag = "" if dtype == "bfloat16" else "-f32"
+    cfg = dataclasses.replace(base.get_config(P17_ARCH), num_layers=layers,
+                              dtype=dtype,
+                              name=f"{P17_ARCH}-{layers}-layers{tag}")
+    nd = dataclasses.replace(cfg, name=f"{cfg.name}-no-drop",
+                             moe=dataclasses.replace(
+                                 cfg.moe, capacity_factor=P17_NO_DROP))
+    return base.register(cfg), base.register(nd)
+
+
+def _p17_attn_flop(cfg, p, b: int, s: int) -> float:
+    """Operations of ``mla_attention`` on b x s tokens: every projection
+    on each token (``wuk`` / ``wuv`` on its latent) and the causal
+    triangle's scores and weighted values at q/k head dim nope + rope, v
+    head dim v_head_dim."""
+    m = cfg.mla
+    proj = sum(t.numel() for k, t in p.items() if k != "kv_norm")
+    return (2.0 * b * s * proj + 2.0 * b * cfg.num_heads * s * (s + 1) / 2
+            * (m.nope_head_dim + m.rope_head_dim + m.v_head_dim))
+
+
+def _p17_block(smi):
+    """(a) one layer's MLA at full width alone (module docstring)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import mla
+    cfg = get_config(P17_ARCH)
+    m, d, h = cfg.mla, cfg.d_model, cfg.num_heads
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(17)
+    p = mla.init_mla(gen, cfg, (), torch.bfloat16, DEVICE)
+    w = _nbytes(p)
+    b, s = P17_BLOCK
+    x = torch.randn((b, s, d), generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    out = mla.mla_attention(p, cfg, x)
+    if not all(torch.isfinite(t).all() for t in out):
+        fail("(a) mla_attention: non-finite output")
+    ms = cuda_ms(lambda: mla.mla_attention(p, cfg, x), iters=5)
+    moved = w + 2 * (2 * x.numel() + b * s * (m.kv_lora_rank
+                                              + m.rope_head_dim))
+    flop = _p17_attn_flop(cfg, p, b, s)
+    bound, by = _bound(moved, flop, "bfloat16")
+    del out
+    bd, sd = P17_DECODE
+    kv = {"c_kv": torch.randn((bd, sd, m.kv_lora_rank), generator=gen,
+                              device=DEVICE).to(torch.bfloat16),
+          "k_r": torch.randn((bd, sd, m.rope_head_dim), generator=gen,
+                             device=DEVICE).to(torch.bfloat16)}
+    xd = x[:, :1].clone()
+    idx = L.decode_index(cfg, sd - 1, kv, None, 0)
+    if not torch.isfinite(mla.mla_decode(p, cfg, xd, kv, idx)).all():
+        fail("(a) mla_decode: non-finite output")
+    ms_d = cuda_ms(lambda: mla.mla_decode(p, cfg, xd, kv, idx), iters=10)
+    rows = _nbytes(kv)
+    moved_d = w + rows + 2 * 2 * xd.numel()
+    flop_d = (2.0 * bd * sum(t.numel() for k, t in p.items()
+                             if k != "kv_norm")
+              + 2.0 * bd * h * sd * (2 * m.kv_lora_rank + m.rope_head_dim))
+    bound_d, by_d = _bound(moved_d, flop_d, "bfloat16")
+    print(f"[mla] (a) one MLA layer of {P17_ARCH} (d_model {d}, {h} heads, "
+          f"latent {m.kv_lora_rank}, rope {m.rope_head_dim}, nope "
+          f"{m.nope_head_dim}, v {m.v_head_dim}; {w / 1e9:.4f} GB of "
+          f"weights): mla_attention (plain branch) {b} x {s}: {ms:.4f} ms "
+          f"against {bound:.4f} ms ({by}: {moved / 1e9:.4f} GB at 3.35 TB/s,"
+          f" {flop:.4e} FLOP at 989 TFLOP/s; {100 * bound / ms:.1f}%); "
+          f"mla_decode (absorbed) B={bd} over {sd} cache entries "
+          f"({rows / 1e6:.2f} MB of latent rows): {ms_d:.4f} ms against "
+          f"{bound_d:.4f} ms ({by_d}: {moved_d / 1e9:.4f} GB, {flop_d:.4e} "
+          f"FLOP; {100 * bound_d / ms_d:.1f}%) ({smi})")
+    del kv, x, xd
+    bf, sf = P17_FLASH
+    xf = torch.randn((bf, sf, d), generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    calls = []
+    torch.cuda.synchronize()
+    with _count_flash(calls):
+        t0 = time.perf_counter()
+        flash = mla.mla_attention(p, cfg, xf)[0]
+        torch.cuda.synchronize()
+        t_flash = time.perf_counter() - t0
+    if len(calls) != 1:
+        fail(f"(a) mla_attention at S={sf} took _flash_causal "
+             f"{len(calls)} times, not once")
+    floor, L.FLASH_MIN_SEQ = L.FLASH_MIN_SEQ, 1 << 62
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        plain = mla.mla_attention(p, cfg, xf)[0]
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        L.FLASH_MIN_SEQ = floor
+    drift = _ulps(flash, plain)
+    print(f"[mla] (a) mla_attention at {bf} x {sf}: the flash branch "
+          f"(q/k head dim {m.nope_head_dim + m.rope_head_dim}, v "
+          f"{m.v_head_dim}, chunk {L.FLASH_CHUNK}) {1e3 * t_flash:.1f} ms "
+          f"vs the plain branch {1e3 * t_plain:.1f} ms (peak "
+          f"{peak / 1e9:.2f} GB: its f32 scores "
+          f"{4 * h * sf * sf / 1e9:.1f} GB); largest |flash - plain| "
+          f"{drift:.2f} bf16 ulps of each position's largest output "
+          f"(limit {BF16_DRIFT_ULPS}) ({smi})")
+    if drift > BF16_DRIFT_ULPS:
+        fail(f"(a) the flash branch drifts {drift:.2f} ulps from the plain")
+    del p, xf, flash, plain
+    torch.cuda.empty_cache()
+
+
+def _p17_prefill_flop(cfg, params, b: int, s: int) -> float:
+    """Operations of ``prefill`` on b x s tokens that the function needs:
+    each layer's attention (``_p17_attn_flop``), the router, the k routed
+    and the shared experts' gated MLPs on every token, and the LM head on
+    the last position."""
+    from repro_torch.models import model as M
+    mc = cfg.moe
+    f = mc.expert_d_ff
+    lp = M._unstack(params["layers"]["attn"])[0]
+    t = b * s
+    return cfg.num_layers * (
+        _p17_attn_flop(cfg, lp, b, s) + 2.0 * t * cfg.d_model * mc.num_experts
+        + 6.0 * cfg.d_model * f * t * (mc.top_k + mc.num_shared_experts)) \
+        + 2.0 * b * cfg.d_model * cfg.vocab_size
+
+
+def _p17_batch(cfg, nd, params, smi):
+    """(b) the batch launcher and (c)'s bf16 teacher forcing (module
+    docstring). Returns nothing: MLA launches no kernel."""
+    import torch
+    from repro_torch.models import model as M
+    b, p, new = P17_BATCH
+    drops = []
+    with _drop_log(drops):
+        run, _ = _serve_batch(batch_args(cfg.name, P17_BATCH), params)
+    pre = _drops(drops[:cfg.num_layers])
+    dec = _drops(drops[cfg.num_layers:])
+    if dec[0]:
+        fail(f"(b) a decode step dropped {dec[0]} pairs")
+    flop = _p17_prefill_flop(cfg, params, b, p)
+    floor_ms = 1e3 * flop / PEAK_OPS["bfloat16"]
+    steps = new - 1
+    experts = sum(_nbytes(params["layers"]["moe"][n])
+                  for n in ("w_gate", "w_up", "w_down"))
+    used = sum(int(u) for _, _, u in drops[cfg.num_layers:]) / steps
+    rest = _nbytes(params) - _nbytes(params["embed"]) - experts
+    kv = cfg.kv_bytes_per_token() * b * (p + (steps + 1) / 2)
+    need = rest + kv + used * experts / (cfg.num_layers
+                                         * cfg.moe.num_experts)
+    impl = rest + kv + experts
+    step_ms = 1e3 * b / run.decode_tok_s
+    print(f"[mla] (b) batch launcher, {P17_ARCH} {cfg.num_layers} layers, "
+          f"{b} x {p} + {steps} decode steps, capacity_factor "
+          f"{cfg.moe.capacity_factor}: prefill {run.prefill_ms:.2f} ms "
+          f"(compute floor {floor_ms:.2f} ms: {flop:.4e} FLOP at 989 "
+          f"TFLOP/s, the routed pairs and shared experts only), decode "
+          f"{step_ms:.2f} ms a step against two bytes floors: the "
+          f"function's {1e3 * need / HBM_BYTES_PER_S:.2f} ms "
+          f"({need / 1e9:.2f} GB: {used:.1f} experts a step of the "
+          f"{cfg.num_layers * cfg.moe.num_experts}, attention, shared "
+          f"experts, router, norms and head, the latent rows read) and "
+          f"this implementation's {1e3 * impl / HBM_BYTES_PER_S:.2f} ms "
+          f"({impl / 1e9:.2f} GB: every expert, each buffer holding at "
+          f"least 8 rows), {run.decode_tok_s:.1f} tokens/s; latent cache "
+          f"{_nbytes(run.cache) / 1e6:.1f} MB ({cfg.kv_bytes_per_token()} "
+          f"B a token); drops: prefill {pre[0]} of {pre[1]} pairs, decode "
+          f"{dec[0]} of {dec[1]}; no kernel launched ({smi})")
+    run.cache = None
+    calls = []
+    bf, sf = P17_FLASH
+    with _count_flash(calls):
+        long_run, _ = _serve_batch(batch_args(cfg.name, (bf, sf, 4)),
+                                   params)
+    if len(calls) != cfg.num_layers:
+        fail(f"(b) prefill {sf} took _flash_causal {len(calls)} times, "
+             f"not {cfg.num_layers}")
+    print(f"[mla] (b) batch launcher {bf} x {sf} + 3: prefill "
+          f"{long_run.prefill_ms:.2f} ms through the flash branch "
+          f"({len(calls)} calls), decode "
+          f"{1e3 * bf / long_run.decode_tok_s:.2f} ms a step ({smi})")
+    del long_run
+    dec_log, fwd_log = {}, {}
+
+    def key(row, b, pos):          # position pos computes token pos - p + 1
+        return b, pos
+    nd_drops = []
+    with _route_log(dec_log, key), _drop_log(nd_drops):
+        run8, _ = _serve_batch(batch_args(nd.name, P17_BATCH), params,
+                               tokens=run.prompt)
+        run8.cache = None
+        seq = torch.cat([run8.prompt, run8.tokens[:, :-1]], dim=1)
+        with torch.no_grad(), _route_log(fwd_log, key, replay=dec_log):
+            fwd = M.forward(params, nd, {"tokens": seq})[0][:, p - 1:]
+    if _drops(nd_drops)[0]:
+        fail(f"(c) {_drops(nd_drops)[0]} pairs dropped at capacity_factor "
+             f"{P17_NO_DROP}")
+    flips, noise = _route_flips(fwd_log, dec_log,
+                                lambda k: (k[0], k[1] - (p - 1)), {},
+                                "(c) the forward's own routing vs the "
+                                "decode run's")
+    drift = _ulps(torch.stack(run8.logits, dim=1), fwd)
+    agree = float((fwd.argmax(-1) == run8.tokens).float().mean())
+    del fwd
+    print(f"[mla] (c) bf16 at {cfg.num_layers} layers, capacity_factor "
+          f"{P17_NO_DROP} (no pair dropped): absorbed decode vs the "
+          f"teacher-forced forward over {seq.shape[1]} tokens x "
+          f"{seq.shape[0]} rows, on the decode run's routing: largest "
+          f"|decode - forward| {drift:.2f} bf16 ulps of the top logit "
+          f"(reported: the two forms round the scores at other points; "
+          f"held at {P17_F32_LAYERS} layers against the f32 truth below), "
+          f"the forward's argmax the emitted token at {100 * agree:.2f}% of "
+          f"positions; {flips} routing decisions of the forward's own "
+          f"differ, each at a router near-tie (gap between the 6th and 7th "
+          f"router logits within twice {noise:.4f}, the largest 6th logit "
+          f"difference where they route alike); prefill "
+          f"{run8.prefill_ms:.2f} ms ({smi})")
+    del run, run8
+    torch.cuda.empty_cache()
+
+
+def _p17_requests(tokenizer):
+    """(d) two short prompts (rids 0-1), one long (10), two in-band for
+    C&R (20-21), P17_NEW new tokens each."""
+    import numpy as np
+    from repro_torch.serving.pools import GatewayRequest
+    rng = np.random.default_rng(17)
+    reqs = [GatewayRequest(i, varied_prompt(rng, n, tokenizer), P17_NEW)
+            for i, n in enumerate(P17_SHORT)]
+    reqs += [GatewayRequest(10 + i, varied_prompt(rng, n, tokenizer),
+                            P17_NEW) for i, n in enumerate(P17_LONG)]
+    reqs += [GatewayRequest(20 + i, varied_prompt(rng, n, tokenizer),
+                            P17_NEW, category="rag")
+             for i, n in enumerate(P17_INBAND)]
+    return reqs
+
+
+def _p17_fleet_run(cfg, params, impl, event=None, pad_from=None):
+    """P17's stream through phase 5's dense fleet at contexts 256 / 2048
+    (``_p9_serve``) with ``decode_impl=impl``, prompts, decode and
+    prefill dispatches timed, every swap-in read back (``_restore_probe``;
+    a rebuilt engine's row tail past its old context ``pad_from[engine]``
+    zero); ``event``: a reprovision. Fails if a decode kernel
+    launched. Returns the run."""
+    run = dict(prompts={}, decode=[], prefill=[], swaps=[],
+               pad_from={} if pad_from is None else pad_from)
+    with contextlib.ExitStack() as wraps:
+        wraps.enter_context(_engine_prompts(run["prompts"]))
+        wraps.enter_context(_decode_timer(run["decode"]))
+        wraps.enter_context(_prefill_timer(run["prefill"]))
+        wraps.enter_context(_restore_probe(run["swaps"], run["pad_from"]))
+        served = _p9_serve(cfg, params, False, None, event=event,
+                           reqs=_p17_requests, new=P17_NEW,
+                           decode_impl=impl, long_ctx=P17_LONG_CTX,
+                           c_chunk=P17_C_CHUNK)
+    run.update(served)
+    c = run["counts"]
+    if c["gqa_decode"] or c["paged_decode"] \
+            or c["textrank"] != len(P17_INBAND):
+        fail(f"(d) {impl} run: launches {c}, not 0 / 0 / one TextRank a "
+             f"compression ({len(P17_INBAND)})")
+    return run
+
+
+def _p17_fleet(cfg, params, smi):
+    """(d) the K=2 fleet behind the C&R gateway (module docstring).
+    Returns the TextRank launches."""
+    kern = _p17_fleet_run(cfg, params, "kernel")
+    plain = _p17_fleet_run(cfg, params, "torch")
+    if plain["tokens"] != kern["tokens"]:
+        fail("(d) decode_impl 'kernel' and 'torch' emitted other tokens "
+             "(MLA attention is the same code in both)")
+    ev = _P15Reprovision()
+    moved = _p17_fleet_run(cfg, params, "kernel", event=ev,
+                           pad_from=ev.pad_from)
+    ins = [nb for d, nb, _ in moved["swaps"] if d == "in"]
+    if ev.info is None or not ins or ev.info["rerouted"]:
+        fail(f"(d) reprovision {ev.info}: {len(ins)} swap-ins")
+    if moved["tokens"] != kern["tokens"]:
+        fail("(d) the reprovisioned run's tokens differ from the "
+             "uninterrupted run's")
+    dec_ms, cols, col_ms = _fleet_ms(kern)
+    p_dec, _, p_col = _fleet_ms(plain)
+    lens = sorted(len(t) for t in kern["prompts"].values())
+    print(f"[mla] (d) {P17_ARCH} {cfg.num_layers} layers, phase 5's K=2 "
+          f"dense fleet at contexts {P17_LONG_CTX // 8} / {P17_LONG_CTX}, "
+          f"c_chunk {P17_C_CHUNK}, n_max 4, decode_k 4: prompts {lens} "
+          f"tokens (after C&R) + {P17_NEW} new, every request complete: "
+          f"{kern['secs']:.2f} s, {kern['rounds']} drive rounds; decode "
+          f"{dec_ms:.2f} ms per dispatch ({len(kern['decode'])}); "
+          f"per-token prefill {cols} token columns, {col_ms:.2f} ms a "
+          f"column; decode_impl torch {plain['secs']:.2f} s ({p_dec:.2f} "
+          f"ms a dispatch, {p_col:.2f} ms a column), the same tokens; "
+          f"launches gqa_decode 0, paged_decode 0, textrank "
+          f"{kern['counts']['textrank']} a run ({smi})")
+    print(f"[mla] (d) the short pool reprovisioned mid-stream to {P15_TO} "
+          f"(n_max kept): checkpointed {ev.info['checkpointed']}, migrated "
+          f"{ev.info['migrated']}, rerouted {ev.info['rerouted']}; "
+          f"{len(ins)} swap-ins ({sum(ins) / 2 ** 20:.2f} MiB of c_kv / "
+          f"k_r rows) read back bitwise, the tail past "
+          f"{P17_LONG_CTX // 8} zero; the uninterrupted run's tokens "
+          f"({moved['secs']:.2f} s) ({smi})")
+    return sum(r["counts"]["textrank"] for r in (kern, plain, moved))
+
+
+def _p17_f32(p16, smi):
+    """(c) at full width and P17_F32_LAYERS layers (``p16``: the bf16
+    weights of those layers), capacity P17_NO_DROP, no pair dropped:
+    the bf16 decode's distance from the f32 truth (a teacher-forced
+    ``forward`` of the weights upcast over its history, on its routing)
+    within P15_TRUTH_RATIO of the bf16 forward's, unless the two are
+    within BF16_DRIFT_ULPS (``_p16_truth_rule``); then the launcher on
+    the upcast weights, decode against its own teacher-forced forward
+    (on its routing) within P15_FWD_REL of max|logit|."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.training import tree
+    _, nd = _p17_configs(P17_F32_LAYERS)
+    _, nd32 = _p17_configs(P17_F32_LAYERS, "float32")
+    p32 = tree.map(lambda t: t.float(), p16)
+    b, p, n = P17_TF32
+    drops, logs = [], {k: {} for k in ("dec", "fwd", "truth", "dec32",
+                                       "fwd32")}
+    flips = []
+
+    def key(row, b, pos):
+        return b, pos
+
+    def forward(params, cfg, run, log, replay):
+        seq = torch.cat([run.prompt, run.tokens[:, :-1]], dim=1)
+        with torch.no_grad(), _route_log(log, key, replay=replay):
+            out = M.forward(params, cfg, {"tokens": seq})[0][:, p - 1:]
+        flips.append(_route_flips(log, replay,
+                                  lambda k: (k[0], k[1] - (p - 1)), {},
+                                  "(c) a forward's own routing vs the "
+                                  "decode run's")[0])
+        return out
+    with _drop_log(drops):
+        with _route_log(logs["dec"], key):
+            run, _ = _serve_batch(batch_args(nd.name, P17_TF32), p16)
+        run.cache = None
+        dec = torch.stack(run.logits, dim=1)
+        fwd = forward(p16, nd, run, logs["fwd"], logs["dec"])
+        truth = forward(p32, nd32, run, logs["truth"], logs["dec"])
+        drift = _ulps(dec, fwd)
+        note = _p16_truth_rule("(c) bf16 decode", drift, _ulps(dec, truth),
+                               _ulps(fwd, truth), "bf16 forward")
+        del fwd, truth, dec
+        with _route_log(logs["dec32"], key):
+            run32, _ = _serve_batch(batch_args(nd32.name, P17_TF32), p32,
+                                    tokens=run.prompt)
+        run32.cache = None
+        fwd32 = forward(p32, nd32, run32, logs["fwd32"], logs["dec32"])
+    if _drops(drops)[0]:
+        fail(f"(c) {_drops(drops)[0]} pairs dropped at capacity_factor "
+             f"{P17_NO_DROP}")
+    rel = max(float((lg.float() - fwd32[:, j]).abs().max()
+                    / fwd32[:, j].abs().max())
+              for j, lg in enumerate(run32.logits))
+    print(f"[mla] (c) at full width and {P17_F32_LAYERS} of 60 layers "
+          f"(bf16 {_nbytes(p16) / 1e9:.2f} GB, the f32 copy "
+          f"{_nbytes(p32) / 1e9:.2f} GB), capacity_factor {P17_NO_DROP}, "
+          f"{b} x {p} + {n - 1} decode steps, each forward on its decode "
+          f"run's routing ({sum(flips)} own decisions differ, each at a "
+          f"router near-tie): bf16 decode vs forward {note}; f32 absorbed "
+          f"decode vs its teacher-forced forward {rel:.3e} of max|logit| "
+          f"(limit {P15_FWD_REL}); f32 prefill {run32.prefill_ms:.2f} ms, "
+          f"decode {1e3 * b / run32.decode_tok_s:.2f} ms a step ({smi})")
+    if rel >= P15_FWD_REL:
+        fail(f"(c) f32 decode logits {rel:.3e} of max|logit| from the "
+             f"teacher-forced forward (limit {P15_FWD_REL})")
+    del p32, run, run32, fwd32
+    torch.cuda.empty_cache()
+
+
+def _p17_card_vs_cpu():
+    """(e) reduced deepseek-v2 f32, the card against the CPU, the CPU
+    replaying the card's routing: forward; prefill (logits and the
+    latent caches), 8 greedy decode steps (a row's tokens may part only
+    where the CPU's top-2 logits are within P17_CPU_GAP; its logits are
+    held until they part) and a step with row 2 inactive (its rows
+    bitwise); prefill_chunk with an idle row (bitwise); all within
+    P17_CPU_TOL of max."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.training import tree
+    cfg = dataclasses.replace(get_config(P17_ARCH).reduced(),
+                              dtype="float32")
+    params = M.init_params(cfg, seed=0, device=DEVICE)
+    cpu = _to_cpu(params)
+    gen = torch.Generator()
+    gen.manual_seed(17)
+    toks = torch.randint(1, cfg.vocab_size, (3, 40), generator=gen)
+    close = _card_vs_cpu_close(P17_CPU_TOL)
+    tie = lambda rec: rec[1][0] - rec[1][1] < P17_CPU_GAP  # noqa: E731
+    rflips = 0
+
+    def key(row, b, pos):
+        return b, pos
+
+    def routed(fn_card, fn_cpu, what, parted=()):
+        """Both calls, the CPU's on the card's routing; the rows in
+        ``parted`` (fed other tokens since a near-tie) are not held."""
+        nonlocal rflips
+        card_r, cpu_r = {}, {}
+        with _route_log(card_r, key):
+            got = fn_card()
+        with _route_log(cpu_r, key, replay=card_r):
+            want = fn_cpu()
+        rflips += _route_flips(cpu_r, card_r, lambda k: (k[0], 0),
+                               {r: -1 for r in parted},
+                               f"(e) {what}: the CPU's own routing vs the "
+                               f"card's", tie=tie)[0]
+        return got, want
+    _reset_launches()
+    with torch.no_grad():
+        kf, cf = routed(lambda: M.forward(params, cfg,
+                                          {"tokens": toks.to(DEVICE)})[0],
+                        lambda: M.forward(cpu, cfg, {"tokens": toks})[0],
+                        "forward")
+        close(kf, cf, "forward logits")
+        batch = {"tokens": toks[:, :32], "cache_len": 48}
+        (kl, kc), (cl, cc) = routed(
+            lambda: M.prefill(params, cfg, dict(
+                batch, tokens=batch["tokens"].to(DEVICE))),
+            lambda: M.prefill(cpu, cfg, batch), "prefill")
+        close(kl, cl, "prefill logits")
+        for n in kc["kv"]:
+            close(kc["kv"][n], cc["kv"][n], f"prefill cache {n}")
+        k0 = tree.map(lambda t: t.clone(), kc)
+        c0 = tree.map(lambda t: t.clone(), cc)
+        kt, ct = kl.argmax(-1)[:, None], cl.argmax(-1)[:, None]
+        same, flips = [True] * 3, 0
+        for j in range(8):
+            (kl, kc), (cl, cc) = routed(
+                lambda: M.decode_step(params, cfg, kt, kc, 32 + j),
+                lambda: M.decode_step(cpu, cfg, ct, cc, 32 + j),
+                f"decode step {j}", [r for r in range(3) if not same[r]])
+            for r in range(3):
+                if same[r]:
+                    close(kl[r], cl[r], f"decode step {j} row {r}")
+            kt, ct = kl.argmax(-1)[:, None], cl.argmax(-1)[:, None]
+            for r in range(3):
+                if same[r] and int(kt[r]) != int(ct[r]):
+                    top = torch.topk(cl[r], 2).values.tolist()
+                    if top[0] - top[1] >= P17_CPU_GAP:
+                        fail(f"(e) row {r} step {j}: tokens differ away "
+                             f"from a CPU near-tie ({top})")
+                    same[r], flips = False, flips + 1
+        row2 = _rows(kc, 2)
+        M.decode_step(params, cfg, kt, kc, 40,
+                      active=torch.tensor([True, True, False],
+                                          device=DEVICE))
+        if not all(torch.equal(a, b) for a, b in zip(_rows(kc, 2), row2)):
+            fail("(e) an inactive decode row's latent cache changed")
+        start, lengths = torch.tensor([32, 32, 32]), torch.tensor([8, 5, 0])
+        idle = _rows(k0, 2)
+        (kl, k0), (cl, c0) = routed(
+            lambda: M.prefill_chunk(params, cfg, toks[:, 32:].to(DEVICE), k0,
+                                    start.to(DEVICE), lengths.to(DEVICE)),
+            lambda: M.prefill_chunk(cpu, cfg, toks[:, 32:], c0, start,
+                                    lengths), "prefill_chunk")
+        close(kl[:2], cl[:2], "prefill_chunk logits")
+        for n in k0["kv"]:
+            close(k0["kv"][n], c0["kv"][n], f"prefill_chunk cache {n}")
+        if not all(torch.equal(a, b) for a, b in zip(_rows(k0, 2), idle)):
+            fail("(e) an idle prefill_chunk row's latent cache changed")
+    counts = _launch_counts()
+    if any(counts.values()):
+        fail(f"(e) MLA launched a kernel: {counts}")
+    print(f"[mla] (e) reduced {cfg.name} f32 ({cfg.num_layers} layers, "
+          f"latent {cfg.mla.kv_lora_rank}, {cfg.moe.num_experts} experts "
+          f"top-{cfg.moe.top_k}), card vs CPU, the CPU on the card's "
+          f"routing (forward, prefill, 8 greedy decode steps, a masked step,"
+          f" prefill_chunk with an idle row; logits and both latent leaves):"
+          f" within {close.worst:.3g} of max (limit {P17_CPU_TOL}), {flips} "
+          f"near-tie token flips, {rflips} routing decisions of the CPU's "
+          f"own differ (each where the k-th and (k+1)-th router "
+          f"probabilities are within {P17_CPU_GAP}); inactive and idle rows "
+          f"bitwise; no kernel "
+          f"launched")
+    del params, cpu, k0, kc
+    torch.cuda.empty_cache()
+
+
+def phase_mla(smi):
+    """Phase 17: MLA and deepseek-v2-236b at its published widths (module
+    docstring). Returns the launches."""
+    import gc
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.training import tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    _p17_block(smi)
+    parts = [time.perf_counter()]
+    cfg, nd = _p17_configs()
+    params = M.init_params(cfg, seed=0, device=DEVICE)
+    print(f"[mla] {P17_ARCH} at {cfg.num_layers} of 60 layers: "
+          f"{_nbytes(params) / 1e9:.2f} GB of weights, init "
+          f"{time.perf_counter() - parts[0]:.1f} s")
+    _p17_batch(cfg, nd, params, smi)
+    parts.append(time.perf_counter())
+    fleet = (cfg, params) if P17_FLEET_LAYERS == cfg.num_layers else \
+        _depth_cut(cfg, params, P17_FLEET_LAYERS, P17_ARCH)
+    textrank = _p17_fleet(*fleet, smi)
+    parts.append(time.perf_counter())
+    p16 = dict(params, layers=tree.map(lambda a: a[:P17_F32_LAYERS].clone(),
+                                       params["layers"]))
+    del params, fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+    _p17_f32(p16, smi)
+    del p16
+    parts.append(time.perf_counter())
+    _p17_card_vs_cpu()
+    parts.append(time.perf_counter())
+    peak = torch.cuda.max_memory_allocated()
+    out = {"gqa_decode": 0, "paged_decode": 0, "textrank": textrank}
+    print(f"[mla] phase 17: {parts[-1] - t0:.1f} s ((a) "
+          f"{parts[0] - t0:.1f}, init, (b) and (c) in bf16 "
+          f"{parts[1] - parts[0]:.1f}, (d) {parts[2] - parts[1]:.1f}, (c) "
+          f"in f32 {parts[3] - parts[2]:.1f}, (e) {parts[4] - parts[3]:.1f});"
+          f" device memory held from earlier phases at its start "
+          f"{mem0 / 1e9:.2f} GB; peak {peak / 1e9:.2f} GB; launches {out} "
+          f"({smi})")
+    if peak >= PEAK_LIMIT:
+        fail(f"phase 17 peak device memory {peak / 1e9:.2f} GB")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6851,6 +7483,8 @@ def main() -> int:
     for name, n in phase_vlm(smi).items():
         launches[name] += n
     for name, n in phase_encdec(smi).items():
+        launches[name] += n
+    for name, n in phase_mla(smi).items():
         launches[name] += n
     sources = {"gqa_decode": ("src/repro_torch/kernels/csrc/gqa_decode.cu",
                               "src/repro/kernels/gqa_decode.py:29"),

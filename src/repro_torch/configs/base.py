@@ -260,5 +260,5 @@ def _ensure_loaded() -> None:
     # import registers
     from repro_torch.configs import (  # noqa: F401
         seamless_m4t_large_v2, nemotron_4_340b, minitron_8b, qwen1_5_32b,
-        llama4_scout_17b_a16e, zamba2_1_2b, nemotron_4_15b, xlstm_350m,
-        llama_3_2_vision_11b, llama3_70b)
+        llama4_scout_17b_a16e, zamba2_1_2b, deepseek_v2_236b, nemotron_4_15b,
+        xlstm_350m, llama_3_2_vision_11b, llama3_70b)

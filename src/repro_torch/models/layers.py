@@ -377,16 +377,20 @@ def _scatter_slot(cache, new, idx: DecodeIndex):
 
 def decode_index(cfg: ModelConfig, pos, kv, active=None,
                  window: int = 0) -> DecodeIndex:
-    """Per-step quantities of dense decode over a cache shaped like
-    ``kv["k"]``, one layer's (B, S, Hkv, hd). With a ``window`` the cache
-    is a ring buffer: position p lives at slot p % S (a write never
-    drops), and a row attends the entries whose age (slot - j) % S is
-    below min(pos + 1, window), as in the JAX package."""
-    b, s_max = kv["k"].shape[0], kv["k"].shape[1]
+    """Per-step quantities of dense decode over one layer's cache ``kv``,
+    whose leaves hold the rows on axis 0 and the slots on axis 1 (K/V
+    (B, S, Hkv, hd); MLA's latent "c_kv" / "k_r" (B, S, ...), whose rope
+    tables are at rope_head_dim). With a ``window`` the cache is a ring
+    buffer: position p lives at slot p % S (a write never drops), and a
+    row attends the entries whose age (slot - j) % S is below min(pos +
+    1, window), as in the JAX package."""
+    leaf = next(iter(kv.values()))
+    b, s_max = leaf.shape[0], leaf.shape[1]
     uniform = torch.as_tensor(pos).dim() == 0 and active is None
-    pos = _positions(pos, b, kv["k"].device)
-    cos, sin = rope_tables(pos[:, None], cfg.resolved_head_dim,
-                           cfg.rope_theta)
+    pos = _positions(pos, b, leaf.device)
+    rope = (cfg.mla.rope_head_dim if cfg.mla is not None
+            else cfg.resolved_head_dim)
+    cos, sin = rope_tables(pos[:, None], rope, cfg.rope_theta)
     slot = pos % s_max if window > 0 else pos
     slots, live = _masked_write_idx(slot, s_max, active, uniform)
     j = torch.arange(s_max, device=pos.device)[None, :]

@@ -2,9 +2,9 @@
 recurrent families (xLSTM, and Zamba2's Mamba2 backbone with a shared
 attention block), the VLM and the encoder-decoder, in PyTorch.
 
-The DENSE, MOE, SSM, HYBRID, VLM and ENCDEC branches of
-``repro/models/model.py`` (without MLA), with the same functional API
-and layouts:
+The DENSE, MOE (with or without MLA), SSM, HYBRID, VLM and ENCDEC
+branches of ``repro/models/model.py``, with the same functional API and
+layouts:
 
   init_params(cfg, seed, device)                           -> params
   forward(params, cfg, batch)                    -> (logits (B, S, V), aux)
@@ -72,8 +72,22 @@ by ``prefill``. Unlike the reference, whose ``_fill_cache`` drops int8
 on the cross-attention families, an int8 ENCDEC or VLM cache holds its
 self-attention K/V quantized. The chunk, verify and mixed steps serve
 the engine, which refuses ENCDEC as the reference's does, so they refuse
-it too; so does the paged pool. MLA raises NotImplementedError
-everywhere: it is a later slice of the port.
+it too; so does the paged pool.
+
+An MLA model (deepseek-v2, ``cfg.mla``: an MoE decoder whose attention
+is ``models/mla.py``'s) runs every dense entry point. Its cache holds the
+latent "c_kv" (num_layers, B, S, kv_lora_rank) and the shared rope key
+"k_r" (num_layers, B, S, rope_head_dim) under "kv", batch on axis 1 as
+every dense cache. ``decode_step`` runs the absorbed decode and ignores
+``decode_impl`` (the reference has no kernel for it); the chunk, verify
+and mixed steps take the masked per-token loop, as the reference's do.
+The paged pool refuses MLA with the reference's words, and so does an
+int8 cache: the reference has no int8 latent layout (its ``_fill_cache``
+keeps the latent in the model dtype whatever ``kv_cache_dtype`` says),
+and the port raises instead of dropping the setting. A prompt longer
+than the cache (a ring shorter than the prompt too) is refused with
+ValueError, where the reference's ``jnp.pad`` raises on the negative
+width.
 """
 from __future__ import annotations
 
@@ -86,6 +100,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import (DENSE, ENCDEC, HYBRID, MOE, SSM, VLM,
                                       ModelConfig)
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE_MOD
 from repro_torch.models import ssm as S
 from repro_torch.training import tree
@@ -100,15 +115,11 @@ CROSS = (VLM, ENCDEC)
 
 
 def check_supported(cfg: ModelConfig, paged: bool = False) -> None:
-    """Raise NotImplementedError for what the port does not run: MLA (a
-    later slice), and on the paged pool (``paged``) the recurrent
-    families, VLM and ENCDEC, a window or an int8 cache, which the JAX
-    package refuses there too, for the same reasons."""
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            "MLA (multi-head latent attention) is the MLA slice, a later "
-            "slice of the port")
-    if paged and cfg.family not in (DENSE, MOE):
+    """Raise NotImplementedError for what the port does not run: on the
+    paged pool (``paged``) the recurrent families, VLM, ENCDEC and MLA, a
+    window or an int8 cache, which the JAX package refuses there too, for
+    the same reasons."""
+    if paged and (cfg.family not in (DENSE, MOE) or cfg.mla is not None):
         raise NotImplementedError(
             "paged KV cache supports dense/MoE full-attention models; "
             f"family={cfg.family!r} mla={cfg.mla is not None}")
@@ -134,6 +145,19 @@ def _engine_step(cfg: ModelConfig, name: str) -> None:
             "decode_step")
 
 
+def _per_token(cfg: ModelConfig, window: Optional[int]) -> bool:
+    """Whether the chunk and verify steps take the masked per-token loop:
+    the recurrent families, VLM, MLA and any window."""
+    return (cfg.family in PER_TOKEN or cfg.mla is not None
+            or bool(_window(cfg, window)))
+
+
+def _kv_len(cache: Params) -> int:
+    """Entries a row of a dense cache holds: axis 2 of any "kv" leaf
+    (K/V and their int8 scales, or MLA's latent)."""
+    return next(iter(cache["kv"].values())).shape[2]
+
+
 def _window(cfg: ModelConfig, window: Optional[int]) -> int:
     """The window a call runs: ``window``, or the config's when None (0:
     full attention)."""
@@ -149,7 +173,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     norms at one; an MoE layer's leaves as ``moe.init_moe`` draws them,
     a recurrent layer's as ``ssm.init_*``; a VLM cross layer's gates at
     zero; an ENCDEC model's ``encoder`` stack (no MoE) and ``enc_ln``, and
-    ``lnx`` / ``xattn`` in each decoder layer), in the reference's layout,
+    ``lnx`` / ``xattn`` in each decoder layer; an MLA layer's ``attn`` as
+    ``mla.init_mla`` draws it), in the reference's layout,
     drawn from a ``torch.Generator`` seeded with ``seed``
     on ``device``. The numbers differ from JAX's for the same seed; the
     tests carry JAX's parameters across with params.from_jax_numpy."""
@@ -212,8 +237,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
                                                 device),
                         "mlp": _init_mlp(gen, cfg, (ne,), dtype, device)}
         p["enc_ln"] = ones(d)
+    attn = MLA.init_mla if cfg.mla is not None else _init_attention
     p["layers"] = {"ln1": ones(*lead, d), "ln2": ones(*lead, d),
-                   "attn": _init_attention(gen, cfg, lead, dtype, device)}
+                   "attn": attn(gen, cfg, lead, dtype, device)}
     if cfg.moe is not None:
         p["layers"]["moe"] = MOE_MOD.init_moe(gen, cfg, n, dtype, device)
     else:
@@ -299,7 +325,10 @@ def _decoder_block(lp, cfg: ModelConfig, x, positions, window: int = 0,
     ``rmsnorm(x, lnx)`` over it follows (``kv``: the memory's K/V, already
     projected)."""
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-    x = x + L.attention(lp["attn"], cfg, h, positions, window=window)
+    if cfg.mla is not None:
+        x = x + MLA.mla_attention(lp["attn"], cfg, h, positions, window)[0]
+    else:
+        x = x + L.attention(lp["attn"], cfg, h, positions, window=window)
     x, lb = _ffn_residual(lp, cfg, x)
     if memory is not None:
         h = L.rmsnorm(x, lp["lnx"], cfg.norm_eps)
@@ -520,12 +549,22 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     model dtype, zeros, "xk" / "xv" (n_groups, B, F, Hkv, hd) for VLM,
     (num_layers, B, F, Hkv, hd) for ENCDEC, with F = ``frontend_len`` or
     ``cfg.frontend_tokens``; a VLM's self-attention K/V stay flat (module
-    docstring)."""
+    docstring). MLA: the latent "c_kv" / "k_r" (module docstring); an
+    int8 MLA cache raises NotImplementedError."""
     check_supported(cfg)
     eff = min(cache_len, cfg.attention_window) if cfg.attention_window \
         else cache_len
     if cfg.family in RECURRENT:
         return _recurrent_cache(cfg, batch, eff, device)
+    if cfg.mla is not None:
+        if cfg.kv_cache_dtype:
+            raise NotImplementedError(
+                f"kv_cache_dtype={cfg.kv_cache_dtype!r} with MLA: the port has "
+                "no int8 layout for the latent cache (c_kv, k_r: no scales), "
+                "and neither has the JAX package, whose MLA cache silently "
+                "stays in the model dtype")
+        return {"kv": MLA.init_mla_cache(cfg, cfg.num_layers, batch, eff,
+                                         device=device)}
     cache = {"kv": L.init_kv_cache(cfg, cfg.num_layers, batch, eff,
                                    device=device)}
     if cfg.family in CROSS:
@@ -620,8 +659,10 @@ def _fill_cache(params, cfg, tokens, cache, window: int = 0, memory=None):
         return _hybrid_fill(params, cfg, x, positions, cache, window)
     if cfg.family == SSM:
         return _ssm_fill(params, cfg, x, cache)
+    if cfg.mla is not None:
+        return _mla_fill(params, cfg, x, positions, cache, window)
     enc = _encode(params, cfg, memory) if cfg.family == ENCDEC else None
-    s_len, eff = tokens.shape[1], cache["kv"]["k"].shape[2]
+    s_len, eff = tokens.shape[1], _kv_len(cache)
     every = cfg.cross_attn_every if cfg.family == VLM else 0
     cross = _unstack(params["cross"]) if every else []
     for i, (lp, kv) in enumerate(zip(_layer_list(params, cfg),
@@ -653,13 +694,32 @@ def _fill_cache(params, cfg, tokens, cache, window: int = 0, memory=None):
     return x
 
 
+def _mla_fill(params, cfg: ModelConfig, x, positions, cache, window):
+    """MLA's prefill: each layer's latent and rope key, as its attention
+    computes them, zero-padded to the cache length. A cache shorter than
+    the prompt raises ValueError (the reference's ``jnp.pad`` refuses the
+    negative width; no ring layout is written)."""
+    s_len, eff = x.shape[1], _kv_len(cache)
+    if eff < s_len:
+        raise ValueError(f"an MLA cache of {eff} entries cannot take a "
+                         f"prompt of {s_len} tokens")
+    for lp, kv in zip(_unstack(params["layers"]), _unstack(cache["kv"])):
+        h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        a, c_kv, k_r = MLA.mla_attention(lp["attn"], cfg, h, positions,
+                                         window)
+        kv["c_kv"].copy_(F.pad(c_kv, (0, 0, 0, eff - s_len)))
+        kv["k_r"].copy_(F.pad(k_r, (0, 0, 0, eff - s_len)))
+        x = _ffn_residual(lp, cfg, x + a)[0]
+    return x
+
+
 def _hybrid_fill(params, cfg: ModelConfig, x, positions, cache, window):
     """Zamba2's prefill: each Mamba2 layer's final state and its conv
     state (the last three pre-activation ``xbc`` rows of the layer's one
     input projection), each shared-block application's K/V zero-padded
     to the cache length."""
     sp = params["shared_attn"]
-    s_len, eff = x.shape[1], cache["kv"]["k"].shape[2]
+    s_len, eff = x.shape[1], _kv_len(cache)
     if eff < s_len:
         raise ValueError(f"a hybrid cache of {eff} entries cannot take a "
                          f"prompt of {s_len} tokens")
@@ -759,8 +819,10 @@ def decode_step(params: Params, cfg: ModelConfig, token, cache: Params, pos,
     every layer. A recurrent model updates its states (inactive rows
     keep theirs bit for bit) and, for HYBRID, the shared block's KV. A
     VLM's cross layers and an ENCDEC model's decoder layers attend the
-    cached memory ("xk" / "xv"), which a step never writes. Returns
-    (logits (B,V), cache)."""
+    cached memory ("xk" / "xv"), which a step never writes. An MLA model
+    runs ``mla.mla_decode`` on its latent cache and ignores
+    ``decode_impl``, as the reference does. Returns (logits (B,V),
+    cache)."""
     check_supported(cfg)
     x = params["embed"][token.long()]
     if cfg.family == HYBRID:
@@ -776,9 +838,12 @@ def decode_step(params: Params, cfg: ModelConfig, token, cache: Params, pos,
     cross = _unstack(params["cross"]) if every else []
     for i, (lp, kv) in enumerate(zip(_layer_list(params, cfg), layer_kv)):
         h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        a, _ = L.decode_attention(lp["attn"], cfg, h, kv, idx.pos,
-                                  decode_impl=decode_impl, active=active,
-                                  idx=idx)
+        if cfg.mla is not None:
+            a = MLA.mla_decode(lp["attn"], cfg, h, kv, idx)
+        else:
+            a, _ = L.decode_attention(lp["attn"], cfg, h, kv, idx.pos,
+                                      decode_impl=decode_impl, active=active,
+                                      idx=idx)
         x = _ffn_residual(lp, cfg, x + a)[0]
         if cfg.family == ENCDEC:
             h = L.rmsnorm(x, lp["lnx"], cfg.norm_eps)
@@ -872,11 +937,11 @@ def prefill_chunk(params: Params, cfg: ModelConfig, tokens, cache: Params,
     lengths: (B,) valid tokens (0 => bitwise no-op row). Returns
     (logits after each row's last valid token (B, V), cache). Full
     attention runs the fused sequence-level chunk (``decode_impl`` is
-    unused there); a window (``window``, or the config's when None), VLM
-    and the recurrent families the masked per-token decode loop, as in
-    the JAX package. ENCDEC is refused (:func:`_engine_step`)."""
+    unused there); a window (``window``, or the config's when None), VLM,
+    MLA and the recurrent families the masked per-token decode loop, as
+    in the JAX package. ENCDEC is refused (:func:`_engine_step`)."""
     _engine_step(cfg, "prefill_chunk")
-    if cfg.family in PER_TOKEN or _window(cfg, window):
+    if _per_token(cfg, window):
         return _per_token_chunk(params, cfg, tokens, cache, start_pos,
                                 lengths, decode_impl, window)
     return _prefill_chunk_fused(params, cfg, tokens, cache, start_pos,
@@ -974,8 +1039,8 @@ def verify_step(params: Params, cfg: ModelConfig, tokens, cache: Params,
     [last_tok, draft_1..draft_w] window in one call and return the logits
     at EVERY window position, so the caller can accept the longest draft
     prefix matching the model's own greedy argmax. It is
-    :func:`prefill_chunk`'s pass (the fused chunk, or with a window, VLM
-    or a recurrent model the per-token loop) with the LM head over all L
+    :func:`prefill_chunk`'s pass (the fused chunk, or with a window, VLM,
+    MLA or a recurrent model the per-token loop) with the LM head over all L
     positions; ``lengths == 0`` rows stay bitwise no-ops, and a rejected
     position's K/V is overwritten by the next write there (not so on a
     ring: the engine refuses speculation with a window; a recurrent
@@ -984,7 +1049,7 @@ def verify_step(params: Params, cfg: ModelConfig, tokens, cache: Params,
     past ``lengths`` and idle rows hold garbage the caller masks. ENCDEC
     is refused (:func:`_engine_step`)."""
     _engine_step(cfg, "verify_step")
-    if cfg.family in PER_TOKEN or _window(cfg, window):
+    if _per_token(cfg, window):
         return _per_token_chunk(params, cfg, tokens, cache, start_pos,
                                 lengths, decode_impl, window,
                                 all_logits=True)

@@ -17,8 +17,12 @@ the reference's order of operations, so the same pairs are dropped:
   to a scratch column that is sliced off, so duplicate writes land only
   there;
 * the expert MLPs are batched matmuls over the (E, ecap, D) buffer, the
-  gated outputs are added to their tokens (``index_add_``), and the
-  shared expert's MLP of every token is added last.
+  gated outputs are added to their tokens choice by choice (the k
+  choices of a token in order, each add rounded in the model dtype: the
+  reference's scatter-add on the CPU, bit for bit; on the card
+  ``index_add_`` adds with atomics in no set order, and a bf16 top-k
+  model then gives other bits from run to run), and the shared expert's
+  MLP of every token is added last.
 
 A dropped pair contributes nothing: its token's residual passes. Every
 expert's buffer holds at least 8 rows, so a call reads every expert's
@@ -125,8 +129,10 @@ def _moe_tokens(p: Params, cfg: ModelConfig, tokens):
     y_recv, ok = _expert_apply(r_tok, r_eid, p, e, ecap)
     pair_out = tokens.new_zeros((n_pairs, d))
     pair_out[:n_send] = y_recv[:n_send]
-    y = tokens.new_zeros((t, d)).index_add_(
-        0, flat_tok, pair_out * flat_g[:, None])
+    gated = (pair_out * flat_g[:, None]).view(t, k, d)
+    y = tokens.new_zeros((t, d))
+    for c in range(k):
+        y = y + gated[:, c]
     dropped = torch.ones(n_pairs, dtype=torch.bool, device=tokens.device)
     dropped[:n_send] = ~ok[:n_send]
     return y, {"lb_loss": lb_loss, "router_fraction": fe, "dropped": dropped}

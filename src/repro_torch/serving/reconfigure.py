@@ -96,8 +96,9 @@ def _adopt_state(state: _PreemptedState, src: InferenceEngine,
     """Fit a host checkpoint taken on ``src`` to ``dst``'s cache geometry.
     Paged blocks move unchanged (the block size is fleet-uniform); dense
     KV rows, (L, S, ...) per leaf (``layers.gather_slot_row``; int8 scales
-    too), pad or truncate along axis 1 to ``dst``'s row length: c_max, or
-    the ring's min(c_max, window). A VLM row's cross memory ("xk" / "xv",
+    too; MLA's latent "c_kv" / "k_r"), pad or truncate along axis 1 to
+    ``dst``'s row length, read off its cache's leaves: c_max, or the
+    ring's min(c_max, window). A VLM row's cross memory ("xk" / "xv",
     (n_groups, F, Hkv, hd)) moves unchanged: F is the frontend's length,
     not the context's. (The JAX package fits a ring row to c_max, which
     no ring of a window below the new c_max can take, and fits the cross
@@ -111,7 +112,7 @@ def _adopt_state(state: _PreemptedState, src: InferenceEngine,
             and state.n_blocks <= dst.blocks_per_slot:
         return state
     if not src.paged and not dst.paged:
-        n = dst.cache["kv"]["k"].shape[2]
+        n = next(iter(dst.cache["kv"].values())).shape[2]
         kv = {k: h if k in ("xk", "xv") else _fit_seq(h, 1, n)
               for k, h in state.host_kv.items()}
         return dataclasses.replace(state, host_kv=kv)

@@ -65,7 +65,9 @@ VERBATIM = ["configs/minitron_8b.py", "configs/llama3_70b.py",
             "configs/qwen1_5_32b.py", "configs/llama4_scout_17b_a16e.py",
             "configs/xlstm_350m.py", "configs/zamba2_1_2b.py",
             "configs/llama_3_2_vision_11b.py",
-            "configs/seamless_m4t_large_v2.py", "core/naming.py",
+            "configs/seamless_m4t_large_v2.py",
+            "configs/deepseek_v2_236b.py", "configs/base.py",
+            "core/naming.py",
             "core/workload.py", "core/queueing.py", "core/profiles.py",
             "core/planner.py", "core/compression.py",
             "core/router.py", "core/cost.py", "serving/tokenizer.py",
@@ -94,7 +96,8 @@ def test_copied_module_matches_original(rel):
 def test_config_copies_match():
     for name in ("minitron-8b", "llama3-70b", "nemotron-4-15b",
                  "nemotron-4-340b", "qwen1.5-32b", "llama4-scout-17b-a16e",
-                 "xlstm-350m", "zamba2-1.2b", "llama-3.2-vision-11b"):
+                 "xlstm-350m", "zamba2-1.2b", "llama-3.2-vision-11b",
+                 "seamless-m4t-large-v2", "deepseek-v2-236b"):
         a, b = jax_get_config(name), get_config(name)
         assert dataclasses.asdict(a) == dataclasses.asdict(b)
         assert dataclasses.asdict(a.reduced()) == \

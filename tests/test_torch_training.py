@@ -424,13 +424,13 @@ def _to_port_config(jcfg):
                                   "llama-3.2-vision-11b"])
 def test_other_families_raise_naming_their_slice(name):
     """The other families of tests/test_models_smoke.py's train case (and
-    the two left): deepseek-v2 is refused by the train step, naming the
-    MLA slice. llama4-scout, an MoE decoder without MLA, the recurrent
-    zamba2 and xlstm, the VLM llama-3.2-vision and the encoder-decoder
-    seamless-m4t (their batches given the launcher's constant frontend)
-    train: a step on its own weights gives a finite loss (with a positive
-    load-balance term for the MoE, zero for the others) and moves every
-    parameter leaf (their parity with the JAX package is
+    the two left) train: deepseek-v2 (MLA + MoE) and llama4-scout (an MoE
+    decoder without MLA), the recurrent zamba2 and xlstm, the VLM
+    llama-3.2-vision and the encoder-decoder seamless-m4t (their batches
+    given the launcher's constant frontend): a step on its own weights
+    gives a finite loss (with a positive load-balance term for the MoE
+    models, zero for the others) and moves every parameter leaf (their
+    parity with the JAX package is tests/test_torch_mla.py's,
     tests/test_torch_moe.py's, tests/test_torch_ssm_model.py's,
     tests/test_torch_vlm.py's and tests/test_torch_encdec.py's)."""
     tcfg = _to_port_config(dataclasses.replace(
@@ -441,22 +441,15 @@ def test_other_families_raise_naming_their_slice(name):
     if tcfg.frontend_tokens:
         b["frontend"] = torch.ones((2, tcfg.frontend_tokens,
                                     tcfg.d_model)) * 0.01
-    if name in ("llama4-scout-17b-a16e", "zamba2-1.2b", "xlstm-350m",
-                "llama-3.2-vision-11b", "seamless-m4t-large-v2"):
-        params = TM.init_params(tcfg, seed=0, device="cpu")
-        before = [p.clone() for p in tree.leaves(params)]
-        step = TS.make_train_step(tcfg, TO.AdamWConfig())
-        new, _, m = step(params, TO.init_adamw(params), b)
-        assert np.isfinite(float(m["loss"]))
-        assert (float(m["lb_loss"]) > 0) == (tcfg.moe is not None)
-        assert all(not torch.equal(p, q)
-                   for p, q in zip(tree.leaves(new), before))
-        return
-    params = TM.init_params(port_cfg(), seed=0, device="cpu")
+    assert (tcfg.mla is not None) == (name == "deepseek-v2-236b")
+    params = TM.init_params(tcfg, seed=0, device="cpu")
+    before = [p.clone() for p in tree.leaves(params)]
     step = TS.make_train_step(tcfg, TO.AdamWConfig())
-    assert tcfg.mla is not None
-    with pytest.raises(NotImplementedError, match="the MLA slice"):
-        step(params, TO.init_adamw(params), b)
+    new, _, m = step(params, TO.init_adamw(params), b)
+    assert np.isfinite(float(m["loss"]))
+    assert (float(m["lb_loss"]) > 0) == (tcfg.moe is not None)
+    assert all(not torch.equal(p, q)
+               for p, q in zip(tree.leaves(new), before))
 
 
 def test_parallel_context_refused():

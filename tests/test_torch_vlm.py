@@ -406,7 +406,8 @@ def test_supported_and_refused():
     """VLM passes check_supported; on the paged pool it is refused with
     the reference's words (the JAX init_paged_cache raises them too);
     ENCDEC passes check_supported and the paged pool refuses it with
-    those words too; MLA names the MLA slice."""
+    those words too; MLA passes check_supported, and the paged pool
+    refuses it with the reference's words."""
     tcfg, cfg = port_cfg(), reduced_f32(ARCH)
     assert TM.check_supported(get_config(ARCH)) is None
     assert TM.check_supported(tcfg) is None
@@ -422,6 +423,10 @@ def test_supported_and_refused():
     with pytest.raises(NotImplementedError,
                        match=re.escape(PAGED_REASON + "; family='encdec'")):
         TM.check_supported(encdec, paged=True)
-    with pytest.raises(NotImplementedError, match="the MLA slice"):
-        TM.check_supported(dataclasses.replace(get_config("minitron-8b"),
-                                               mla=MLAConfig()))
+    mla = dataclasses.replace(get_config("minitron-8b"), family="moe",
+                              mla=MLAConfig())
+    assert TM.check_supported(mla) is None
+    with pytest.raises(NotImplementedError,
+                       match=re.escape(PAGED_REASON + "; family='moe' "
+                                       "mla=True")):
+        TM.check_supported(mla, paged=True)
