@@ -126,7 +126,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    batch 4, prompt 1024, 32 new, kernel against the torch path (launches
    32 x 31).
 9. live re-provisioning and crash recovery on phase 5's fleet (full-width
-   minitron-8b bf16, 4 slots a pool, contexts 512 / 4096, c_chunk 256,
+   minitron-8b bf16 at its first 8 of 32 layers, ``P9_LAYERS``, the
+   stacked leaves sliced; 4 slots a pool, contexts 512 / 4096, c_chunk 256,
    decode_k 4), dense and paged; eight requests through
    ``FleetRuntime.submit`` (five short-band, two long, one in-band for
    C&R; 32 new tokens each), every run driven round by round and held
@@ -155,8 +156,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    live inputs (TOL and one bf16 ulp, as phase 3); phase 9's launches are
    added to the ``kernels`` line. Prints its duration.
 10. the HTTP/SSE gateway (``launch.serve.serve_http`` on phase 5's fleet,
-   the weights of phase 9 reused, an ephemeral port, the client in
-   process), every answer read as it arrives. (a) paged with the prefix
+   minitron-8b's first 8 of 32 layers, ``P10_LAYERS``, an ephemeral port,
+   the client in process), every answer read as it arrives. (a) paged with the prefix
    cache: the reference smoke sequence (``/health``; a streamed
    completion, more than one flush and [DONE]; the same prompt not
    streamed, equal bitwise, or by phase 7's rules where it hit the prefix
@@ -222,7 +223,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 12. the int8 KV cache and the sliding-window ring caches, minitron-8b at
    its published widths, bf16, the port's ``init_params`` at seed 0, its
-   first 8 of 32 layers (``P12_LAYERS``, the stacked leaves sliced: (a)'s
+   first 2 of 32 layers (``P12_LAYERS``, the stacked leaves sliced: (a)'s
    fleet dispatches and (b), (c)'s per-token prefill, one
    ``decode_step`` a token column, are host-bound).
    (a) phase 9's stream through phase 5's dense fleet (``from_plan``)
@@ -283,8 +284,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    logits then leave the drift limit), each of the forward's own
    decisions that differs within twice the runs' largest top router
    logit difference where they route alike. (c) phase 5's K=2 fleet over
-   the first 6 of these layers (its per-token prefill is host-bound, so
-   the cut halves the phase's longest part; the stacked leaves sliced)
+   the first 2 of these layers (its per-token prefill is host-bound, so
+   the cut shortens the phase's longest part; the stacked leaves sliced)
    at contexts 256 / 2048 and c_chunk 128, dense (the
    window rules out the paged pool; rings of 256 and 2048 rows), n_max
    4, decode_k 4, behind the C&R gateway: two short, two in-band and one
@@ -480,6 +481,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
    k-th and (k+1)-th, where a flip happens; ``_route_log`` logs those).
    Peak device memory under 80 GB; the phase's launches (TextRank's) are
    added to the ``kernels`` line.
+18. tensor-parallel serving over one rank group: minitron-8b bf16 at its
+   published widths and depth (seed 0) at tp=4, four rank processes on
+   the one card (``distributed/context.launch_ranks``: gloo for the
+   process group, the tensors exchanged through card buffers the ranks
+   share), each drawing its shard (``init_params(parallel=)``) after
+   the tp=1 references ran in this process and were freed. (a) each
+   rank's weights exactly the sharded leaves / 4 plus the replicated
+   norms (``param_specs`` on the meta shapes); each rank's KV bytes x 4
+   exactly the tp=1 engines' (dense and paged); peak device memory per
+   rank. (b) ``serve.py --fleet 2 --tp 4``'s path, phase 5's fleet and
+   prompts with 32 new tokens (decode_k 4), dense and paged: every
+   request completes,
+   rank 0's tokens equal rank 3's, and held against the tp=1 run by the
+   drift and near-tie rule (both runs' logits logged); decode ms a
+   dispatch and a profiled dispatch with the collectives' share, beside
+   tp=1's. (c) on every rank each decode kernel launches once a layer a
+   decode step (32) on the rank's 2 kv heads and its first launch at
+   every shape is held against its plain version on the live inputs
+   (``_live_kernel_hold``). (d) phase 9's stream (five short, two long,
+   one in-band request through C&R) on the tp=4 fleet, uninterrupted and
+   with the long pool reprovisioned to c_max 6144 after 3 rounds: every
+   request completes, the in-band one compressed into the short pool with
+   TextRank launched once, on rank 0 only (rank 0 routes; the others
+   receive its decision), ranks 0 and 3 the same tokens, the
+   reprovisioned run held to the uninterrupted one by the drift rule.
+   (e) the batch launcher (phase 8's 8 x 2048 + 64) at ``--mesh 1x4`` and
+   ``--mesh 2x2`` (the rows split over the data axis, each rank drawing
+   its 2-way shard), 32 x 63 kernel launches on every rank, every row held
+   to the 1x1 run by the drift rule. (f) reduced f32 (8 query heads over
+   4 kv heads of 64), the card at tp=4 and the CPU at tp=4 (in the same
+   ranks) against the CPU at tp=1: the engine's tokens equal, the
+   forward's logits within 1e-5 of max. Reported, not gated: prefill ms,
+   decode ms a dispatch and a step, tp=4 beside tp=1 (four ranks
+   time-sliced on one card measure correctness, not what tp=4 gives on
+   four cards). Every rank's launches are added to the ``kernels`` line.
 
 Then it prints the ``kernels`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -488,6 +524,7 @@ JAX and nothing of the JAX package.
 import bisect
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -1423,7 +1460,8 @@ def fleet_args(**over):
               lam=1000.0, paged=False, prefix_cache=False, decode_k=4,
               spec_k=1, preemption=False, max_queue_wait=None,
               new_tokens=64, device="cuda", int8_kv=False, autoscale=False,
-              http=None, smoke=False, chaos=False, replan_interval=None)
+              http=None, smoke=False, chaos=False, replan_interval=None,
+              tp=1, mesh="")
     return argparse.Namespace(**dict(kw, **over))
 
 
@@ -2822,6 +2860,9 @@ def phase_forward(smi):
 
 # ----------------------------------------------------------------- phase 9
 P9_NEW = 32                              # new tokens a request
+P9_LAYERS = 8             # of 32: the phase is host-bound; its checks hold
+                          # at any depth (full depth until phase 18 needed
+                          # the time)
 P9_SHORT = (300, 420, 360, 390, 330)     # prompt tokens: L_total <= B = 512
 P9_LONG = (1500, 2500)                   # > gamma * B = 1024: the long pool
 P9_INBAND = 700                          # B < L_total <= gamma * B: C&R
@@ -3356,7 +3397,7 @@ def phase_reprovision(smi):
     docstring). Returns the launches of its runs."""
     import torch
     t0 = time.perf_counter()
-    cfg, params = _full_width()
+    cfg, params = _depth_cut(*_full_width(), P9_LAYERS)
     launches = {}
     for paged in (False, True):
         for k, v in _p9_layout(cfg, params, paged, smi).items():
@@ -3370,6 +3411,8 @@ def phase_reprovision(smi):
 
 # ---------------------------------------------------------------- phase 10
 P10_NEW = 16                               # new tokens: in-band and mixed
+P10_LAYERS = 8            # of 32: the gateway's checks hold at any depth
+                          # (full depth until phase 18 needed the time)
 P10_MIX_SHORT = (300, 360, 420, 390)       # prompt tokens of the short streams
 P10_MIX_LONG = (1500, 1800, 2200, 2500)    # of the long ones (phase 9's)
 P10_SMOKE = "smoke fleet serving demo " * 6          # the reference smoke's
@@ -3479,6 +3522,7 @@ def _p10_gateway(params, client, **over):
     slots a pool, c_chunk 256, contexts 512 / 4096, decode_k 4), on an
     ephemeral port, with ``client(gw)`` as its client."""
     from repro_torch.launch import serve
+    over = dict(dict(arch=f"minitron-8b-{P10_LAYERS}-layers"), **over)
     return serve.serve_http(fleet_args(smoke=True, **over), client=client,
                             params=params, slots_per_pool=4, c_chunk=256,
                             long_ctx=4096)
@@ -3912,7 +3956,7 @@ def phase_http(smi):
     autoscaler (module docstring). Returns the launches of its runs."""
     import torch
     t0 = time.perf_counter()
-    cfg, params = _full_width()
+    cfg, params = _depth_cut(*_full_width(), P10_LAYERS)
     held = {}
     _reset_launches()
     with _live_kernel_hold(held):
@@ -4361,9 +4405,10 @@ P12_BOTH = (1060, 16)                    # (c): prompt tokens, new tokens
 P12_BOTH_SLOTS = 4                       # (c): the engine's n_max, (b)'s
 P12_SWAP_ROUND = 7          # (a): the swap probe's earliest drive round
 P12_NARROW = 512            # (b): a window below the ring's length
-P12_LAYERS = 8              # of 32: (b), (c)'s per-token prefill is
+P12_LAYERS = 2              # of 32: (b), (c)'s per-token prefill is
                             # host-bound, one decode_step a token column,
-                            # and (a)'s fleet dispatches too
+                            # and (a)'s fleet dispatches too (8 until
+                            # phase 18 needed the time)
 
 
 @contextlib.contextmanager
@@ -4834,7 +4879,8 @@ P13_NO_DROP = 8.0             # (b): capacity_factor, the reference test's
 P13_BLOCK = ((1, 4), (4, 1024))   # (a): a decode step's tokens, a prefill's
 P13_BATCH = (4, 1024, 17)     # (b): batch, prompt, new tokens (16 decodes)
 P13_NEW = 16                  # (c): new tokens a request
-P13_FLEET_LAYERS = 6          # (c): the first 6 of the 12 (host-bound)
+P13_FLEET_LAYERS = 2          # (c): the first 2 of the 12 (host-bound;
+                              # 6 until phase 18 needed the time)
 P13_LONG_CTX = 2048           # (c): contexts 256 / 2048, half phase 5's,
 P13_C_CHUNK = 128             # with the boundary at 2 x c_chunk
 P13_SHORT = (100, 180)        # (c): prompt tokens, the short pool
@@ -6888,7 +6934,8 @@ P17_FLASH = (1, 8192)         # (a), (b): the flash branch's shape
 P17_BATCH = (4, 1024, 16)     # (b), (c): batch, prompt, new tokens
 P17_F32_LAYERS = 2            # (c): the f32 copy (36.6 GB) at 2 of 60
 P17_TF32 = (2, 512, 16)       # (c): f32 batch, prompt, new tokens
-P17_FLEET_LAYERS = 6          # (d): the fleet's depth
+P17_FLEET_LAYERS = 2          # (d): the fleet's depth (6 until phase 18
+                              # needed the time)
 P17_LONG_CTX = 2048           # (d): contexts 256 / 2048, phase 13's,
 P17_C_CHUNK = 128             # with the boundary at 2 x c_chunk
 P17_SHORT = (100, 180)        # (d): prompt tokens, the short pool
@@ -7441,6 +7488,464 @@ def phase_mla(smi):
     return out
 
 
+# ---------------------------------------------------------------- phase 18
+P18_TP = 4                    # ranks of the group, all on the one card
+P18_TIMEOUT_S = 900           # the group's collective timeout
+P18_TF = (2, 16, 8)           # (f): batch, tokens of the forward, engine
+                              # requests' new tokens (reduced, f32)
+P18_NEW = 32                  # (b): new tokens a request (phase 5's 64
+                              # halved for the smoke's time)
+
+
+def _p18_model():
+    """minitron-8b (bf16, its published widths and depth)."""
+    from repro_torch.configs.base import get_config
+    return get_config("minitron-8b")
+
+
+def _p18_reduced():
+    """Reduced f32 minitron-8b with 8 query heads over 4 kv heads of 64
+    (a head_dim the decode kernels serve): each of the 4 ranks holds one
+    kv head and its GQA group of two."""
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config("minitron-8b").reduced(),
+                               dtype="float32", num_heads=8, num_kv_heads=4,
+                               head_dim=64)
+
+
+def _p18_shard_bytes(cfg, tp: int):
+    """(one rank's parameter bytes, the sharded leaves' bytes, the
+    replicated leaves' bytes) by ``sharding.param_specs`` on the meta
+    shapes: the sharded leaves / tp plus the replicated ones."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.context import ParallelContext
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import model as M
+    shapes = M.init_params(cfg, device="meta")
+    leaves = []
+    SH._map2(lambda spec, t: leaves.append((any(e is not None for e in spec),
+                                            t.numel() * t.element_size())),
+             SH.param_specs(shapes, ParallelContext(
+                 mesh=make_smoke_mesh(tp, world=tp))), shapes)
+    sharded = sum(n for s, n in leaves if s)
+    repl = sum(n for s, n in leaves if not s)
+    return sharded // tp + repl, sharded, repl
+
+
+@contextlib.contextmanager
+def _step_calls(calls):
+    """Count the model's decode-step calls (the engine's and mixed_step's):
+    each launches the decode kernel once a layer."""
+    from repro_torch.models import model as M
+    fns = {n: getattr(M, n) for n in ("decode_step", "paged_decode_step")}
+
+    def counted(name, fn):
+        @functools.wraps(fn)           # its signature, for _logit_log
+        def call(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        return call
+    for n, fn in fns.items():
+        setattr(M, n, counted(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in fns.items():
+            setattr(M, n, fn)
+
+
+@contextlib.contextmanager
+def _collective_timer(acc):
+    """Host seconds and calls of the ranks' collectives (all-reduce and
+    all-gather, the host staging included)."""
+    from repro_torch.distributed.context import ParallelContext as PCtx
+    fns = {n: getattr(PCtx, n) for n in ("all_reduce_sum", "all_gather")}
+
+    def timed(fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            acc["s"] = acc.get("s", 0.0) + time.perf_counter() - t0
+            acc["n"] = acc.get("n", 0) + 1
+            return out
+        return call
+    for n, fn in fns.items():
+        setattr(PCtx, n, timed(fn))
+    try:
+        yield
+    finally:
+        for n, fn in fns.items():
+            setattr(PCtx, n, fn)
+
+
+def _p18_fleet(params, paged, tp, device, log=None, held=None):
+    """(b) ``serve.py --fleet 2 --tp tp``'s fleet (phase 5's plan and
+    requests, decode_k 4) over ``params`` (a rank's shard at tp > 1), the
+    logits behind every token logged into ``log`` and each decode
+    kernel's first launch at a shape held in ``held`` (when given); then
+    one profiled decode dispatch of the long pool (one live row of 1024
+    prompt tokens), the collectives' host time read inside it."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import ServeRequest
+    decode_log, calls = [], {}
+    _reset_launches()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_decode_timer(decode_log))
+        stack.enter_context(_step_calls(calls))
+        if log is not None:
+            stack.enter_context(_logit_log(log))
+        if held is not None:
+            stack.enter_context(_live_kernel_hold(held))
+        rt, results, secs = serve.serve_fleet(
+            fleet_args(paged=paged, tp=tp, new_tokens=P18_NEW),
+            slots_per_pool=4, c_chunk=256, long_ctx=4096, params=params,
+            device=device)
+    counts = _launch_counts()
+    for rid, res in results.items():
+        if res.timed_out or not res.output_tokens:
+            fail(f"(b) tp={tp} paged={paged}: request {rid} did not "
+                 "complete")
+    kv = sum(e.cache_bytes_per_device() for e in rt.engines.values())
+    eng = rt.engines[rt.router.names[-1]]
+    eng.submit(ServeRequest(rid=10_000, tokens=[
+        1 + i % (rt.cfg.vocab_size - 1) for i in range(1024)],
+        max_new_tokens=64))
+    while eng.slot_prefill_left[0] or eng.slot_req[0] is None:
+        eng.step()
+    coll = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _collective_timer(coll):
+        eng.step()
+        torch.cuda.synchronize()
+    one = time.perf_counter() - t0
+    del eng, rt
+    torch.cuda.empty_cache()
+    dec_s = sum(t for t, _ in decode_log)
+    return dict(tokens={rid: r.output_tokens for rid, r in results.items()},
+                secs=secs, counts=counts, calls=calls, kv=kv,
+                decode_ms=1e3 * dec_s / max(1, len(decode_log)),
+                dispatches=len(decode_log),
+                profiled_ms=1e3 * one, coll_ms=1e3 * coll.get("s", 0.0),
+                coll_n=coll.get("n", 0))
+
+
+class _P18Reprovision:
+    """(d) The long pool to c_max 6144 after P9_EVENT_ROUND rounds."""
+
+    def __init__(self):
+        self.info = None
+
+    def pending(self):
+        return False
+
+    def on_round(self, rt, rounds, rebuilt):
+        if rounds == P9_EVENT_ROUND and self.info is None:
+            long_ = rt.router.names[-1]
+            self.info = rt.reprovision(long_, **P9_LONG_TO)
+            rebuilt.add(rt.engines[long_])
+
+
+def _p18_cpu_tree(tree):
+    import torch
+    if isinstance(tree, dict):
+        return {k: _p18_cpu_tree(v) for k, v in tree.items()}
+    return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def _p18_reduced_runs(params, cfg, device, parallel):
+    """(f) reduced f32: the forward's logits over P18_TF's tokens and the
+    engine's tokens on phase 4's stream (dense, decode_k 4, the kernel),
+    on ``device``."""
+    import torch
+    from repro_torch.models import model as M
+    b, t, new = P18_TF
+    gen = torch.Generator().manual_seed(18)
+    toks = torch.randint(1, cfg.vocab_size, (b, t), generator=gen)
+    mesh = {} if parallel is None else {"mesh": parallel.mesh}
+    lg, _ = M.forward(params, cfg, {"tokens": toks.to(device)},
+                      parallel=parallel)
+    out, _ = _serve(cfg, params, [_stream(max_new=new)], decode_k=4,
+                    **mesh)
+    return lg.cpu(), out
+
+
+def _p18_rank(rank, device):
+    """One rank of phase 18: (a)-(f) on this rank's shard (module
+    docstring). Rank 0 returns the logs and rows the parent compares."""
+    import torch
+    from repro_torch.distributed import context as PC
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_smoke_mesh, parse_mesh
+    from repro_torch.models import model as M
+    from repro_torch.training import tree
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = PC.make_context(make_smoke_mesh(P18_TP))
+    cfg = _p18_model()
+    out, parts = {"rank": rank}, {}
+    launches = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device=device, parallel=ctx)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["param_bytes"] = _nbytes(params)
+    out["b"], out["held"] = {}, {}
+    for paged in (False, True):
+        log = {} if rank == 0 else None
+        r = _p18_fleet(params, paged, P18_TP, device, log=log,
+                       held=out["held"])
+        add(r["counts"])
+        if log is not None:       # the logits' own dtype: exact, half the bytes
+            r["log"] = {rid: {j: v.to(params["embed"].dtype).cpu()
+                              for j, v in row.items()}
+                        for rid, row in log.items()}
+        out["b"][paged] = r
+        del log
+    parts["(b)"] = time.perf_counter()
+    # (d) the C&R fleet, uninterrupted and reprovisioned mid-stream
+    runs = {}
+    for name, event in (("plain", None), ("moved", _P18Reprovision())):
+        log = {} if rank == 0 else None
+        runs[name] = _p9_serve(cfg, params, False, log, event=event,
+                               mesh=ctx.mesh, tp_degree=P18_TP)
+        runs[name]["log"] = log
+        add(runs[name]["counts"])
+        if event is not None:
+            if event.info is None or not event.info["migrated"]:
+                fail(f"(d) rank {rank}: the reprovision moved nothing: "
+                     f"{event.info}")
+            runs[name]["info"] = event.info
+    if rank == 0:
+        runs["flips"] = _bf16_flips(
+            runs["plain"]["log"], runs["moved"]["log"],
+            runs["plain"]["tokens"], runs["moved"]["tokens"],
+            "(d) tp=4 reprovisioned vs uninterrupted", tag="tp")
+    for name in ("plain", "moved"):
+        runs[name].pop("log")
+    out["d"] = runs
+    parts["(d)"] = time.perf_counter()
+    # (e) the batch launcher at --mesh 1x4, then 2x2 (its own 2-way shard)
+    out["e"] = {}
+    for m in ("1x4", "2x2"):
+        bctx = PC.make_context(parse_mesh(m))
+        args = batch_args(cfg.name, BATCH_SHAPE)
+        args.mesh = m
+        _reset_launches()
+        run = serve.serve_batch(args, params=params if m == "1x4" else None,
+                                parallel=bctx, device=device)
+        counts = _launch_counts(("gqa_decode",), f"(e) --mesh {m}")
+        add(counts)
+        if counts["gqa_decode"] != cfg.num_layers * (BATCH_SHAPE[2] - 1):
+            fail(f"(e) --mesh {m} rank {rank}: launches {counts}")
+        keep = bctx.model_rank == 0
+        out["e"][m] = dict(counts=counts, data_rank=run.data_rank,
+                           prefill_ms=run.prefill_ms,
+                           decode_tok_s=run.decode_tok_s,
+                           run=dataclasses.replace(
+                               run, cache={}).to_cpu() if keep else None)
+        del run
+        if m == "1x4":
+            del params
+        torch.cuda.empty_cache()
+    parts["(e)"] = time.perf_counter()
+    # (f) reduced f32 at tp=4: the card against the CPU
+    rcfg = _p18_reduced()
+    cpu = M.init_params(rcfg, seed=0, device="cpu", parallel=ctx)
+    out["f"] = {"cuda": _p18_reduced_runs(
+        tree.map(lambda a: a.to(device), cpu), rcfg, device, ctx),
+        "cpu": _p18_reduced_runs(cpu, rcfg, "cpu", ctx)}
+    parts["(f)"] = time.perf_counter()
+    out["launches"] = launches
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["parts"] = {k: v - t0 for k, v in parts.items()}
+    return out
+
+
+def _p18_tp1(cfg, smi):
+    """The tp=1 references in this process: (b)'s fleets with their logs,
+    (e)'s batch run, (f)'s CPU run; the weights freed after."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    params = M.init_params(cfg, seed=0, device=DEVICE)
+    ref = {"b": {}}
+    for paged in (False, True):
+        log = {}
+        r = _p18_fleet(params, paged, 1, torch.device(DEVICE), log=log)
+        r["log"] = {rid: {j: v.cpu() for j, v in row.items()}
+                    for rid, row in log.items()}
+        ref["b"][paged] = r
+        del log
+    run = serve.serve_batch(batch_args(cfg.name, BATCH_SHAPE), params=params)
+    ref["e"] = dataclasses.replace(run, cache={}).to_cpu()
+    del run, params
+    torch.cuda.empty_cache()
+    rcfg = _p18_reduced()
+    ref["f"] = _p18_reduced_runs(M.init_params(rcfg, seed=0, device="cpu"),
+                                 rcfg, "cpu", None)
+    return ref
+
+
+def _p18_batch_rows(res, m):
+    """The (e) run of ``--mesh m`` with every row, from the ranks whose
+    model index is 0 (each holds its data slice)."""
+    from repro_torch.launch import serve
+    return serve._gather_rows([r["e"][m]["run"] for r in res
+                               if r["e"][m]["run"] is not None])
+
+
+def phase_tp(smi):
+    """Phase 18: tensor-parallel serving over one rank group (module
+    docstring). Returns the launches of every rank, summed."""
+    import torch
+    from repro_torch.distributed import context as PC
+    t0 = time.perf_counter()
+    cfg = _p18_model()
+    want_bytes, sharded, repl = _p18_shard_bytes(cfg, P18_TP)
+    ref = _p18_tp1(cfg, smi)
+    t_ref = time.perf_counter()
+    held_at_start = torch.cuda.memory_allocated()
+    res = PC.launch_ranks(_p18_rank, P18_TP, device=DEVICE,
+                          timeout_s=P18_TIMEOUT_S)
+    t_ranks = time.perf_counter()
+    r0, r3 = res[0], res[-1]
+    gb = 1e9
+    # (a) bytes
+    for r in res:
+        if r["param_bytes"] != want_bytes:
+            fail(f"(a) rank {r['rank']}: {r['param_bytes']} B of weights, "
+                 f"want {want_bytes} (sharded {sharded} / {P18_TP} + "
+                 f"replicated {repl})")
+        for paged in (False, True):
+            if P18_TP * r["b"][paged]["kv"] != ref["b"][paged]["kv"]:
+                fail(f"(a) rank {r['rank']} paged={paged}: {P18_TP} x "
+                     f"{r['b'][paged]['kv']} KV bytes != tp=1's "
+                     f"{ref['b'][paged]['kv']}")
+    print(f"[tp] (a) {cfg.name} {cfg.dtype} at tp={P18_TP}, {P18_TP} ranks on one "
+          f"card (a gloo group, tensors through shared card buffers): "
+          f"each rank's weights {want_bytes / gb:.4f} GB "
+          f"(the sharded {sharded / gb:.4f} GB / {P18_TP} + the replicated "
+          f"norms {repl} B; tp=1 {(sharded + repl) / gb:.4f} GB), exact on "
+          f"every rank; KV bytes a rank x {P18_TP} = tp=1's exactly (dense "
+          f"{ref['b'][False]['kv']} B, paged {ref['b'][True]['kv']} B); "
+          f"peak device memory per rank "
+          f"{[round(r['peak'] / 2**30, 2) for r in res]} GiB; init "
+          f"{[round(r['init_s'], 2) for r in res]} s ({smi})")
+    # (b) the fleet, tp=4 vs tp=1
+    for paged in (False, True):
+        got, want = r0["b"][paged], ref["b"][paged]
+        got["log"] = {rid: {j: v.float() for j, v in row.items()}
+                      for rid, row in got["log"].items()}
+        if got["tokens"] != r3["b"][paged]["tokens"]:
+            fail(f"(b) paged={paged}: rank 0's and rank {P18_TP - 1}'s "
+                 "tokens differ")
+        flips = _bf16_flips(want["log"], got["log"], want["tokens"],
+                            got["tokens"], f"(b) paged={paged} tp={P18_TP} "
+                            "vs tp=1", tag="tp")
+        print(f"[tp] (b) fleet paged={paged}, decode_k 4: tp={P18_TP} "
+              f"{got['secs']:.2f} s, decode {got['decode_ms']:.2f} ms a "
+              f"dispatch ({got['dispatches']}), one profiled dispatch "
+              f"{got['profiled_ms']:.2f} ms of which the collectives "
+              f"{got['coll_ms']:.2f} ms ({got['coll_n']} calls, "
+              f"{100 * got['coll_ms'] / got['profiled_ms']:.1f}%); tp=1 "
+              f"{want['secs']:.2f} s, {want['decode_ms']:.2f} ms a dispatch, "
+              f"profiled {want['profiled_ms']:.2f} ms; {flips} near-tie "
+              f"divergences; rank 0's tokens = rank {P18_TP - 1}'s ({smi}; "
+              f"{P18_TP} ranks time-sliced on one card: correctness, not "
+              f"tp={P18_TP} on {P18_TP} cards)")
+    # (c) the decode kernels on every rank
+    for r in res:
+        for paged, kname, step in ((False, "gqa_decode", "decode_step"),
+                                   (True, "paged_decode",
+                                    "paged_decode_step")):
+            b = r["b"][paged]
+            n, steps = b["counts"][kname], b["calls"].get(step, 0)
+            if n == 0 or n != cfg.num_layers * steps:
+                fail(f"(c) rank {r['rank']} paged={paged}: {kname} "
+                     f"launched {n} times over {steps} decode steps, want "
+                     f"{cfg.num_layers} a step")
+        kinds = {k[0] for k in r["held"]}
+        if kinds != {"gqa_decode", "paged_decode"}:
+            fail(f"(c) rank {r['rank']}: held {sorted(kinds)}")
+    worst = max(e / m for r in res for e, m in r["held"].values())
+    print(f"[tp] (c) each rank launched each decode kernel {cfg.num_layers} "
+          f"times a decode step on its {cfg.num_kv_heads // P18_TP} kv heads "
+          f"(dense {[r['b'][False]['counts']['gqa_decode'] for r in res]}, "
+          f"paged {[r['b'][True]['counts']['paged_decode'] for r in res]}); "
+          f"held on live inputs at {sorted({k[:2] for k in r0['held']})} on "
+          f"every rank, worst error {worst:.3e} of max|plain| (TOL and one "
+          f"bf16 ulp)")
+    # (d) the C&R fleet and its reprovision
+    d0, d3 = r0["d"], r3["d"]
+    for name in ("plain", "moved"):
+        if d0[name]["tokens"] != d3[name]["tokens"]:
+            fail(f"(d) {name}: rank 0's and rank {P18_TP - 1}'s tokens "
+                 "differ")
+    tr = [r["d"]["plain"]["counts"]["textrank"] for r in res]
+    if tr[0] != 1 or any(tr[1:]):
+        fail(f"(d) TextRank launches by rank {tr}: want one (the in-band "
+             "request's attempt) on rank 0 alone")
+    print(f"[tp] (d) the K=2 fleet at tp={P18_TP} (phase 9's stream: 5 "
+          f"short, 2 long, 1 in-band compressed into the short pool; "
+          f"TextRank launches by rank {tr}): every request completes; the "
+          f"long pool reprovisioned to {P9_LONG_TO} at round "
+          f"{P9_EVENT_ROUND} ({d0['moved']['info']['migrated']} migrated), "
+          f"{d0['flips']} near-tie divergences from the uninterrupted run; "
+          f"{d0['plain']['secs']:.2f} s / {d0['moved']['secs']:.2f} s")
+    # (e) the batch launcher over two meshes
+    want = ref["e"]
+    want_toks, want_log = _run_log(want)
+    for m in ("1x4", "2x2"):
+        got = _p18_batch_rows(res, m)
+        toks, log = _run_log(got)
+        flips = _bf16_flips(want_log, log, want_toks, toks,
+                            f"(e) --mesh {m} vs 1x1", tag="tp")
+        e0 = r0["e"][m]
+        print(f"[tp] (e) batch launcher --mesh {m}, {BATCH_SHAPE[0]} x "
+              f"{BATCH_SHAPE[1]} + {BATCH_SHAPE[2]}: prefill "
+              f"{e0['prefill_ms']:.2f} ms, decode "
+              f"{1e3 * BATCH_SHAPE[0] / e0['decode_tok_s']:.2f} ms a step "
+              f"(rank 0); 1x1 {want.prefill_ms:.2f} ms, "
+              f"{1e3 * BATCH_SHAPE[0] / want.decode_tok_s:.2f} ms a step; "
+              f"{flips} near-tie divergences; gqa_decode "
+              f"{cfg.num_layers} x {BATCH_SHAPE[2] - 1} on every rank ({smi})")
+        del got, log
+    # (f) reduced f32: card tp=4, CPU tp=4, CPU tp=1
+    lg1, tok1 = ref["f"]
+    top = float(lg1.abs().max())
+    for r in res:
+        for where in ("cuda", "cpu"):
+            lg, toks = r["f"][where]
+            err = float((lg - lg1).abs().max())
+            if toks != tok1 or err > 1e-5 * top:
+                fail(f"(f) rank {r['rank']} {where} tp={P18_TP}: tokens "
+                     f"{'equal' if toks == tok1 else 'differ'}, logits "
+                     f"{err / top:.3e} of max from CPU tp=1 (limit 1e-05)")
+    errs = [float((r["f"][w][0] - lg1).abs().max()) / top for r in res
+            for w in ("cuda", "cpu")]
+    print(f"[tp] (f) reduced f32 (8 / 4 heads): the card at tp={P18_TP} and "
+          f"the CPU at tp={P18_TP} against the CPU at tp=1: tokens equal, "
+          f"logits within {max(errs):.3e} of max (limit 1e-05)")
+    launches = {}
+    for r in res:
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    p = r0["parts"]
+    print(f"[tp] phase 18: {time.perf_counter() - t0:.1f} s (tp=1 references "
+          f"{t_ref - t0:.1f}, ranks {t_ranks - t_ref:.1f}: init "
+          f"{r0['init_s']:.1f}, (b) {p['(b)']:.1f}, (d) {p['(d)'] - p['(b)']:.1f}, "
+          f"(e) {p['(e)'] - p['(d)']:.1f}, (f) {p['(f)'] - p['(e)']:.1f}); "
+          f"device memory held at the spawn {held_at_start / 2**30:.2f} GiB; "
+          f"launches of the {P18_TP} ranks {launches} ({smi})")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -7485,6 +7990,8 @@ def main() -> int:
     for name, n in phase_encdec(smi).items():
         launches[name] += n
     for name, n in phase_mla(smi).items():
+        launches[name] += n
+    for name, n in phase_tp(smi).items():
         launches[name] += n
     sources = {"gqa_decode": ("src/repro_torch/kernels/csrc/gqa_decode.cu",
                               "src/repro/kernels/gqa_decode.py:29"),

@@ -43,13 +43,29 @@ asyncio HTTP/SSE gateway with the closed-loop re-planner.
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --fleet 2 \
       --smoke --chaos --device cpu
 
-The port of ``repro/launch/serve.py`` without sharding. Runs on
-``--device cuda`` (the default) and raises when no card is present;
-``--device cpu`` runs the plain PyTorch versions of the kernels.
+  # tensor-parallel: the K=2 fleet over 4 ranks (tp=4), and the batch
+  # launcher over a 2x2 (data x model) mesh; four processes on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --fleet 2 --tp 4 \
+      --reduced --decode-k 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --mesh 2x2 --reduced \
+      --batch 4 --prompt-len 16 --new-tokens 4 --device cpu
+
+The port of ``repro/launch/serve.py``. Runs on ``--device cuda`` (the
+default) and raises when no card is present; ``--device cpu`` runs the
+plain PyTorch versions of the kernels. ``--mesh DxM`` (the batch
+launcher) and ``--tp D`` (the fleet) spawn one process per rank
+(``distributed/context.launch_ranks``): every rank runs the same
+launcher on its shard, and rank 0 alone prints. The ranks share one
+card when there are fewer cards than ranks (a gloo group, the tensors
+exchanged through card buffers the ranks share), and own one each
+otherwise (NCCL).
 """
 import argparse
 import asyncio
+import contextlib
 import dataclasses
+import functools
+import io
 import json
 import re
 import time
@@ -61,6 +77,9 @@ from repro_torch.configs.base import get_config
 from repro_torch.core.planner import plan_k_pool
 from repro_torch.core.workload import get_workload
 from repro_torch.device import resolve_device
+from repro_torch.distributed import context as PC
+from repro_torch.distributed import sharding as SH
+from repro_torch.launch.mesh import make_smoke_mesh, parse_mesh
 from repro_torch.models import model as M
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.pools import FleetRuntime, GatewayRequest
@@ -86,7 +105,8 @@ class BatchRun:
     ``tokens``: (B, new_tokens) greedy tokens; ``logits[j]``: the (B, V)
     logits token ``j`` is the argmax of; ``cache``: the KV cache after
     the last step; host-clock prefill milliseconds and decode tokens per
-    second (the device synchronised around each)."""
+    second (the device synchronised around each). A rank of a mesh holds
+    its data slice of the rows (``data_rank``) and its cache shard."""
     cfg: Any
     prompt: torch.Tensor
     tokens: torch.Tensor
@@ -94,10 +114,63 @@ class BatchRun:
     cache: Dict[str, Any]
     prefill_ms: float
     decode_tok_s: float
+    data_rank: int = 0
+
+    def to_cpu(self) -> "BatchRun":
+        return dataclasses.replace(
+            self, prompt=self.prompt.cpu(), tokens=self.tokens.cpu(),
+            logits=[t.cpu() for t in self.logits],
+            cache={k: ({n: a.cpu() for n, a in v.items()}
+                       if isinstance(v, dict) else v.cpu())
+                   for k, v in self.cache.items()})
 
 
+def _world(args) -> int:
+    """Ranks the flags ask for: D*M of ``--mesh DxM`` (the batch
+    launcher, or a fleet's group), else ``--tp``."""
+    if args.mesh not in ("", "1x1"):
+        return parse_mesh(args.mesh).size
+    return args.tp if args.fleet else 1
+
+
+def _rank0_prints(fn):
+    """``fn`` with its lines printed on rank 0 only (every rank of a
+    process group runs the launcher; the others' lines go nowhere)."""
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        if PC.global_rank() == 0:
+            return fn(*args, **kw)
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(*args, **kw)
+    return run
+
+
+def _batch_rank(rank, device, args, params, tokens, decode_impl, frontend):
+    """One rank of the batch launcher over ``--mesh``: its BatchRun (its
+    data slice of the rows) on the CPU."""
+    ctx = PC.make_context(parse_mesh(args.mesh))
+    return serve_batch(args, params, tokens, decode_impl, frontend,
+                       parallel=ctx, device=device).to_cpu()
+
+
+def _gather_rows(runs: List[BatchRun]) -> BatchRun:
+    """One BatchRun of every row from the ranks' runs: each data row's
+    model-rank-0 run, in data order (the other ranks of a row hold the
+    same rows); the cache is rank 0's shard."""
+    rows = {}
+    for r in runs:
+        rows.setdefault(r.data_rank, r)
+    parts = [rows[i] for i in sorted(rows)]
+    return dataclasses.replace(
+        runs[0], prompt=torch.cat([r.prompt for r in parts]),
+        tokens=torch.cat([r.tokens for r in parts]),
+        logits=[torch.cat(ls) for ls in zip(*(r.logits for r in parts))])
+
+
+@_rank0_prints
 def serve_batch(args, params=None, tokens=None,
-                decode_impl: str = "kernel", frontend=None) -> BatchRun:
+                decode_impl: str = "kernel", frontend=None,
+                parallel=None, device=None) -> BatchRun:
     """The batch launcher: prefill ``--batch`` prompts of
     ``--prompt-len`` tokens into a cache of prompt + ``--new-tokens``,
     then ``new_tokens - 1`` greedy decode steps at the uniform position
@@ -109,33 +182,61 @@ def serve_batch(args, params=None, tokens=None,
     own (the tests pass the JAX launcher's). ``decode_impl``: decode
     attention through the CUDA kernel (its plain version on the CPU) or
     the torch ``_sdpa`` path, which a caller may ask for to hold the
-    kernel against it."""
-    if args.mesh not in ("", "1x1"):
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: sharded serving is a later slice of the "
-            "PyTorch port (one device only: --mesh 1x1)")
-    device = resolve_device(args.device)
+    kernel against it.
+
+    ``--mesh DxM`` other than 1x1: every rank of the (data, model) mesh
+    runs this on its data slice of the batch (``batch_specs``: the rows
+    split over the data axis where they divide) and its model-axis shard
+    of the weights (``params``: a full tree, cut per rank, or None:
+    ``init_params(parallel=)``), with ``parallel`` its context and
+    ``device`` its device. Called without ``parallel``, it spawns the
+    D*M ranks itself and returns every row's tokens and logits
+    (:func:`_gather_rows`)."""
+    mesh = parse_mesh(args.mesh)
     cfg = model_config(args)
+    if mesh.size > 1 and parallel is None:
+        _check_ranks(args, cfg)
+        runs = PC.launch_ranks(_batch_rank, mesh.size,
+                               (args, params, tokens, decode_impl, frontend),
+                               device=args.device, quiet=True)
+        return _gather_rows(runs)
+    device = device or resolve_device(args.device)
+    par = parallel if parallel is not None and mesh.size > 1 else None
     if params is None:
-        params = M.init_params(cfg, seed=0, device=device)
+        params = (M.init_params(cfg, seed=0, device=device, parallel=par)
+                  if par is not None
+                  else M.init_params(cfg, seed=0, device=device))
+    elif par is not None:
+        params = _to_device(SH.rank_shard(params, par, cfg.vocab_size),
+                            device)
     if tokens is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(0)
         tokens = torch.randint(1, cfg.vocab_size,
                                (args.batch, args.prompt_len), generator=gen,
                                device=device)
-    batch = {"tokens": tokens, "cache_len": args.prompt_len + args.new_tokens}
+    tokens = tokens.to(device)
     if cfg.frontend_tokens and frontend is None:
         frontend = torch.ones((args.batch, cfg.frontend_tokens, cfg.d_model),
                               dtype=params["embed"].dtype,
                               device=device) * 0.01
+    data_rank = 0
+    if par is not None:
+        # the rows of this rank's data slice (all of them where the data
+        # axis does not divide the batch, as batch_specs rules)
+        spec = SH.batch_specs({"tokens": tokens}, par)["tokens"]
+        tokens = SH.shard_leaf(tokens, spec, par)
+        if frontend is not None:
+            frontend = SH.shard_leaf(frontend.to(device), spec, par)
+        data_rank = par.data_rank if spec[0] is not None else 0
+    batch = {"tokens": tokens, "cache_len": args.prompt_len + args.new_tokens}
     if frontend is not None:
         batch["frontend"] = frontend
     sync = (torch.cuda.synchronize if device.type == "cuda"
             else lambda: None)
     sync()
     t0 = time.perf_counter()
-    logits, cache = M.prefill(params, cfg, batch)
+    logits, cache = M.prefill(params, cfg, batch, parallel=par)
     nxt = logits.argmax(-1)[:, None]
     sync()
     t1 = time.perf_counter()
@@ -143,7 +244,7 @@ def serve_batch(args, params=None, tokens=None,
     for t in range(args.new_tokens - 1):
         logits, cache = M.decode_step(params, cfg, nxt, cache,
                                       args.prompt_len + t,
-                                      decode_impl=decode_impl)
+                                      decode_impl=decode_impl, parallel=par)
         nxt = logits.argmax(-1)[:, None]
         out.append(nxt)
         steps.append(logits)
@@ -152,8 +253,9 @@ def serve_batch(args, params=None, tokens=None,
     out = torch.cat(out, dim=1)
     n_dec = args.batch * (args.new_tokens - 1)
     run = BatchRun(cfg, tokens, out, steps, cache, 1e3 * (t1 - t0),
-                   n_dec / (t2 - t1) if n_dec else 0.0)
-    print(f"arch={cfg.name} mesh 1x1 batch={args.batch} "
+                   n_dec / (t2 - t1) if n_dec else 0.0, data_rank)
+    dims = "x".join(str(n) for n in mesh.devices.shape)
+    print(f"arch={cfg.name} mesh {dims} batch={args.batch} "
           f"prompt={args.prompt_len} -> {args.new_tokens} new tokens "
           f"in {t2 - t0:.1f}s ({args.batch * args.new_tokens / (t2 - t0):.1f}"
           f" tok/s)")
@@ -168,29 +270,61 @@ def serve_batch(args, params=None, tokens=None,
     return run
 
 
+def _to_device(tree, device):
+    return {k: (_to_device(v, device) if isinstance(v, dict)
+                else v.to(device)) for k, v in tree.items()}
+
+
+def _check_ranks(args, cfg) -> None:
+    """Refuse, before any rank is spawned, what the ranks would refuse:
+    a family or width the model axis cannot split, ``--http`` / ``--smoke``
+    at tp > 1, a fleet's mesh of more than one tp group."""
+    world = _world(args)
+    tp = parse_mesh(args.mesh).shape["model"] if not args.fleet else args.tp
+    mesh = make_smoke_mesh(tp, world=world)
+    ctx = PC.ParallelContext(mesh=mesh)
+    M.check_supported(cfg, parallel=ctx)
+    if args.fleet and (args.http is not None or args.smoke) and tp > 1:
+        raise PC.later(f"--http / --smoke with --tp {tp}", PC.SLICE_HTTP)
+    if args.fleet and world != tp:
+        raise PC.later(f"a {world}-rank fleet of tp={tp} pools",
+                       PC.SLICE_SUBMESH)
+
+
 def build_fleet_runtime(args, *, slots_per_pool: int = 2, c_chunk: int = 16,
-                        long_ctx: int = 512, params=None):
+                        long_ctx: int = 512, params=None, device=None):
     """Plan K pools from the workload CDF and make the plan executable:
     one InferenceEngine per pool behind the C&R gateway, sharing one
     parameter set on ``args.device`` (``params``, else
     ``init_params(seed=0)``). The plan's datacenter-token boundaries are
     scaled so the long pool's context is ``long_ctx`` tokens. Returns
-    (runtime, plan)."""
+    (runtime, plan). Under ``--tp D`` (in a rank of a D-rank group) every
+    engine runs over the group's mesh, on this rank's ``device`` and
+    shard of the weights (a full ``params`` is cut per rank; None draws
+    the rank's shard, ``init_params(parallel=)``)."""
     w = get_workload(args.workload)
     plan = plan_k_pool(w, lam=args.lam, t_slo=0.5, k=args.fleet)
     print(f"plan: {plan.summary()}")
     for pp in plan.pools:
         print(f"  {pp.name}: c_max={pp.c_max} n_gpus={pp.n_gpus} "
               f"rho={pp.utilization:.3f} ttft_p99={pp.ttft_p99_s*1e3:.0f}ms")
-    device = resolve_device(args.device)
+    device = device or resolve_device(args.device)
     cfg = model_config(args)
+    mesh = make_smoke_mesh(args.tp) if args.tp > 1 else None
     if params is None:
-        params = M.init_params(cfg, seed=0, device=device)
+        params = (M.init_params(cfg, seed=0, device=device,
+                                parallel=PC.make_context(mesh))
+                  if mesh is not None
+                  else M.init_params(cfg, seed=0, device=device))
+    elif mesh is not None:
+        params = _to_device(SH.rank_shard(params, PC.make_context(mesh),
+                                          cfg.vocab_size), device)
     scfg = ServingConfig(
         paged=args.paged or args.prefix_cache or args.preemption,
         prefix_cache=args.prefix_cache, decode_k=args.decode_k,
         spec_k=args.spec_k, preemption=args.preemption,
-        max_queue_wait=args.max_queue_wait, autoscale=args.autoscale)
+        max_queue_wait=args.max_queue_wait, autoscale=args.autoscale,
+        mesh=mesh, tp_degree=args.tp)
     rt = FleetRuntime.from_plan(cfg, params, plan,
                                 slots_per_pool=slots_per_pool,
                                 c_chunk=c_chunk,
@@ -234,15 +368,31 @@ def session_turns(rt: FleetRuntime):
     return base, base + " follow-up resubmits history."
 
 
+def _fleet_rank(rank, device, args, build_kw):
+    """One rank of ``--fleet K --tp D``: (None, rank 0's responses, its
+    seconds); the runtime stays in its process."""
+    _, results, dt = serve_fleet(args, device=device, **build_kw)
+    return None, results, dt
+
+
+@_rank0_prints
 def serve_fleet(args, **build_kw):
     """Offline fleet demo: plan, route a mixed prompt batch, drain; with
     ``--prefix-cache``, then a two-turn session. Returns (runtime,
-    {rid: GatewayResponse}, seconds)."""
+    {rid: GatewayResponse}, seconds). ``--tp D`` outside a process group
+    spawns the D ranks (each runs this, rank 0 prints) and returns
+    (None, responses, seconds) of rank 0."""
+    if _world(args) > 1 and PC.world_size() == 1:
+        _check_ranks(args, model_config(args))
+        return PC.launch_ranks(_fleet_rank, _world(args), (args, build_kw),
+                               device=args.device)[0]
     rt, plan = build_fleet_runtime(args, **build_kw)
     print(f"runtime pools: boundaries={rt.router.boundaries} "
           f"gammas={rt.router.gammas} "
           f"contexts={[e.c_max for e in rt.engines.values()]} "
           f"device={args.device}")
+    for name, ranks in rt.device_placement().items():
+        print(f"  {name}: tp={rt.tp_degree} devices={ranks}")
     reqs = fleet_requests(rt, args.new_tokens)
     t0 = time.perf_counter()
     for r in reqs:
@@ -263,7 +413,7 @@ def serve_fleet(args, **build_kw):
                   f"L_eff={d.l_total_effective}")
             rid += 1
             results.update(rt.run(max_iters=20_000))
-    if torch.device(args.device).type == "cuda":
+    if next(iter(rt.engines.values())).device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     done = sum(len(res.output_tokens) for res in results.values())
@@ -598,7 +748,12 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="minitron-8b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--mesh", default="",
-                    help="device mesh DxM; one device only ('' or 1x1)")
+                    help="rank mesh DxM (data x model): the batch launcher "
+                         "spawns D*M ranks, splits the batch over the data "
+                         "axis and the weights over the model axis")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="fleet: tensor-parallel degree of every pool's "
+                         "engine (spawns tp ranks, one rank group)")
     ap.add_argument("--batch", type=int, default=8,
                     help="batch launcher: prompts in the batch")
     ap.add_argument("--prompt-len", type=int, default=64,
@@ -664,12 +819,16 @@ def parse_args(argv=None):
     args = ap.parse_args(argv)
     if args.fleet < 0:
         ap.error("--fleet must be >= 0")
+    if args.tp < 1:
+        ap.error("--tp must be >= 1")
     return args
 
 
 def main(argv=None):
     args = parse_args(argv)
     if args.fleet and (args.http is not None or args.smoke):
+        if _world(args) > 1:
+            _check_ranks(args, model_config(args))
         serve_http(args)
     elif args.fleet:
         serve_fleet(args)

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.device import resolve_device
+from repro_torch.distributed.context import SLICE_TRAIN
 from repro_torch.models import model as M
 from repro_torch.training import checkpoint as CKPT
 from repro_torch.training.data import DataConfig, batch_at
@@ -79,7 +80,8 @@ def train(args, params=None, cfg=None, log=print) -> TrainRun:
     if args.mesh not in ("", "1x1"):
         raise NotImplementedError(
             f"--mesh {args.mesh}: sharded training is a later slice of the "
-            "PyTorch port (one device only: --mesh 1x1)")
+            f"PyTorch port (one device only: --mesh 1x1); it comes with "
+            f"{SLICE_TRAIN}")
     device = resolve_device(args.device)
     if cfg is None:
         cfg = get_config(args.arch)

@@ -56,22 +56,60 @@ def torch_dtype(name: str) -> torch.dtype:
 # init helpers
 # ---------------------------------------------------------------------------
 def dense_init(gen: torch.Generator, shape, dtype, device,
-               scale: float = 1.0) -> torch.Tensor:
+               scale: float = 1.0, part=None) -> torch.Tensor:
     """N(0, (scale / sqrt(in_dim))^2) weights of ``shape`` = (..., in,
     out), drawn in f32 and cast, one leading index at a time so a
-    stacked full-width weight never exists in f32 as a whole."""
+    stacked full-width weight never exists in f32 as a whole. ``part``
+    = (dim, index, parts), dim one of the last two: keep only that part
+    of each (in, out) draw (a rank's shard), drawing exactly what the
+    whole weight draws."""
     std = scale / math.sqrt(shape[-2])
-    out = torch.empty(shape, dtype=dtype, device=device)
-    flat = out.view(-1, *shape[-2:])
+    local = list(shape)
+    if part is not None:
+        dim, index, parts = part
+        assert dim >= len(shape) - 2, "a shard of a lead (layer) dim"
+        local[dim] //= parts
+    out = torch.empty(local, dtype=dtype, device=device)
+    if out.is_meta:                # shapes only: nothing to draw
+        return out
+    flat = out.view(-1, *local[-2:])
     for i in range(flat.shape[0]):
-        flat[i] = (torch.randn(shape[-2:], generator=gen, dtype=torch.float32,
-                               device=device) * std).to(dtype)
+        w = (torch.randn(shape[-2:], generator=gen, dtype=torch.float32,
+                         device=device) * std).to(dtype)
+        if part is not None:
+            size = local[dim]
+            w = w.narrow(dim - len(shape) + 2, index * size, size)
+        flat[i] = w
     return out
 
 
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
+def embed_lookup(embed, tokens, parallel=None):
+    """Rows of ``embed`` for ``tokens``. Vocab-parallel under a context
+    whose model axis spans ranks (``embed`` is this rank's slab of
+    consecutive vocab rows): each rank looks up the tokens its slab
+    holds, zeros elsewhere, and the all-reduce sums the one row a token
+    has into every rank's copy, bit for bit the unsharded lookup."""
+    if parallel is None:
+        return embed[tokens.long()]
+    n = embed.shape[0]
+    local = tokens.long() - parallel.model_rank * n
+    hit = (local >= 0) & (local < n)
+    x = embed[local.clamp(0, n - 1)]
+    return parallel.all_reduce_sum(
+        torch.where(hit[..., None], x, torch.zeros_like(x)))
+
+
+def lm_head(x, head, parallel=None):
+    """Logits ``x @ head``. Vocab-parallel under a context (``head`` is
+    this rank's (d, V/tp) columns): the ranks' logits gathered along the
+    vocab in rank order, the full (.., V) on every rank."""
+    logits = x @ head
+    return logits if parallel is None else parallel.all_gather(logits, -1)
+
+
 def rmsnorm(x, gamma, eps: float = 1e-5):
     var = x.float().square().mean(dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + eps).to(x.dtype)) * gamma

@@ -88,9 +88,26 @@ and the port raises instead of dropping the setting. A prompt longer
 than the cache (a ring shorter than the prompt too) is refused with
 ValueError, where the reference's ``jnp.pad`` raises on the negative
 width.
+
+Tensor parallelism (``parallel=``, a ``distributed.context.
+ParallelContext`` whose model axis spans tp ranks; the DENSE decoder
+only): every entry point, ``init_params`` and the caches take it. A rank
+computes with a local config of H/tp query and Hkv/tp kv heads and d_ff/tp
+MLP features (``_local_cfg``) on its shard of the weights
+(``distributed/sharding.py::param_specs``: column-parallel q/k/v and
+up/gate, row-parallel wo and down); the row-parallel partial products
+are summed over the ranks (``ParallelContext.all_reduce_sum``) where the
+reference's GSPMD inserts its all-reduce; the embedding is looked up
+vocab-parallel (each rank its slab, the rows summed) and the LM head's
+logits gathered in rank order, so every rank holds the whole logits.
+Each rank's cache is its own, Hkv/tp heads wide, so the decode kernels
+run on it unchanged. ``check_supported`` refuses the other families and
+widths tp does not divide, naming the later slice.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -99,6 +116,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (DENSE, ENCDEC, HYBRID, MOE, SSM, VLM,
                                       ModelConfig)
+from repro_torch.distributed import context as PC
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE_MOD
@@ -114,11 +133,29 @@ PER_TOKEN = RECURRENT + (VLM,)
 CROSS = (VLM, ENCDEC)
 
 
-def check_supported(cfg: ModelConfig, paged: bool = False) -> None:
+def check_supported(cfg: ModelConfig, paged: bool = False,
+                    parallel=None) -> None:
     """Raise NotImplementedError for what the port does not run: on the
     paged pool (``paged``) the recurrent families, VLM, ENCDEC and MLA, a
     window or an int8 cache, which the JAX package refuses there too, for
-    the same reasons."""
+    the same reasons; under a context whose model axis spans ranks
+    (``parallel``), every family but the dense decoder, and widths the
+    tp degree does not divide, each naming the later slice that serves
+    it."""
+    par = _par(parallel)
+    if par is not None:
+        if cfg.moe is not None:
+            raise PC.later(f"family {cfg.family!r} (MoE experts) under "
+                           f"tp={par.tp}", PC.SLICE_EP)
+        if cfg.family != DENSE or cfg.mla is not None:
+            raise PC.later(f"family {cfg.family!r} under tp={par.tp}",
+                           PC.SLICE_FAMILIES)
+        odd = [f"{n}={getattr(cfg, n)}" for n in
+               ("num_heads", "num_kv_heads", "d_ff", "vocab_size")
+               if getattr(cfg, n) % par.tp]
+        if odd:
+            raise PC.later(f"tp={par.tp} with {', '.join(odd)} (not "
+                           "divisible)", PC.SLICE_FAMILIES)
     if paged and (cfg.family not in (DENSE, MOE) or cfg.mla is not None):
         raise NotImplementedError(
             "paged KV cache supports dense/MoE full-attention models; "
@@ -132,11 +169,11 @@ def check_supported(cfg: ModelConfig, paged: bool = False) -> None:
                                   "(int8 scales need a paged layout too)")
 
 
-def _engine_step(cfg: ModelConfig, name: str) -> None:
+def _engine_step(cfg: ModelConfig, name: str, parallel=None) -> None:
     """The chunk, verify and mixed steps serve the engine, which refuses
     ENCDEC as the reference's engine does (the reference reaches these
     steps only through it): refuse them for ENCDEC too."""
-    check_supported(cfg)
+    check_supported(cfg, parallel=parallel)
     if cfg.family == ENCDEC:
         raise NotImplementedError(
             f"{name} serves the engine, which supports attention-family "
@@ -150,6 +187,32 @@ def _per_token(cfg: ModelConfig, window: Optional[int]) -> bool:
     the recurrent families, VLM, MLA and any window."""
     return (cfg.family in PER_TOKEN or cfg.mla is not None
             or bool(_window(cfg, window)))
+
+
+def _par(parallel):
+    """``parallel`` when its model axis spans more than one rank, else
+    None: a one-rank model axis runs everything local."""
+    return parallel if parallel is not None and parallel.tp > 1 else None
+
+
+@functools.lru_cache(maxsize=None)
+def _local_cfg(cfg: ModelConfig, tp: int) -> ModelConfig:
+    """The config one of ``tp`` ranks computes with: its H/tp query and
+    Hkv/tp kv heads (q_per_kv and head_dim unchanged) and d_ff/tp MLP
+    features; the vocab stays whole (the logits are gathered)."""
+    return dataclasses.replace(
+        cfg, num_heads=cfg.num_heads // tp,
+        num_kv_heads=cfg.num_kv_heads // tp,
+        head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff // tp)
+
+
+def _local(cfg: ModelConfig, par) -> ModelConfig:
+    return cfg if par is None else _local_cfg(cfg, par.tp)
+
+
+def _sum(par, t):
+    """The row-parallel sum of a partial product (``wo``, ``down``)."""
+    return t if par is None else par.all_reduce_sum(t)
 
 
 def _kv_len(cache: Params) -> int:
@@ -167,7 +230,8 @@ def _window(cfg: ModelConfig, window: Optional[int]) -> int:
 # ===========================================================================
 # init
 # ===========================================================================
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
+                parallel=None) -> Params:
     """Random parameters with the JAX package's distributions (embedding
     N(0, 0.02^2), projections N(0, 1/in_dim), ``wo`` at half that std,
     norms at one; an MoE layer's leaves as ``moe.init_moe`` draws them,
@@ -177,25 +241,53 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     ``mla.init_mla`` draws it), in the reference's layout,
     drawn from a ``torch.Generator`` seeded with ``seed``
     on ``device``. The numbers differ from JAX's for the same seed; the
-    tests carry JAX's parameters across with params.from_jax_numpy."""
-    check_supported(cfg)
+    tests carry JAX's parameters across with params.from_jax_numpy. On
+    the "meta" device only the shapes are made.
+
+    Under a context whose model axis spans ranks (``parallel``), a rank
+    draws every leaf (every embedding slab, every layer's matrix) exactly
+    as the unsharded call does and keeps its slice by
+    ``sharding.param_specs``: tp ranks start from the weights of one
+    device, and a rank holds its shard plus one draw at a time."""
+    check_supported(cfg, parallel=parallel)
+    par = _par(parallel)
     dtype = L.torch_dtype(cfg.dtype)
-    gen = torch.Generator(device=device)
+    meta = torch.device(device).type == "meta"
+    gen = torch.Generator(device="cpu" if meta else device)
     gen.manual_seed(seed)
     n, d = cfg.num_layers, cfg.d_model
 
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=device)
 
-    embed = torch.empty((cfg.vocab_size, d), dtype=dtype, device=device)
+    def part(*path):
+        """(name, full shape) -> this rank's (dim, index, parts) of a leaf
+        under ``path`` (None: the whole leaf)."""
+        def of(name, shape):
+            if par is None:
+                return None
+            spec = SH.param_spec((*path, name),
+                                 torch.empty(shape, device="meta"),
+                                 par.model_axis, par.tp)
+            dims = [i for i, e in enumerate(spec) if e is not None]
+            return (dims[0], par.model_rank, par.tp) if dims else None
+        return of
+
+    rows = cfg.vocab_size // (par.tp if par else 1)
+    lo_r = par.model_rank * rows if par else 0
+    embed = torch.empty((rows, d), dtype=dtype, device=device)
     for lo in range(0, cfg.vocab_size, 1 << 15):   # f32 draws in slabs
         hi = min(cfg.vocab_size, lo + (1 << 15))
-        embed[lo:hi] = (torch.randn((hi - lo, d), generator=gen,
-                                    dtype=torch.float32, device=device)
-                        * 0.02).to(dtype)
+        slab = (torch.randn((hi - lo, d), generator=gen, dtype=torch.float32,
+                            device=device) * 0.02).to(dtype)
+        a, b = max(lo, lo_r), min(hi, lo_r + rows)
+        if a < b:
+            embed[a - lo_r:b - lo_r] = slab[a - lo:b - lo]
     p: Params = {"embed": embed, "final_ln": ones(d)}
     if not cfg.tie_embeddings:
-        p["lm_head"] = L.dense_init(gen, (d, cfg.vocab_size), dtype, device)
+        p["lm_head"] = L.dense_init(gen, (d, cfg.vocab_size), dtype, device,
+                                    part=part()("lm_head",
+                                                (d, cfg.vocab_size)))
     if cfg.family == HYBRID:
         n_groups, rem = divmod(n, cfg.ssm.shared_attn_every)
         lead = (n,) if rem else (n_groups, cfg.ssm.shared_attn_every)
@@ -237,45 +329,63 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
                                                 device),
                         "mlp": _init_mlp(gen, cfg, (ne,), dtype, device)}
         p["enc_ln"] = ones(d)
-    attn = MLA.init_mla if cfg.mla is not None else _init_attention
+    if cfg.mla is not None:
+        attn = MLA.init_mla(gen, cfg, lead, dtype, device)
+    else:
+        attn = _init_attention(gen, cfg, lead, dtype, device,
+                               part("layers", "attn"))
     p["layers"] = {"ln1": ones(*lead, d), "ln2": ones(*lead, d),
-                   "attn": attn(gen, cfg, lead, dtype, device)}
+                   "attn": attn}
     if cfg.moe is not None:
         p["layers"]["moe"] = MOE_MOD.init_moe(gen, cfg, n, dtype, device)
     else:
-        p["layers"]["mlp"] = _init_mlp(gen, cfg, lead, dtype, device)
+        p["layers"]["mlp"] = _init_mlp(gen, cfg, lead, dtype, device,
+                                       part("layers", "mlp"))
     if cfg.family == ENCDEC:
         p["layers"]["lnx"] = ones(n, d)
         p["layers"]["xattn"] = _init_attention(gen, cfg, lead, dtype, device)
     return p
 
 
-def _init_attention(gen, cfg: ModelConfig, lead, dtype, device) -> Params:
-    """Attention projections of ``lead`` stacked layers (``()``: one)."""
+def _whole(name, shape):
+    return None
+
+
+def _init_attention(gen, cfg: ModelConfig, lead, dtype, device,
+                    part=_whole) -> Params:
+    """Attention projections of ``lead`` stacked layers (``()``: one);
+    ``part(name, shape)``: the slice of each leaf to keep
+    (``dense_init``)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, hkv = cfg.num_heads, cfg.num_kv_heads
-    attn = {"wq": L.dense_init(gen, (*lead, d, h * hd), dtype, device),
-            "wk": L.dense_init(gen, (*lead, d, hkv * hd), dtype, device),
-            "wv": L.dense_init(gen, (*lead, d, hkv * hd), dtype, device),
-            "wo": L.dense_init(gen, (*lead, h * hd, d), dtype, device,
-                               scale=0.5)}
+    attn = {}
+    for name, shape, scale in (("wq", (*lead, d, h * hd), 1.0),
+                               ("wk", (*lead, d, hkv * hd), 1.0),
+                               ("wv", (*lead, d, hkv * hd), 1.0),
+                               ("wo", (*lead, h * hd, d), 0.5)):
+        attn[name] = L.dense_init(gen, shape, dtype, device, scale=scale,
+                                  part=part(name, shape))
     if cfg.qkv_bias:
         for name, width in (("bq", h * hd), ("bk", hkv * hd),
                             ("bv", hkv * hd)):
-            attn[name] = torch.zeros((*lead, width), dtype=dtype,
-                                     device=device)
+            cut = part(name, (*lead, width))
+            attn[name] = torch.zeros(
+                (*lead, width // (cut[2] if cut else 1)), dtype=dtype,
+                device=device)
     return attn
 
 
-def _init_mlp(gen, cfg: ModelConfig, lead, dtype, device) -> Params:
+def _init_mlp(gen, cfg: ModelConfig, lead, dtype, device,
+              part=_whole) -> Params:
     """MLP of ``lead`` stacked layers: gated unless squared ReLU
-    (nemotron has no gate)."""
+    (nemotron has no gate); ``part`` as for :func:`_init_attention`."""
     d, f = cfg.d_model, cfg.d_ff
-    mlp = {"up": L.dense_init(gen, (*lead, d, f), dtype, device)}
-    if cfg.activation != "squared_relu":
-        mlp["gate"] = L.dense_init(gen, (*lead, d, f), dtype, device)
-    mlp["down"] = L.dense_init(gen, (*lead, f, d), dtype, device)
-    return mlp
+    names = ("up", "down") if cfg.activation == "squared_relu" \
+        else ("up", "gate", "down")
+    return {name: L.dense_init(gen, shape, dtype, device,
+                               part=part(name, shape))
+            for name, shape in ((n, (*lead, f, d) if n == "down"
+                                 else (*lead, d, f)) for n in names)}
 
 
 def _pattern(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -299,37 +409,43 @@ def _layer_list(params: Params, cfg: ModelConfig) -> List:
     return _unstack(params["layers"])
 
 
-def _head(params: Params, cfg: ModelConfig, x):
+def _head(params: Params, cfg: ModelConfig, x, par=None):
     x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
     head = params.get("lm_head")
-    return x @ head if head is not None else x @ params["embed"].T
+    return L.lm_head(x, head if head is not None else params["embed"].T,
+                     par)
 
 
-def _ffn_residual(lp, cfg, x):
+def _ffn_residual(lp, cfg, x, par=None):
     """x plus the block's feed-forward (the MLP, or the MoE block) of its
-    normed input; and the MoE load-balance loss (None for an MLP)."""
+    normed input; and the MoE load-balance loss (None for an MLP). Under
+    ``par`` the MLP is column-parallel on up / gate and row-parallel on
+    down, whose partial products are summed over the ranks."""
     h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
     if cfg.moe is not None:
         m, aux = MOE_MOD.moe_block(lp["moe"], cfg, h)
         return x + m, aux["lb_loss"]
-    return x + L.mlp(lp["mlp"], cfg, h), None
+    return x + _sum(par, L.mlp(lp["mlp"], cfg, h)), None
 
 
 # ===========================================================================
 # forward (teacher forcing)
 # ===========================================================================
 def _decoder_block(lp, cfg: ModelConfig, x, positions, window: int = 0,
-                   memory=None, kv=None):
+                   memory=None, kv=None, par=None):
     """One block: (x, its MoE load-balance loss or None). With
     ``memory`` (an ENCDEC decoder layer), the ungated cross-attention of
     ``rmsnorm(x, lnx)`` over it follows (``kv``: the memory's K/V, already
-    projected)."""
+    projected). Under ``par`` (a dense layer, ``cfg`` the rank's local
+    config) attention runs on the rank's heads and ``wo``'s partial
+    product is summed over the ranks."""
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
         x = x + MLA.mla_attention(lp["attn"], cfg, h, positions, window)[0]
     else:
-        x = x + L.attention(lp["attn"], cfg, h, positions, window=window)
-    x, lb = _ffn_residual(lp, cfg, x)
+        x = x + _sum(par, L.attention(lp["attn"], cfg, h, positions,
+                                      window=window))
+    x, lb = _ffn_residual(lp, cfg, x, par)
     if memory is not None:
         h = L.rmsnorm(x, lp["lnx"], cfg.norm_eps)
         x = x + L.cross_attention(lp["xattn"], cfg, h, memory, kv)
@@ -337,7 +453,8 @@ def _decoder_block(lp, cfg: ModelConfig, x, positions, window: int = 0,
 
 
 def _run_decoder_stack(stacked, cfg: ModelConfig, x, positions,
-                       remat: bool = False, window: int = 0, memory=None):
+                       remat: bool = False, window: int = 0, memory=None,
+                       par=None):
     """The decoder blocks in turn (with ``memory``, each followed by its
     cross-attention over it); ``remat`` checkpoints each one (its
     activations are recomputed in the backward pass). The forward draws
@@ -347,21 +464,21 @@ def _run_decoder_stack(stacked, cfg: ModelConfig, x, positions,
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _unstack(stacked):
         x, lb_i = _maybe_remat(remat, _decoder_block, lp, cfg, x, positions,
-                               window, memory)
+                               window, memory, None, par)
         if lb_i is not None:
             lb = lb + lb_i
     return x, lb
 
 
-def _seq_inputs(params, tokens):
+def _seq_inputs(params, tokens, par=None):
     """Embeddings and (B, S) positions 0..S-1 of a full sequence."""
     b, s = tokens.shape
-    x = params["embed"][tokens.long()]
+    x = L.embed_lookup(params["embed"], tokens, par)
     return x, torch.arange(s, device=x.device).expand(b, s)
 
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict, remat=False,
-            window: Optional[int] = None
+            window: Optional[int] = None, parallel=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forcing full-sequence pass. batch: {"tokens": (B, S) int},
     and for VLM and ENCDEC "frontend" (B, F, D) in the model dtype.
@@ -375,12 +492,19 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict, remat=False,
     "full" the whole pass, False / None nothing (the JAX package's
     ``LAYER_REMAT`` and ``jax.checkpoint`` of ``forward``). ``window``:
     sliding-window attention over that many positions
-    (``cfg.attention_window`` when None; 0 is full attention)."""
-    check_supported(cfg)
+    (``cfg.attention_window`` when None; 0 is full attention).
+    ``parallel``: a ``ParallelContext`` (a dense decoder, ``params`` the
+    rank's shard): the rank's heads and features, the row-parallel sums,
+    the vocab-parallel embedding and head; every rank gets the whole
+    logits."""
+    check_supported(cfg, parallel=parallel)
     if remat and remat != "layer":
         return checkpoint(forward, params, cfg, batch, False, window,
-                          use_reentrant=False, preserve_rng_state=False)
-    x, positions = _seq_inputs(params, batch["tokens"])
+                          parallel, use_reentrant=False,
+                          preserve_rng_state=False)
+    par = _par(parallel)
+    cfg = _local(cfg, par)
+    x, positions = _seq_inputs(params, batch["tokens"], par)
     w, layer = _window(cfg, window), remat == "layer"
     if cfg.family == HYBRID:
         x = _hybrid_forward(params, cfg, x, positions, w, layer)
@@ -396,8 +520,8 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict, remat=False,
         return _head(params, cfg, x), lb
     else:
         x, lb = _run_decoder_stack(params["layers"], cfg, x, positions,
-                                   remat=layer, window=w)
-        return _head(params, cfg, x), lb
+                                   remat=layer, window=w, par=par)
+        return _head(params, cfg, x, par), lb
     return _head(params, cfg, x), torch.zeros((), dtype=torch.float32,
                                               device=x.device)
 
@@ -541,7 +665,8 @@ def _ssm_forward(params, cfg: ModelConfig, x, remat: bool = False):
 # caches
 # ===========================================================================
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               device="cuda", frontend_len: Optional[int] = None) -> Params:
+               device="cuda", frontend_len: Optional[int] = None,
+               parallel=None) -> Params:
     """Dense KV cache for ``batch`` slots of ``cache_len`` tokens (int8
     values with per-token scales when cfg.kv_cache_dtype == "int8"); with
     ``cfg.attention_window`` a ring of min(cache_len, window) entries, as
@@ -550,8 +675,11 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     (num_layers, B, F, Hkv, hd) for ENCDEC, with F = ``frontend_len`` or
     ``cfg.frontend_tokens``; a VLM's self-attention K/V stay flat (module
     docstring). MLA: the latent "c_kv" / "k_r" (module docstring); an
-    int8 MLA cache raises NotImplementedError."""
-    check_supported(cfg)
+    int8 MLA cache raises NotImplementedError. ``parallel``: this rank's
+    cache, Hkv/tp kv heads (``sharding.serving_cache_specs``'s head
+    split), a cache of its own (the kernels read contiguous rows)."""
+    check_supported(cfg, parallel=parallel)
+    cfg = _local(cfg, _par(parallel))
     eff = min(cache_len, cfg.attention_window) if cfg.attention_window \
         else cache_len
     if cfg.family in RECURRENT:
@@ -609,11 +737,13 @@ def _recurrent_cache(cfg: ModelConfig, batch: int, eff: int, device):
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
-                     device="cuda") -> Params:
+                     device="cuda", parallel=None) -> Params:
     """Paged KV cache: one pool of ``num_blocks`` physical blocks per
     layer (plus the sink block); slots own blocks via block tables. fp
-    and full attention only, as in the JAX package."""
-    check_supported(cfg, paged=True)
+    and full attention only, as in the JAX package. ``parallel`` as for
+    :func:`init_cache`."""
+    check_supported(cfg, paged=True, parallel=parallel)
+    cfg = _local(cfg, _par(parallel))
     return {"kv": L.init_paged_kv_cache(cfg, cfg.num_layers, num_blocks,
                                         block_size, device=device)}
 
@@ -622,28 +752,33 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
 # decode / prefill
 # ===========================================================================
 def prefill(params: Params, cfg: ModelConfig, batch: Dict,
-            window: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
+            window: Optional[int] = None, parallel=None
+            ) -> Tuple[torch.Tensor, Params]:
     """Full-prompt prefill. batch: {"tokens": (B, S) int, optional
     "cache_len" (default S); VLM and ENCDEC: "frontend" (B, F, D)}.
     Returns (last-token logits (B, V), a new dense cache of ``cache_len``
     tokens, or of the config's window when that is shorter, holding the
     prompt's K/V; a cache shorter than S keeps the last entries in ring
     layout; VLM: and the frontend's cross K/V, F rows; ENCDEC: the
-    encoder output's, F rows a layer). ``window`` as in
+    encoder output's, F rows a layer). ``window`` and ``parallel`` as in
     :func:`forward`."""
-    check_supported(cfg)
+    check_supported(cfg, parallel=parallel)
     tokens = batch["tokens"]
     memory = batch.get("frontend")
     cache = init_cache(cfg, tokens.shape[0],
                        batch.get("cache_len", tokens.shape[1]),
                        device=params["embed"].device,
                        frontend_len=None if memory is None
-                       else memory.shape[1])
-    x = _fill_cache(params, cfg, tokens, cache, _window(cfg, window), memory)
-    return _head(params, cfg, x[:, -1:])[:, 0], cache
+                       else memory.shape[1], parallel=parallel)
+    par = _par(parallel)
+    cfg = _local(cfg, par)
+    x = _fill_cache(params, cfg, tokens, cache, _window(cfg, window), memory,
+                    par)
+    return _head(params, cfg, x[:, -1:], par)[:, 0], cache
 
 
-def _fill_cache(params, cfg, tokens, cache, window: int = 0, memory=None):
+def _fill_cache(params, cfg, tokens, cache, window: int = 0, memory=None,
+                par=None):
     """Run the stack, storing each layer's K/V into the cache: K/V are
     recomputed from the hidden state entering the block (one extra K/V
     product per layer, as in the JAX package). A cache of ``eff`` >= S
@@ -654,7 +789,7 @@ def _fill_cache(params, cfg, tokens, cache, window: int = 0, memory=None):
     cross layer's K/V of ``memory`` (the frontend) into "xk" / "xv"; an
     ENCDEC model encodes ``memory`` first and stores each decoder layer's
     cross K/V of the encoder output. Returns the final hidden state."""
-    x, positions = _seq_inputs(params, tokens)
+    x, positions = _seq_inputs(params, tokens, par)
     if cfg.family == HYBRID:
         return _hybrid_fill(params, cfg, x, positions, cache, window)
     if cfg.family == SSM:
@@ -684,7 +819,7 @@ def _fill_cache(params, cfg, tokens, cache, window: int = 0, memory=None):
             xkv = L._kv(lp["xattn"], cfg, enc)
             cache["xk"][i].copy_(xkv[0])
             cache["xv"][i].copy_(xkv[1])
-        x = _decoder_block(lp, cfg, x, positions, window, enc, xkv)[0]
+        x = _decoder_block(lp, cfg, x, positions, window, enc, xkv, par)[0]
         if every and (i + 1) % every == 0:
             g = i // every
             xk, xv = L._kv(cross[g]["xattn"], cfg, memory)
@@ -809,7 +944,7 @@ def _ssm_decode(params, cfg: ModelConfig, x, cache, active):
 
 def decode_step(params: Params, cfg: ModelConfig, token, cache: Params, pos,
                 decode_impl: str = "kernel", active=None,
-                window: Optional[int] = None
+                window: Optional[int] = None, parallel=None
                 ) -> Tuple[torch.Tensor, Params]:
     """token: (B,1) int; pos: scalar or (B,) per-row positions; active:
     optional (B,) bool — rows with active=False leave the cache
@@ -821,10 +956,14 @@ def decode_step(params: Params, cfg: ModelConfig, token, cache: Params, pos,
     VLM's cross layers and an ENCDEC model's decoder layers attend the
     cached memory ("xk" / "xv"), which a step never writes. An MLA model
     runs ``mla.mla_decode`` on its latent cache and ignores
-    ``decode_impl``, as the reference does. Returns (logits (B,V),
+    ``decode_impl``, as the reference does. ``parallel`` as in
+    :func:`forward` (the cache is the rank's, :func:`init_cache`): the
+    decode kernel runs on the rank's heads. Returns (logits (B,V),
     cache)."""
-    check_supported(cfg)
-    x = params["embed"][token.long()]
+    check_supported(cfg, parallel=parallel)
+    par = _par(parallel)
+    cfg = _local(cfg, par)
+    x = L.embed_lookup(params["embed"], token, par)
     if cfg.family == HYBRID:
         x = _hybrid_decode(params, cfg, x, cache, pos, decode_impl, active,
                            _window(cfg, window))
@@ -844,7 +983,8 @@ def decode_step(params: Params, cfg: ModelConfig, token, cache: Params, pos,
             a, _ = L.decode_attention(lp["attn"], cfg, h, kv, idx.pos,
                                       decode_impl=decode_impl, active=active,
                                       idx=idx)
-        x = _ffn_residual(lp, cfg, x + a)[0]
+            a = _sum(par, a)
+        x = _ffn_residual(lp, cfg, x + a, par)[0]
         if cfg.family == ENCDEC:
             h = L.rmsnorm(x, lp["lnx"], cfg.norm_eps)
             x = x + _cross_decode_attention(lp["xattn"], cfg, h,
@@ -853,7 +993,7 @@ def decode_step(params: Params, cfg: ModelConfig, token, cache: Params, pos,
             g = i // every
             x = _cross_decode(cross[g], cfg, x, cache["xk"][g],
                               cache["xv"][g])
-    return _head(params, cfg, x)[:, 0], cache
+    return _head(params, cfg, x, par)[:, 0], cache
 
 
 def _cross_decode_attention(p, cfg: ModelConfig, h, xk, xv):
@@ -875,11 +1015,13 @@ def _cross_decode(cp, cfg: ModelConfig, x, xk, xv):
 
 def paged_decode_step(params: Params, cfg: ModelConfig, token,
                       cache: Params, block_tables, pos,
-                      decode_impl: str = "kernel", active=None
-                      ) -> Tuple[torch.Tensor, Params]:
+                      decode_impl: str = "kernel", active=None,
+                      parallel=None) -> Tuple[torch.Tensor, Params]:
     """Paged analog of :func:`decode_step`; block_tables: (B, NB) int."""
-    check_supported(cfg, paged=True)
-    x = params["embed"][token.long()]
+    check_supported(cfg, paged=True, parallel=parallel)
+    par = _par(parallel)
+    cfg = _local(cfg, par)
+    x = L.embed_lookup(params["embed"], token, par)
     ks, vs = cache["kv"]["k"].unbind(0), cache["kv"]["v"].unbind(0)
     idx = L.paged_decode_index(cfg, pos, {"k": ks[0]}, block_tables, active)
     for lp, k, v in zip(_unstack(params["layers"]), ks, vs):
@@ -888,11 +1030,11 @@ def paged_decode_step(params: Params, cfg: ModelConfig, token,
                                         block_tables, idx.pos,
                                         decode_impl=decode_impl,
                                         active=active, idx=idx)
-        x = _ffn_residual(lp, cfg, x + a)[0]
-    return _head(params, cfg, x)[:, 0], cache
+        x = _ffn_residual(lp, cfg, x + _sum(par, a), par)[0]
+    return _head(params, cfg, x, par)[:, 0], cache
 
 
-def _chunk_attention(lp, cfg, x, rope, valid, kv_view):
+def _chunk_attention(lp, cfg, x, rope, valid, kv_view, par=None):
     """Attention half of one fused prefill layer. ``rope``: the chunk
     positions' (cos, sin); ``valid``: (B, L, T) keys each query sees
     (cache entries j <= its position); ``kv_view(k, v)`` writes the
@@ -903,24 +1045,25 @@ def _chunk_attention(lp, cfg, x, rope, valid, kv_view):
     q, k = L._rotate(q, *rope), L._rotate(k, *rope)
     k_all, v_all = kv_view(k, v)
     a = L._sdpa(q, k_all, v_all, valid, cfg.q_per_kv)
-    return x + a @ lp["attn"]["wo"]
+    return x + _sum(par, a @ lp["attn"]["wo"])
 
 
-def _last_logits(params, cfg, x, lengths):
+def _last_logits(params, cfg, x, lengths, par=None):
     """LM head over each row's last valid chunk position only."""
     b, l, d = x.shape
     last = torch.clamp(lengths - 1, 0, l - 1)
     x = x.gather(1, last[:, None, None].expand(b, 1, d))
-    return _head(params, cfg, x)[:, 0]
+    return _head(params, cfg, x, par)[:, 0]
 
 
-def _chunk_inputs(params, cfg, tokens, start_pos, lengths, t_max: int):
+def _chunk_inputs(params, cfg, tokens, start_pos, lengths, t_max: int,
+                  par=None):
     """Per-chunk quantities every layer shares: embeddings, rope tables
     of the chunk positions, and the (B, L, T) causal validity."""
     b, l = tokens.shape
     start_pos = torch.as_tensor(start_pos, device=tokens.device).long()
     lengths = torch.as_tensor(lengths, device=tokens.device).long()
-    x = params["embed"][tokens.long()]
+    x = L.embed_lookup(params["embed"], tokens, par)
     positions = start_pos[:, None] + torch.arange(l, device=x.device)[None]
     rope = L.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
     valid = torch.arange(t_max, device=x.device)[None, None, :] \
@@ -930,7 +1073,7 @@ def _chunk_inputs(params, cfg, tokens, start_pos, lengths, t_max: int):
 
 def prefill_chunk(params: Params, cfg: ModelConfig, tokens, cache: Params,
                   start_pos, lengths, decode_impl: str = "kernel",
-                  window: Optional[int] = None
+                  window: Optional[int] = None, parallel=None
                   ) -> Tuple[torch.Tensor, Params]:
     """Batched multi-slot chunked prefill: one call advances every row by
     up to L tokens. tokens: (B, L) zero-padded chunks; start_pos: (B,);
@@ -939,17 +1082,21 @@ def prefill_chunk(params: Params, cfg: ModelConfig, tokens, cache: Params,
     attention runs the fused sequence-level chunk (``decode_impl`` is
     unused there); a window (``window``, or the config's when None), VLM,
     MLA and the recurrent families the masked per-token decode loop, as
-    in the JAX package. ENCDEC is refused (:func:`_engine_step`)."""
-    _engine_step(cfg, "prefill_chunk")
+    in the JAX package. ENCDEC is refused (:func:`_engine_step`).
+    ``parallel`` as in :func:`decode_step`."""
+    _engine_step(cfg, "prefill_chunk", parallel)
     if _per_token(cfg, window):
         return _per_token_chunk(params, cfg, tokens, cache, start_pos,
-                                lengths, decode_impl, window)
-    return _prefill_chunk_fused(params, cfg, tokens, cache, start_pos,
-                                lengths)
+                                lengths, decode_impl, window,
+                                parallel=parallel)
+    par = _par(parallel)
+    return _prefill_chunk_fused(params, _local(cfg, par), tokens, cache,
+                                start_pos, lengths, par=par)
 
 
 def _per_token_chunk(params, cfg, tokens, cache, start_pos, lengths,
-                     decode_impl, window, all_logits: bool = False):
+                     decode_impl, window, all_logits: bool = False,
+                     parallel=None):
     """The masked per-token fallback of :func:`prefill_chunk` and
     :func:`verify_step`: token column t goes through :func:`decode_step`
     at ``start_pos + t`` with ``active = t < lengths``, on the
@@ -969,7 +1116,8 @@ def _per_token_chunk(params, cfg, tokens, cache, start_pos, lengths,
         act = t < lengths
         lg, cache = decode_step(params, cfg, tokens[:, t:t + 1], cache,
                                 start_pos + t, decode_impl=decode_impl,
-                                active=act, window=window)
+                                active=act, window=window,
+                                parallel=parallel)
         if all_logits:
             out[:, t] = lg
         else:
@@ -978,7 +1126,7 @@ def _per_token_chunk(params, cfg, tokens, cache, start_pos, lengths,
 
 
 def _prefill_chunk_fused(params, cfg, tokens, cache, start_pos, lengths,
-                         all_logits: bool = False):
+                         all_logits: bool = False, par=None):
     """Write the chunk's K/V into the cache in place, then attend the
     chunk's queries over (cache prefix + chunk) causally; an int8 cache
     takes the chunk quantized and is attended dequantized, as in the JAX
@@ -987,7 +1135,8 @@ def _prefill_chunk_fused(params, cfg, tokens, cache, start_pos, lengths,
     last."""
     layer_kv = _unstack(cache["kv"])
     x, start_pos, lengths, rope, valid = _chunk_inputs(
-        params, cfg, tokens, start_pos, lengths, layer_kv[0]["k"].shape[1])
+        params, cfg, tokens, start_pos, lengths, layer_kv[0]["k"].shape[1],
+        par)
     index = L.chunk_write_index(start_pos, lengths, tokens.shape[1],
                                 layer_kv[0])
     for lp, kv in zip(_unstack(params["layers"]), layer_kv):
@@ -998,27 +1147,29 @@ def _prefill_chunk_fused(params, cfg, tokens, cache, start_pos, lengths,
                         L.dequantize_kv(kv["v"], kv["v_scale"]))
             return kv["k"], kv["v"]
         x = _ffn_residual(lp, cfg, _chunk_attention(lp, cfg, x, rope, valid,
-                                                    kv_view))[0]
-    return _chunk_logits(params, cfg, x, lengths, all_logits), cache
+                                                    kv_view, par), par)[0]
+    return _chunk_logits(params, cfg, x, lengths, all_logits, par), cache
 
 
-def _chunk_logits(params, cfg, x, lengths, all_logits: bool):
-    return _head(params, cfg, x) if all_logits \
-        else _last_logits(params, cfg, x, lengths)
+def _chunk_logits(params, cfg, x, lengths, all_logits: bool, par=None):
+    return _head(params, cfg, x, par) if all_logits \
+        else _last_logits(params, cfg, x, lengths, par)
 
 
 def paged_prefill_chunk(params: Params, cfg: ModelConfig, tokens,
                         cache: Params, block_tables, start_pos, lengths,
-                        all_logits: bool = False
+                        all_logits: bool = False, parallel=None
                         ) -> Tuple[torch.Tensor, Params]:
     """Paged analog of :func:`prefill_chunk`: the chunk's K/V go through
     the block table, and the queries attend the gathered pages."""
-    check_supported(cfg, paged=True)
+    check_supported(cfg, paged=True, parallel=parallel)
+    par = _par(parallel)
+    cfg = _local(cfg, par)
     ks, vs = cache["kv"]["k"].unbind(0), cache["kv"]["v"].unbind(0)
     p_blocks, bs = ks[0].shape[0] - 1, ks[0].shape[1]
     x, start_pos, lengths, rope, valid = _chunk_inputs(
         params, cfg, tokens, start_pos, lengths,
-        block_tables.shape[1] * bs)
+        block_tables.shape[1] * bs, par)
     flat = L.paged_chunk_index(block_tables, start_pos, lengths,
                                tokens.shape[1], {"k": ks[0]})
     for lp, kc, vc in zip(_unstack(params["layers"]), ks, vs):
@@ -1028,13 +1179,14 @@ def paged_prefill_chunk(params: Params, cfg: ModelConfig, tokens,
             return (L.gather_pages(kc[:p_blocks], block_tables),
                     L.gather_pages(vc[:p_blocks], block_tables))
         x = _ffn_residual(lp, cfg, _chunk_attention(lp, cfg, x, rope, valid,
-                                                    kv_view))[0]
-    return _chunk_logits(params, cfg, x, lengths, all_logits), cache
+                                                    kv_view, par), par)[0]
+    return _chunk_logits(params, cfg, x, lengths, all_logits, par), cache
 
 
 def verify_step(params: Params, cfg: ModelConfig, tokens, cache: Params,
                 start_pos, lengths, decode_impl: str = "kernel",
-                window: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
+                window: Optional[int] = None, parallel=None
+                ) -> Tuple[torch.Tensor, Params]:
     """Speculative multi-token verify: advance every row by its
     [last_tok, draft_1..draft_w] window in one call and return the logits
     at EVERY window position, so the caller can accept the longest draft
@@ -1048,51 +1200,54 @@ def verify_step(params: Params, cfg: ModelConfig, tokens, cache: Params,
     start_pos/lengths: (B,). Returns (logits (B, L, V), cache); positions
     past ``lengths`` and idle rows hold garbage the caller masks. ENCDEC
     is refused (:func:`_engine_step`)."""
-    _engine_step(cfg, "verify_step")
+    _engine_step(cfg, "verify_step", parallel)
     if _per_token(cfg, window):
         return _per_token_chunk(params, cfg, tokens, cache, start_pos,
                                 lengths, decode_impl, window,
-                                all_logits=True)
-    return _prefill_chunk_fused(params, cfg, tokens, cache, start_pos,
-                                lengths, all_logits=True)
+                                all_logits=True, parallel=parallel)
+    par = _par(parallel)
+    return _prefill_chunk_fused(params, _local(cfg, par), tokens, cache,
+                                start_pos, lengths, all_logits=True, par=par)
 
 
 def paged_verify_step(params: Params, cfg: ModelConfig, tokens,
-                      cache: Params, block_tables, start_pos, lengths
-                      ) -> Tuple[torch.Tensor, Params]:
+                      cache: Params, block_tables, start_pos, lengths,
+                      parallel=None) -> Tuple[torch.Tensor, Params]:
     """Paged analog of :func:`verify_step`: the
     :func:`paged_prefill_chunk` pass with the LM head over all window
     positions. Returns (logits (B, L, V), cache)."""
     return paged_prefill_chunk(params, cfg, tokens, cache, block_tables,
-                               start_pos, lengths, all_logits=True)
+                               start_pos, lengths, all_logits=True,
+                               parallel=parallel)
 
 
 def mixed_step(params: Params, cfg: ModelConfig, tokens, cache: Params, pos,
                lengths, decode_tokens, decode_active,
-               decode_impl: str = "kernel", window: Optional[int] = None
-               ) -> Tuple[torch.Tensor, Params]:
+               decode_impl: str = "kernel", window: Optional[int] = None,
+               parallel=None) -> Tuple[torch.Tensor, Params]:
     """Fused prefill + decode: advance every prefill row (lengths > 0) by
     one chunk and every decode row (decode_active) by one token in one
     call. The row sets are disjoint and each half is exactly the
     separate call, so the tokens equal the sequential path's. Returns
     (decode logits (B, V), cache). ENCDEC is refused
     (:func:`_engine_step`)."""
-    _engine_step(cfg, "mixed_step")
+    _engine_step(cfg, "mixed_step", parallel)
     _, cache = prefill_chunk(params, cfg, tokens, cache, pos, lengths,
-                             decode_impl=decode_impl, window=window)
+                             decode_impl=decode_impl, window=window,
+                             parallel=parallel)
     return decode_step(params, cfg, decode_tokens, cache, pos,
                        decode_impl=decode_impl, active=decode_active,
-                       window=window)
+                       window=window, parallel=parallel)
 
 
 def paged_mixed_step(params: Params, cfg: ModelConfig, tokens,
                      cache: Params, block_tables, pos, lengths,
                      decode_tokens, decode_active,
-                     decode_impl: str = "kernel"
+                     decode_impl: str = "kernel", parallel=None
                      ) -> Tuple[torch.Tensor, Params]:
     """Paged analog of :func:`mixed_step`."""
     _, cache = paged_prefill_chunk(params, cfg, tokens, cache, block_tables,
-                                   pos, lengths)
+                                   pos, lengths, parallel=parallel)
     return paged_decode_step(params, cfg, decode_tokens, cache,
                              block_tables, pos, decode_impl=decode_impl,
-                             active=decode_active)
+                             active=decode_active, parallel=parallel)

@@ -28,8 +28,8 @@ A dropped pair contributes nothing: its token's residual passes. Every
 expert's buffer holds at least 8 rows, so a call reads every expert's
 weights however few tokens it routes. No host sync: ``cap`` and
 ``ecap`` follow from the shapes. The expert-parallel forms
-(``moe_block_sharded``, ``moe_block_psum``) belong to the sharded-serving
-slice of the port.
+(``moe_block_sharded``, ``moe_block_psum``) belong to the expert-parallel
+slice of the port (``distributed/context.SLICE_EP``).
 """
 from __future__ import annotations
 

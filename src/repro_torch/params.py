@@ -15,6 +15,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.training.optimizer import AdamWState
 
 
@@ -26,11 +27,15 @@ F32_LEAVES = ("router", "a_log", "dt_bias", "wif", "rh")
 
 
 def from_jax_numpy(tree: Dict[str, Any], device="cuda",
-                   dtype: torch.dtype = None) -> Dict[str, Any]:
+                   dtype: torch.dtype = None, parallel=None) -> Dict[str, Any]:
     """Nested dict of numpy arrays -> nested dict of tensors on
     ``device``. ``dtype`` casts every leaf but those named in F32_LEAVES
     (None keeps each leaf's floating type; bfloat16 arrays, which numpy
-    holds as ml_dtypes, go through float32 exactly)."""
+    holds as ml_dtypes, go through float32 exactly). ``parallel``: a
+    ``ParallelContext``; each leaf is cut to the rank's slice by
+    ``sharding.param_specs`` on the host, before it is moved."""
+    if parallel is not None:
+        tree = SH.shard_params(tree, parallel)
     if isinstance(tree, dict):
         return {k: from_jax_numpy(v, device,
                                   None if k in F32_LEAVES else dtype)

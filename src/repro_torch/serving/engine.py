@@ -71,8 +71,21 @@ allocation raise it from inside the allocator, and "wedged" makes
 ``step()`` return without advancing the iteration clock. All three act
 on the host, before any device work is queued.
 
-Sharded serving is a later slice of the port; its ServingConfig knobs
-raise NotImplementedError here when set (``check_slice``).
+Sharded serving (``mesh``, ``parallel``): the engine is one rank of an
+SPMD program over the mesh's ranks (``distributed/context.py``). Every
+rank runs this same host logic on the same requests, computes on its
+shard of the weights (``sharding.param_specs``; a full tree is cut on
+entry) and of the KV cache (its Hkv/tp kv heads, a cache of its own,
+``serving_cache_specs``'s head split), and uploads the same host arrays
+for the slot state and block tables, which every rank holds whole. The
+logits are gathered in rank order, so every rank emits the same tokens;
+each readback is checked equal across the ranks. With
+``decode_impl="kernel"`` each rank launches the decode kernels on its
+local heads, an ordinary unsharded cache, where the reference's sharded
+engine falls back to XLA (``pallas_fallback`` stays False here). The
+dense decoder is served so; the other families, a mesh that is not the
+whole process group, and heads that tp does not divide raise
+NotImplementedError naming the later slice.
 """
 from __future__ import annotations
 
@@ -86,28 +99,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.context import make_context
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.draft import propose_draft
-
-# ServingConfig knobs of later slices: field -> (default, the slice)
-_LATER_SLICES = {
-    "mesh": (None, "the sharded-serving slice"),
-    "parallel": (None, "the sharded-serving slice"),
-    "tp_degree": (1, "the sharded-serving slice"),
-}
-
-
-def check_slice(scfg: ServingConfig) -> None:
-    """Raise NotImplementedError for a ServingConfig knob this slice of
-    the port does not serve, naming the slice that will."""
-    for name, (default, later) in _LATER_SLICES.items():
-        val = getattr(scfg, name)
-        if val != default:
-            raise NotImplementedError(
-                f"ServingConfig.{name}={val!r} is not ported yet: it comes "
-                f"with {later} of the PyTorch port")
+from repro_torch.training.tree import leaves as _leaves
 
 
 def prefill_buckets(c_chunk: int, min_bucket: int = 8) -> Tuple[int, ...]:
@@ -185,7 +183,6 @@ class InferenceEngine:
             raise NotImplementedError(
                 "engine supports attention-family models (the paper serves "
                 "Llama-3-70B); SSM decode runs through models.decode_step")
-        check_slice(scfg)
         if scfg.spec_k > 1 and cfg.attention_window:
             # a rejected draft's KV write at ring slot (p + i) % window
             # would clobber live in-window history
@@ -193,9 +190,18 @@ class InferenceEngine:
                 "speculative decoding needs full-attention KV offsets; "
                 "windowed ring-buffer caches alias live history under "
                 "rejected drafts")
-        M.check_supported(cfg)
+        # -- mesh / tensor parallel: this rank's part of the engine
+        self.mesh = scfg.mesh
+        self.parallel = (scfg.parallel or make_context(scfg.mesh)) \
+            if scfg.mesh is not None else None
+        self.tp_degree = self.parallel.tp if self.parallel else 1
+        # the decode kernels run on each rank's local heads: no fallback
+        self.pallas_fallback = False
+        M.check_supported(cfg, parallel=self.parallel)
         self.config = scfg
         self.cfg = cfg
+        if self.tp_degree > 1:
+            params = SH.rank_shard(params, self.parallel, cfg.vocab_size)
         self.params = params
         self.device = params["embed"].device
         self.decode_impl = scfg.decode_impl
@@ -214,7 +220,8 @@ class InferenceEngine:
                                else n_max * self.blocks_per_slot)
             self.cache = M.init_paged_cache(cfg, self.num_blocks,
                                             self.block_size,
-                                            device=self.device)
+                                            device=self.device,
+                                            parallel=self.parallel)
             # host-side allocator: free list, worst-case reservations and
             # per-slot tables
             self._free: List[int] = list(range(self.num_blocks))
@@ -246,7 +253,8 @@ class InferenceEngine:
             # allocator touched it
             self._bt_device = None
         else:
-            self.cache = M.init_cache(cfg, n_max, c_max, device=self.device)
+            self.cache = M.init_cache(cfg, n_max, c_max, device=self.device,
+                                      parallel=self.parallel)
         # per-slot host state
         self.slot_req: List[Optional[ServeRequest]] = [None] * n_max
         self.slot_pos = np.zeros(n_max, np.int32)        # next position
@@ -321,6 +329,25 @@ class InferenceEngine:
         # micro-loop; host writes to slot state mark it dirty
         self._dev_state = None
         self._dev_dirty = True
+
+    def devices(self) -> List[int]:
+        """The global ranks this engine spans (each holds one shard; one
+        rank without a mesh)."""
+        return self.mesh.ranks if self.mesh is not None else [0]
+
+    def cache_bytes_per_device(self) -> int:
+        """KV-cache bytes on this rank: 1/tp of the unsharded engine's
+        under the kv-head split."""
+        return sum(a.numel() * a.element_size()
+                   for a in _leaves(self.cache))
+
+    def _readback(self, t: torch.Tensor, what: str) -> np.ndarray:
+        """The host copy of a dispatch's tokens, checked equal on every
+        rank of the mesh (the schedulers would drift apart otherwise)."""
+        out = t.cpu().numpy()
+        if self.parallel is not None:
+            self.parallel.assert_same(out, what)
+        return out
 
     # ------------------------------------------------------------------ API
     def submit(self, req: ServeRequest) -> bool:
@@ -1070,10 +1097,12 @@ class InferenceEngine:
                                   self._upload(lengths))
         if self.paged:
             M.paged_prefill_chunk(self.params, self.cfg, tokens, self.cache,
-                                  self._block_table_device(), start, lengths)
+                                  self._block_table_device(), start, lengths,
+                                  parallel=self.parallel)
         else:
             M.prefill_chunk(self.params, self.cfg, tokens, self.cache, start,
-                            lengths, decode_impl=self.decode_impl)
+                            lengths, decode_impl=self.decode_impl,
+                            parallel=self.parallel)
         self.dispatches += 1
         self._advance_prefill_host(chunks)
 
@@ -1101,12 +1130,13 @@ class InferenceEngine:
             logits, _ = M.paged_decode_step(
                 self.params, self.cfg, tokens, self.cache,
                 self._block_table_device(), pos,
-                decode_impl=self.decode_impl, active=active)
+                decode_impl=self.decode_impl, active=active,
+                parallel=self.parallel)
         else:
             logits, _ = M.decode_step(self.params, self.cfg, tokens,
                                       self.cache, pos,
                                       decode_impl=self.decode_impl,
-                                      active=active)
+                                      active=active, parallel=self.parallel)
         return logits
 
     def _decode_loop(self, tok, pos, active, budget):
@@ -1161,11 +1191,13 @@ class InferenceEngine:
             if self.paged:
                 logits, _ = M.paged_verify_step(
                     self.params, self.cfg, window, self.cache,
-                    self._block_table_device(), pos, lengths)
+                    self._block_table_device(), pos, lengths,
+                    parallel=self.parallel)
             else:
                 logits, _ = M.verify_step(self.params, self.cfg, window,
                                           self.cache, pos, lengths,
-                                          decode_impl=self.decode_impl)
+                                          decode_impl=self.decode_impl,
+                                          parallel=self.parallel)
             g = torch.argmax(logits, dim=-1)                      # (B, W)
             # draft i is accepted iff it equals the model's continuation
             # at the position before it; j = the accepted prefix length
@@ -1244,7 +1276,8 @@ class InferenceEngine:
         logits = self._decode_logits(self._upload(self.slot_last_tok[:, None]),
                                      self._upload(self.slot_pos),
                                      self._upload(mask))
-        next_tok = torch.argmax(logits, dim=-1).cpu().numpy()
+        next_tok = self._readback(torch.argmax(logits, dim=-1),
+                                  "the decode dispatch's tokens")
         self.dispatches += 1
         self.decode_dispatches += 1
         self._decode_only_tokens += int(mask.sum())
@@ -1263,7 +1296,8 @@ class InferenceEngine:
         self._dev_state = state
         self.dispatches += 1
         self.decode_dispatches += 1
-        emitted = emitted.cpu().numpy()         # the single host sync
+        emitted = self._readback(emitted,       # the single host sync
+                                 "the decode micro-loop's tokens")
         self.iteration += k - 1                # step() already added 1
         for s in np.where(mask)[0]:
             s = int(s)
@@ -1316,7 +1350,8 @@ class InferenceEngine:
         self.dispatches += 1
         self.decode_dispatches += 1
         # the single host sync: emitted tokens and drafts fed, one copy
-        out = torch.cat([emitted, fed[..., None]], dim=2).cpu().numpy()
+        out = self._readback(torch.cat([emitted, fed[..., None]], dim=2),
+                             "the verify windows' tokens")
         emitted, fed = out[..., :w_max], out[..., w_max]
         self.iteration += k - 1              # step() already added 1
         for s in np.where(mask)[0]:
@@ -1373,13 +1408,15 @@ class InferenceEngine:
             logits, _ = M.paged_mixed_step(
                 self.params, self.cfg, self._upload(tokens), self.cache,
                 self._block_table_device(), pos, self._upload(lengths), toks,
-                self._upload(mask), decode_impl=self.decode_impl)
+                self._upload(mask), decode_impl=self.decode_impl,
+                parallel=self.parallel)
         else:
             logits, _ = M.mixed_step(
                 self.params, self.cfg, self._upload(tokens), self.cache, pos,
                 self._upload(lengths), toks, self._upload(mask),
-                decode_impl=self.decode_impl)
-        next_tok = torch.argmax(logits, dim=-1).cpu().numpy()
+                decode_impl=self.decode_impl, parallel=self.parallel)
+        next_tok = self._readback(torch.argmax(logits, dim=-1),
+                                  "the mixed dispatch's tokens")
         self.dispatches += 1
         self._dev_dirty = True
         self._advance_prefill_host(chunks)

@@ -22,9 +22,18 @@ another slot count or context window and migrates every in-flight
 request through the host KV tier (``serving/reconfigure.py``); after a
 crash, ``reconfigure.recover_pool`` rebuilds it and blacks the pool out
 for a while (``pool_down_until``), during which ``submit`` raises
-``PoolDownError``. ``reprovision_stats`` counts both. Placing pools on
-several devices (``device_placement``, ``tp``) comes with the
-sharded-serving slice.
+``PoolDownError``. ``reprovision_stats`` counts both.
+
+Sharded serving: with ``mesh`` and ``tp_degree`` every pool's engine
+runs tensor-parallel over one rank group of ``tp_degree`` ranks (an SPMD
+program, ``distributed/context.py``), and all engines on a rank share
+that rank's shard of the weights (``device_placement`` maps each pool to
+its ranks). Every rank holds the same requests and takes the same host
+decisions: rank 0 routes each request (the C&R compressor and its
+TextRank launch run there alone) and reads the blackout clock, and the
+ranks receive its decision. A mesh carved into more than one submesh
+comes with a later slice, which must broadcast each engine's readbacks
+to the ranks outside its submesh.
 """
 from __future__ import annotations
 
@@ -42,11 +51,15 @@ from repro_torch.core.planner import FleetPlan
 from repro_torch.core.router import GatewayRouter, RoutingDecision
 from repro_torch.core.workload import (OutputLenPredictor, Request,
                                        get_workload)
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.context import (SLICE_SUBMESH, later,
+                                             make_context)
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_submeshes
 from repro_torch.serving import reconfigure
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.engine import (InferenceEngine, ServeRequest,
-                                        ServeResult, check_slice)
+                                        ServeResult)
 from repro_torch.serving.tokenizer import ByteChunkTokenizer
 
 
@@ -98,7 +111,6 @@ class FleetRuntime:
             overrides = dict(overrides, c_chunk=c_chunk)
         if overrides:
             scfg = scfg.replace(**overrides)
-        check_slice(scfg)
         self.config = scfg
         k = len(boundaries) + 1
         if len(n_maxes) != k or len(c_maxes) != k:
@@ -109,6 +121,17 @@ class FleetRuntime:
                 raise ValueError(
                     f"pool {i} context {c_maxes[i]} < its boundary {b}: "
                     "compressed requests could overflow the KV cache")
+        # -- placement: one rank group of tp_degree ranks serves every pool
+        self.tp_degree = scfg.tp_degree
+        self.submesh, self.parallel = None, None
+        if scfg.mesh is not None:
+            subs = make_submeshes(scfg.mesh, scfg.tp_degree)
+            if len(subs) > 1:
+                raise later(f"a fleet over {len(subs)} tp={scfg.tp_degree} "
+                            f"submeshes of {scfg.mesh}", SLICE_SUBMESH)
+            self.submesh = subs[0]
+            self.parallel = make_context(self.submesh)
+            params = SH.rank_shard(params, self.parallel, cfg.vocab_size)
         self.cfg = cfg
         self.tokenizer = ByteChunkTokenizer(cfg.vocab_size)
         # per-category output-length model, fed by record_completion;
@@ -134,10 +157,11 @@ class FleetRuntime:
         names = pool_names(k)
         self.engines: Dict[str, InferenceEngine] = {
             names[i]: InferenceEngine(cfg, params, n_maxes[i], c_maxes[i],
-                                      config=scfg)
+                                      config=scfg.replace(mesh=self.submesh,
+                                                          tp_degree=1))
             for i in range(k)}
-        # the one parameter set on the device: engine rebuilds
-        # (reprovision, recover_pool) take it, never a second copy
+        # the one parameter set on the device (this rank's shard): engine
+        # rebuilds (reprovision, recover_pool) take it, never a second copy
         self.params = params
         self._decisions: Dict[int, RoutingDecision] = {}
         self._categories: Dict[int, str] = {}
@@ -154,6 +178,28 @@ class FleetRuntime:
         # boundaries (1.0 = native scale): the re-planner plans at
         # datacenter scale, where the hardware profiles are calibrated
         self.ctx_scale = 1.0
+
+    def device_placement(self) -> Dict[str, List[int]]:
+        """pool name -> the global ranks its engine spans (one rank on a
+        runtime without a mesh)."""
+        return {name: eng.devices() for name, eng in self.engines.items()}
+
+    def _route(self, r: Request, req: GatewayRequest):
+        """(routing decision, seconds left of the pool's blackout or
+        None): taken on rank 0 and received by the other ranks of a
+        sharded fleet, so every rank enqueues the same request on the
+        same pool (the compressor's kept sentences and the blackout clock
+        are rank 0's)."""
+        par = self.parallel
+        if par is None or par.rank == par.mesh.ranks[0]:
+            d = self.router.route(r, prompt_text=req.text,
+                                  session=req.session)
+            left = (self.pool_down_until[d.pool] - time.monotonic()
+                    if d.pool in self.pool_down_until else None)
+            out = (d, left)
+        else:
+            out = None
+        return out if par is None else par.broadcast_object(out)
 
     @classmethod
     def from_plan(cls, cfg: ModelConfig, params, plan: FleetPlan,
@@ -200,15 +246,13 @@ class FleetRuntime:
                     l_in=prompt_tokens, l_out=req.max_output_tokens,
                     category=req.category,
                     prompt_bytes=len(req.text.encode("utf-8")))
-        decision = self.router.route(r, prompt_text=req.text,
-                                     session=req.session)
-        if decision.pool in self.pool_down_until:
-            left = self.pool_down_until[decision.pool] - time.monotonic()
+        decision, left = self._route(r, req)
+        if left is not None:
             if left > 0:
                 # crash-recovery blackout: refuse with the wait a gateway
                 # maps to 503 + Retry-After
                 raise reconfigure.PoolDownError(decision.pool, left)
-            del self.pool_down_until[decision.pool]
+            self.pool_down_until.pop(decision.pool, None)
         text = decision.compressed_text if decision.compressed else req.text
         ids = self.tokenizer.encode(text)
         max_new = req.max_output_tokens

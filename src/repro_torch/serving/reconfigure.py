@@ -33,7 +33,11 @@ allocator, or wedges ``step()``; ``HealthPolicy`` detects the stall; and
 and re-routes them one pool up, where the no-OOM guarantee holds by
 construction (band_i requests fit pool i+1's larger context).
 
-Sharded re-provisioning (``tp=``) comes with the sharded-serving slice.
+A sharded fleet (one rank group, ``FleetRuntime(mesh=, tp_degree=)``)
+re-provisions and recovers at its tp over the same group: every rank
+runs the same steps, salvages and re-adopts its own shard's host rows,
+and rebuilds its part of the engine over its shard of the weights.
+``reprovision(tp=)`` to another degree comes with a later slice.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.context import SLICE_SUBMESH, later
 from repro_torch.serving.engine import (InferenceEngine, ServeRequest,
                                         _PreemptedState)
 
@@ -152,12 +157,12 @@ def reprovision(runtime, pool: str, *, n_max: Optional[int] = None,
     In-flight requests the new geometry cannot hold re-route one pool up
     (their band fits the larger pool by construction); shrinking the TOP
     pool below an in-flight request's footprint is refused up front,
-    before any state is touched. ``tp`` raises NotImplementedError, also
-    before any state is touched."""
-    if tp is not None:
-        raise NotImplementedError(
-            f"reprovision(tp={tp!r}) is not ported yet: it comes with the "
-            "sharded-serving slice of the PyTorch port")
+    before any state is touched. ``tp`` other than the fleet's own
+    degree raises NotImplementedError, also before any state is touched;
+    the fleet's own rebuilds at it."""
+    if tp is not None and int(tp) != runtime.tp_degree:
+        raise later(f"reprovision(tp={tp!r}) of a tp={runtime.tp_degree} "
+                    "fleet", SLICE_SUBMESH)
     names = list(runtime.engines)
     if pool not in runtime.engines:
         raise KeyError(f"unknown pool {pool!r} (have {names})")

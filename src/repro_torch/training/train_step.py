@@ -15,6 +15,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import SLICE_TRAIN
 from repro_torch.models import model as M
 from repro_torch.training import tree
 from repro_torch.training.optimizer import (AdamWConfig, AdamWState,
@@ -37,8 +38,8 @@ def _one_device(parallel) -> None:
     if parallel is not None:
         raise NotImplementedError(
             "a parallel context (data / tensor / sequence parallel "
-            "training) belongs to sharded serving and training, a later "
-            "slice of the port: parallel must be None")
+            "training) belongs to sharded training, a later slice of the "
+            f"port: parallel must be None (it comes with {SLICE_TRAIN})")
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict, parallel,

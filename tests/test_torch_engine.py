@@ -23,6 +23,8 @@ from repro.serving.engine import InferenceEngine as JaxEngine
 from repro.serving.engine import ServeRequest as JaxRequest
 from repro_torch import params as P
 from repro_torch.configs.base import get_config
+from repro_torch.distributed.context import ParallelContext
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import model as TM
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.engine import (InferenceEngine, ServeRequest,
@@ -201,20 +203,26 @@ def test_utilization_and_counters(models):
     assert eng.prefill_buckets_used <= set(prefill_buckets(16))
 
 
+_TP3 = Mesh(np.arange(3).reshape(1, 3), ("data", "model"))
+
+
 @pytest.mark.parametrize("knob", [
     dict(spec_k=4),
     dict(preemption=True), dict(max_queue_wait=8.0),
     dict(swap_threshold=16), dict(lout_routing=True),
-    dict(mesh=object()), dict(parallel=object()), dict(autoscale=True)],
+    dict(mesh=Mesh(np.array([[1]]), ("data", "model"))),
+    dict(parallel=ParallelContext(mesh=_TP3), mesh=_TP3),
+    dict(autoscale=True)],
     ids=lambda kw: next(iter(kw)))
 def test_later_slice_knobs_raise(models, knob):
-    """The sharded-serving knobs raise, naming their slice; the
-    speculation, overload, output-length and autoscale knobs, ported
-    since, serve a request."""
+    """The sharded-serving cases of later slices raise, naming their
+    slice: a mesh of other ranks than this process's (the disjoint
+    submeshes), and a tp degree the heads do not divide (the
+    sequence / block fallback); the speculation, overload, output-length
+    and autoscale knobs, ported since, serve a request."""
     _, _, tcfg, tp = models
     if next(iter(knob)) in ("mesh", "parallel"):
-        with pytest.raises(NotImplementedError,
-                           match="not ported.*sharded-serving slice"):
+        with pytest.raises(NotImplementedError, match="not ported.*slice"):
             InferenceEngine(tcfg, tp, 2, 64, config=ServingConfig(**knob))
         return
     eng = InferenceEngine(tcfg, tp, 2, 64, config=ServingConfig(**knob))

@@ -38,6 +38,7 @@ from repro_torch.core import compression as TC
 from repro_torch.core import planner as TP
 from repro_torch.core import router as TR
 from repro_torch.core import workload as TW
+from repro_torch.launch.mesh import make_smoke_mesh
 from repro_torch.serving import config as TSC
 from repro_torch.serving import pools as TPools
 from repro_torch.serving import tokenizer as TT
@@ -277,7 +278,8 @@ def test_fleet_rejects_later_slice_knobs():
     with pytest.raises(NotImplementedError,
                        match="not ported.*sharded-serving slice"):
         TPools.FleetRuntime(tcfg, {}, (64,), (1.5,), (1, 1), (64, 128),
-                            tp_degree=2, mesh=object())
+                            tp_degree=2,
+                            mesh=make_smoke_mesh(2, world=4))
 
 
 def test_port_imports_no_jax():
