@@ -516,6 +516,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
    decode ms a dispatch and a step, tp=4 beside tp=1 (four ranks
    time-sliced on one card measure correctness, not what tp=4 gives on
    four cards). Every rank's launches are added to the ``kernels`` line.
+19. expert parallelism: llama4-scout-17b-a16e bf16 at its published
+   widths, the depth cut from 48 to 6 layers (30.56 GB), at tp=4, four
+   rank processes on the one card (phase 18's group), each drawing its
+   shard (``init_params(parallel=)``: 4 of the 16 experts a layer, the
+   router and the shared expert whole) after the tp=1 references ran in
+   this process and were freed: each rank's weights exactly the sharded
+   leaves / 4 plus the replicated ones; peak device memory per rank.
+   (a) ``moe.moe_block_sharded`` alone on layer 0, a2a at 4 x 1024 and
+   psum at T = 4, and deepseek-v2-236b's MoE block at its published
+   widths (160 experts of 1536, top-6, 2 shared; each rank drawing its
+   40) at the same two shapes (run first, before scout's weights): at
+   capacity_factor 8.0 no pair dropped and the output within ``TOL`` of
+   max|y| of ``moe_block`` at tp=1 on the same input (tokens whose router
+   top-k probabilities nearly tie, under P19_TIE, left out); at 1.25 the
+   pairs dropped among those routed to each rank's experts; ms a call
+   (host clock, the device synchronised) beside a rank's bytes and
+   operations floors. (b) the batch launcher at ``--mesh 1x4`` and
+   ``2x2`` (4 x 256 + 8 decode steps) on the capacity-8.0 copy, every
+   rank taking the tp=1 run's routing (``_route_log(sharded=)``: a rank
+   logs the tokens it routes, its sequence slice under a2a), held to the tp=1
+   run by the drift and near-tie rule and each own routing decision
+   that differs by phase 13's routing rule; 6 x 8 gqa_decode launches on
+   every rank, held live. (c) phase 13 (c)'s requests and contexts on
+   the K=2 fleet at tp=4 with window 0, twice: dense (the fused chunk:
+   a2a; ``decode_step``: psum), the long pool reprovisioned to c_max
+   6144 after 3 rounds; then paged (``paged_prefill_chunk``: a2a;
+   ``paged_decode_step``: psum). Each: every request completes, the
+   same tokens on every rank, TextRank on rank 0 only, 6 launches of the
+   layout's decode kernel a decode step on every rank at 2 kv heads,
+   q_per_kv 5 and head_dim 128 (none of the other), each shape's first
+   launch held on its live inputs.
+   (d) reduced scout f32 at capacity 8.0 (one expert a rank), the card
+   at tp=4 and the CPU at tp=4 against the CPU at tp=1: the engine's
+   tokens equal, the forward's logits within 1e-5 of max. Times are
+   reported, not gated (four ranks time-slice one card). Every rank's
+   launches are added to the ``kernels`` line.
 
 Then it prints the ``kernels`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -4891,7 +4927,7 @@ P13_CPU_GAP = 1e-5            # (d): a routing flip's CPU top-2 prob gap
 
 
 @contextlib.contextmanager
-def _route_log(log, key, replay=None):
+def _route_log(log, key, replay=None, sharded=None):
     """Log the routing of every token the MoE routes inside
     ``decode_step``, ``paged_decode_step``, ``prefill`` and ``forward``
     (a chunk's tokens are not logged): ``log[key(row, b, pos)]`` is a
@@ -4908,7 +4944,11 @@ def _route_log(log, key, replay=None):
     renormalised as ``moe.route`` does), while ``log`` keeps its own
     decisions: the two runs then route alike and differ only in the
     path they are compared on. A replaying run reads each call's keys on
-    the host (a sync a call)."""
+    the host (a sync a call). With ``sharded`` (a rank of an
+    expert-parallel run: its first row in the global batch), ``b`` is the
+    global row and a call logs the tokens this rank routes in
+    ``moe_block_sharded``: under "a2a" its slice of the sequence, under
+    "psum" every token."""
     import functools
     import inspect
     import torch
@@ -4916,17 +4956,30 @@ def _route_log(log, key, replay=None):
     from repro_torch.models import moe
     from repro_torch.serving.engine import InferenceEngine
     route, step = moe.route, InferenceEngine.step
+    block = moe.moe_block_sharded
     fns = {n: getattr(M, n) for n in ("decode_step", "paged_decode_step",
                                       "prefill", "forward")}
     ctx, cur, raw = [None], [None], []
+    row0 = sharded or 0
 
-    def keys_of(meta):
+    def keys_of(meta, n=None, lo=0):
+        """The keys of a call's tokens; ``n`` / ``lo``: of the sequence
+        slice [lo, lo + n) alone."""
         if meta[0] == "step":
             _, pos, act, rows = meta
-            return [key(rows[i], i, p) if a else None for i, (p, a) in
-                    enumerate(zip(pos.tolist(), act.tolist()))]
+            return [key(rows[i], row0 + i, p) if a else None for i, (p, a)
+                    in enumerate(zip(pos.tolist(), act.tolist()))]
         _, nb, ns = meta
-        return [key(None, i // ns, i % ns) for i in range(nb * ns)]
+        n = n or ns
+        return [key(None, row0 + i // n, lo + i % n) for i in range(nb * n)]
+
+    def sharded_block(p, cfg, x, par, mode="a2a"):
+        s = x.shape[1]
+        if ctx[0] is not None:
+            n = s // par.tp if mode == "a2a" and s % par.tp == 0 else s
+            lo = par.model_rank * n if n < s else 0
+            ctx[0] = ctx[0][:2] + (keys_of(ctx[0][0], n, lo),)
+        return block(p, cfg, x, par, mode)
 
     def logged_route(router, cfg, tokens):
         probs, gate, eidx = route(router, cfg, tokens)
@@ -4967,7 +5020,8 @@ def _route_log(log, key, replay=None):
                 meta = ("step", pos, act, rows)
             else:
                 meta = ("seq",) + tuple(b["batch"]["tokens"].shape)
-            ctx[0] = (meta, [], keys_of(meta) if replay else None)
+            ctx[0] = (meta, [], keys_of(meta) if replay and sharded is None
+                      else None)
             try:
                 return fn(*a, **kw)
             finally:
@@ -4983,12 +5037,15 @@ def _route_log(log, key, replay=None):
         finally:
             cur[0] = None
     moe.route, InferenceEngine.step = logged_route, stepping
+    if sharded is not None:
+        moe.moe_block_sharded = sharded_block
     for n, fn in fns.items():
         setattr(M, n, wrap(n, fn))
     try:
         yield
     finally:
         moe.route, InferenceEngine.step = route, step
+        moe.moe_block_sharded = block
         for n, fn in fns.items():
             setattr(M, n, fn)
     for meta, keys, recs in raw:
@@ -5005,6 +5062,12 @@ def _engine_key(row, b, pos):
     (pos >= the prompt's length: the engine's decode at len(prompt) + j
     emits token j), None elsewhere."""
     return (row[0], pos) if row is not None and pos >= row[1] else None
+
+
+def _batch_key(row, b, pos):
+    """_route_log's key in the batch launcher: (row, pos); position pos
+    computes token pos - prompt + 1."""
+    return b, pos
 
 
 def _route_flips(plain, path, j_of, until, what, tie=None):
@@ -7946,6 +8009,508 @@ def phase_tp(smi):
     return launches
 
 
+# ---------------------------------------------------------------- phase 19
+P19_TP = 4                    # ranks of the group, all on the one card
+P19_TIMEOUT_S = 900           # the group's collective timeout
+P19_LAYERS = 6                # of 48: 30.56 GB of bf16 weights, 8.77 GB a rank
+P19_NO_DROP = 8.0             # capacity_factor at which neither degree drops
+P19_BLOCK = ((4, 1024, "a2a"), (4, 1, "psum"))   # (a): batch, tokens, mode
+P19_TIE = 1e-6                # (a): a token whose router top-k boundary gap
+                              # (probabilities) is below this is not compared
+P19_DEEPSEEK = "deepseek-v2-236b"
+P19_BATCH = (4, 256, 9)       # (b): batch, prompt, new tokens
+
+
+def _p19_configs():
+    """llama4-scout at its published widths with the depth cut to
+    P19_LAYERS, and its copy at capacity_factor P19_NO_DROP, registered
+    so the batch launcher's ``--arch`` finds them (in every rank too)."""
+    from repro_torch.configs import base
+    cfg = dataclasses.replace(base.get_config(P13_ARCH),
+                              num_layers=P19_LAYERS,
+                              name=f"{P13_ARCH}-{P19_LAYERS}-layers")
+    nd = dataclasses.replace(cfg, name=f"{cfg.name}-no-drop",
+                             moe=dataclasses.replace(
+                                 cfg.moe, capacity_factor=P19_NO_DROP))
+    return base.register(cfg), base.register(nd)
+
+
+def _p19_deepseek(cf):
+    """deepseek-v2-236b's published config at capacity_factor ``cf`` (its
+    MoE block alone is run: 160 experts of 1536, top-6, 2 shared)."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(P19_DEEPSEEK)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf))
+
+
+def _p19_reduced():
+    """Reduced f32 llama4-scout (4 / 4 heads of 64, 4 experts, window 64)
+    at capacity_factor P19_NO_DROP: each of the 4 ranks one kv head and
+    one expert."""
+    from repro_torch.configs.base import get_config
+    cfg = dataclasses.replace(get_config(P13_ARCH).reduced(),
+                              dtype="float32")
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=P19_NO_DROP))
+
+
+def _p19_ds_layer(cfg, ctx=None):
+    """One deepseek MoE layer from a seed (``init_moe``), whole or this
+    rank's block of experts (drawing every expert, keeping its own)."""
+    import torch
+    from repro_torch.models import layers, moe
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(19)
+
+    def part(name, shape):
+        if ctx is None or name not in ("w_gate", "w_up", "w_down"):
+            return None
+        return (1, ctx.model_rank, ctx.tp)
+    p = moe.init_moe(gen, cfg, 1, layers.torch_dtype(cfg.dtype), DEVICE,
+                     part)
+    return {k: ({n: w[0] for n, w in v.items()} if isinstance(v, dict)
+                else v[0]) for k, v in p.items()}
+
+
+def _p19_ms(fn, iters: int = 4) -> float:
+    """Host milliseconds a call of ``fn`` over ``iters`` calls after one,
+    the device synchronised around them (a rank's call waits on its
+    peers at each exchange, so CUDA events around queued calls would time
+    the host's handshakes too)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def _p19_split(lp):
+    """(the expert leaves' bytes, the router's and shared experts')."""
+    experts = sum(_nbytes(lp[n]) for n in ("w_gate", "w_up", "w_down"))
+    return experts, _nbytes(lp) - experts
+
+
+def _p19_x(cfg, b, s):
+    """(a)'s input, the same in every process: N(0, 1) from a seed, in
+    the model dtype."""
+    import torch
+    from repro_torch.models import layers
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(190 + s)
+    return torch.randn((b, s, cfg.d_model), generator=gen,
+                       device=DEVICE).to(layers.torch_dtype(cfg.dtype))
+
+
+def _p19_gap(router, cfg, x):
+    """Each token's router probability gap at its top-k boundary (the
+    k-th largest less the (k+1)-th): a routing decision two valid
+    roundings may take either way when it is tiny."""
+    import torch
+    from repro_torch.models import moe
+    probs = moe.route(router, cfg, x.reshape(-1, cfg.d_model))[0]
+    top = torch.topk(probs, cfg.moe.top_k + 1).values
+    return top[:, -2] - top[:, -1]
+
+
+def _p19_block_ref(lp, cfg, nd):
+    """(a) at tp=1 on one layer's MoE leaves ``lp``: each P19_BLOCK
+    input's no-drop output (``nd``) and router gaps on the CPU, the drops
+    and the ms a call at ``cfg``'s capacity."""
+    from repro_torch.models import moe
+    out = {}
+    for b, s, _ in P19_BLOCK:
+        x = _p19_x(cfg, b, s)
+        y, aux = moe.moe_block(lp, nd, x)
+        if aux["dropped"].any():
+            fail(f"(a) tp=1 {cfg.name} T={b * s}: drops at capacity_factor "
+                 f"{P19_NO_DROP}")
+        _, aux = moe.moe_block(lp, cfg, x)
+        out[(b, s)] = dict(y=y.cpu(), gap=_p19_gap(lp["router"], cfg,
+                                                   x).cpu(),
+                           drops=int(aux["dropped"].sum()),
+                           ms=_p19_ms(lambda: moe.moe_block(lp, cfg, x)))
+    return out
+
+
+def _p19_block_rank(lp, cfg, nd, ctx, keep):
+    """(a) on this rank: moe_block_sharded of each P19_BLOCK input in its
+    mode on the rank's experts ``lp``; the no-drop output (rank 0 keeps
+    it), the pairs dropped at ``cfg``'s capacity among those routed to
+    the rank's experts, the ms a call and the call's floors on this
+    rank."""
+    import torch
+    from repro_torch.models import moe
+    mc = cfg.moe
+    e_loc = mc.num_experts // ctx.tp
+    out = {}
+    for b, s, mode in P19_BLOCK:
+        x = _p19_x(cfg, b, s)
+        y, aux = moe.moe_block_sharded(lp, nd, x, ctx, mode)
+        if aux["dropped"].any():
+            fail(f"(a) rank {ctx.rank} {cfg.name} T={b * s} {mode}: drops "
+                 f"at capacity_factor {P19_NO_DROP}")
+        _, aux = moe.moe_block_sharded(lp, cfg, x, ctx, mode)
+        eidx = moe.route(lp["router"], cfg, x.reshape(-1, cfg.d_model))[2]
+        mine = eidx.reshape(-1) // e_loc == ctx.model_rank
+        ms = _p19_ms(lambda: moe.moe_block_sharded(lp, cfg, x, ctx, mode))
+        t = b * s
+        local = t // ctx.tp if mode == "a2a" and s % ctx.tp == 0 else t
+        if mode == "a2a" and s % ctx.tp == 0:
+            rows = e_loc * moe.capacities(cfg, local, ctx.tp)[1]
+        else:
+            rows = e_loc * moe.psum_capacity(cfg, t, ctx.tp)
+        f = mc.expert_d_ff or cfg.d_ff
+        flops = (2 * local * cfg.d_model * mc.num_experts
+                 + 6 * cfg.d_model * f * (rows + local
+                                          * mc.num_shared_experts))
+        nbytes = _nbytes(lp) + 2 * x.numel() * x.element_size()
+        out[(b, s)] = dict(
+            y=y.cpu() if keep else None, mode=mode, ms=ms,
+            drops=int((aux["dropped"] & mine).sum()),
+            routed=int(mine.sum()), bytes_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+            ops_ms=1e3 * flops / PEAK_OPS["bfloat16"])
+    torch.cuda.empty_cache()
+    return out
+
+
+def _p19_rank(rank, device, replay):
+    """One rank of phase 19: (a)-(d) on this rank's shard (module
+    docstring). Rank 0 returns the outputs the parent compares."""
+    import torch
+    from repro_torch.distributed import context as PC
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_smoke_mesh, parse_mesh
+    from repro_torch.models import model as M
+    from repro_torch.training import tree
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = PC.make_context(make_smoke_mesh(P19_TP))
+    cfg, nd = _p19_configs()
+    out, parts, launches = {"rank": rank}, {}, {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    t0 = time.perf_counter()
+    # (a) deepseek-v2's block first, alone on the card
+    lp = _p19_ds_layer(_p19_deepseek(P19_NO_DROP), ctx)
+    out["ds_bytes"] = _nbytes(lp)
+    out["ds"] = _p19_block_rank(lp, _p19_deepseek(1.25),
+                                _p19_deepseek(P19_NO_DROP), ctx, rank == 0)
+    del lp
+    torch.cuda.empty_cache()
+    parts["(a) deepseek"] = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device=device, parallel=ctx)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - parts["(a) deepseek"]
+    out["param_bytes"] = _nbytes(params)
+    out["a"] = _p19_block_rank(M._unstack(params["layers"]["moe"])[0], cfg,
+                               nd, ctx, rank == 0)
+    parts["(a)"] = time.perf_counter()
+    # (c) the C&R fleet: dense with the long pool reprovisioned
+    # mid-stream, then paged (the paged chunk, a2a; paged decode, psum)
+    out["c"] = {}
+    for paged in (False, True):
+        calls, held = {}, {}
+        event = None if paged else _P18Reprovision()
+        with _step_calls(calls), _live_kernel_hold(held):
+            run = _p9_serve(dataclasses.replace(cfg, attention_window=0),
+                            params, paged, None, event=event,
+                            reqs=_p13_requests, new=P13_NEW,
+                            long_ctx=P13_LONG_CTX, c_chunk=P13_C_CHUNK,
+                            mesh=ctx.mesh, tp_degree=P19_TP)
+        add(run["counts"])
+        if event is not None and (event.info is None
+                                  or not event.info["migrated"]):
+            fail(f"(c) rank {rank}: the reprovision moved nothing: "
+                 f"{event.info}")
+        out["c"][paged] = dict(
+            tokens=run["tokens"], counts=run["counts"], calls=calls,
+            held=held, info=event and event.info, secs=run["secs"],
+            rounds=run["rounds"])
+    parts["(c)"] = time.perf_counter()
+    # (b) the batch launcher at --mesh 1x4, then 2x2 (its own 2-way shard)
+    out["b"] = {}
+    b_rows = P19_BATCH[0]
+    for m in ("1x4", "2x2"):
+        bctx = PC.make_context(parse_mesh(m))
+        args = batch_args(nd.name, P19_BATCH)
+        args.mesh = m
+        dp = bctx.mesh.size // bctx.tp
+        row0 = bctx.data_rank * (b_rows // dp) if b_rows % dp == 0 else 0
+        log, held_b = {}, {}
+        _reset_launches()
+        with _route_log(log, _batch_key, replay, sharded=row0), \
+                _live_kernel_hold(held_b):
+            run = serve.serve_batch(args, params=params if m == "1x4"
+                                    else None, parallel=bctx, device=device)
+        counts = _launch_counts(("gqa_decode",), f"(b) --mesh {m}")
+        add(counts)
+        if counts["gqa_decode"] != cfg.num_layers * (P19_BATCH[2] - 1):
+            fail(f"(b) --mesh {m} rank {rank}: launches {counts}")
+        keep = bctx.model_rank == 0
+        out["b"][m] = dict(counts=counts, data_rank=run.data_rank,
+                           prefill_ms=run.prefill_ms, held=held_b,
+                           decode_tok_s=run.decode_tok_s, routes=log,
+                           run=dataclasses.replace(
+                               run, cache={}).to_cpu() if keep else None)
+        del run
+        if m == "1x4":
+            del params
+        torch.cuda.empty_cache()
+    parts["(b)"] = time.perf_counter()
+    # (d) reduced f32 at tp=4: the card against the CPU
+    rcfg = _p19_reduced()
+    cpu = M.init_params(rcfg, seed=0, device="cpu", parallel=ctx)
+    out["d"] = {"cuda": _p18_reduced_runs(
+        tree.map(lambda a: a.to(device), cpu), rcfg, device, ctx),
+        "cpu": _p18_reduced_runs(cpu, rcfg, "cpu", ctx)}
+    parts["(d)"] = time.perf_counter()
+    out["launches"] = launches
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["parts"] = {k: v - t0 for k, v in parts.items()}
+    return out
+
+
+def _p19_tp1(cfg, nd):
+    """The tp=1 references in this process, each model freed after: (a)
+    scout's and deepseek's blocks, (b) the batch launcher with its
+    routing logged, (d) the reduced CPU run."""
+    import torch
+    from repro_torch.models import model as M
+    params = M.init_params(cfg, seed=0, device=DEVICE)
+    ref = {"bytes": _nbytes(params)}
+    lp = M._unstack(params["layers"]["moe"])[0]
+    ref["moe_bytes"] = _nbytes(lp)
+    ref["a"] = _p19_block_ref(lp, cfg, nd)
+    del lp
+    log = {}
+    with _route_log(log, _batch_key):
+        run, counts = _serve_batch(batch_args(nd.name, P19_BATCH), params,
+                                   need=("gqa_decode",))
+    ref["b"] = dict(run=dataclasses.replace(run, cache={}).to_cpu(),
+                    routes=log, counts=counts)
+    del run, params
+    torch.cuda.empty_cache()
+    ds = _p19_deepseek(1.25)
+    lp = _p19_ds_layer(ds)
+    ref["ds_bytes"] = _nbytes(lp)
+    ref["ds_split"] = _p19_split(lp)
+    ref["ds"] = _p19_block_ref(lp, ds, _p19_deepseek(P19_NO_DROP))
+    del lp
+    torch.cuda.empty_cache()
+    rcfg = _p19_reduced()
+    ref["d"] = _p18_reduced_runs(M.init_params(rcfg, seed=0, device="cpu"),
+                                 rcfg, "cpu", None)
+    return ref
+
+
+def _p19_report_a(res, ref, what, cfg, tp1_bytes, smi):
+    """(a): the no-drop outputs against tp=1 away from router near-ties,
+    the drops a rank at the default capacity, ms a call beside the
+    floors."""
+    e_loc = cfg.moe.num_experts // P19_TP
+    for b, s, mode in P19_BLOCK:
+        r0 = res[0][what][(b, s)]
+        want = ref[what][(b, s)]
+        sure = want["gap"] >= P19_TIE
+        y, y1 = r0["y"].float(), want["y"].float()
+        top = float(y1.abs().max())
+        err = float((y - y1).reshape(-1, cfg.d_model)[sure].abs().max())
+        if err > TOL["bfloat16"] * top:
+            fail(f"(a) {cfg.name} T={b * s} {mode}: tp={P19_TP} vs tp=1 "
+                 f"{err / top:.3e} of max|y| (limit {TOL['bfloat16']})")
+        rows = [r[what][(b, s)] for r in res]
+        print(f"[ep] (a) {cfg.name} MoE block at its published widths "
+              f"({cfg.moe.num_experts} experts of "
+              f"{cfg.moe.expert_d_ff or cfg.d_ff}, top-{cfg.moe.top_k}, "
+              f"{cfg.moe.num_shared_experts} shared), T={b * s} ({b} x {s}), "
+              f"{mode} at tp={P19_TP} ({e_loc} experts a rank): at "
+              f"capacity_factor {P19_NO_DROP} no drop, y within "
+              f"{err / top:.3e} of max|y| of tp=1's over "
+              f"{int(sure.sum())} of {b * s} tokens ({int((~sure).sum())} "
+              f"router near-ties under {P19_TIE} left out); at "
+              f"{cfg.moe.capacity_factor}: pairs dropped / routed to each "
+              f"rank's experts {[(r['drops'], r['routed']) for r in rows]} "
+              f"(tp=1: {want['drops']} dropped); ms a call by rank "
+              f"{[round(r['ms'], 4) for r in rows]} against a rank's "
+              f"floors: bytes {rows[0]['bytes_ms']:.4f} ms (its "
+              f"{e_loc} experts, the router, the shared experts, x and y), "
+              f"operations {rows[0]['ops_ms']:.4f} ms (its capacity "
+              f"buffers); tp=1 {want['ms']:.4f} ms against "
+              f"{1e3 * tp1_bytes / HBM_BYTES_PER_S:.4f} ms of the layer's "
+              f"MoE weight bytes at 3.35 TB/s "
+              f"({smi}; {P19_TP} ranks time-sliced on one card: "
+              f"correctness, not tp={P19_TP} on {P19_TP} cards)")
+
+
+def _p19_batch_rows(res, m):
+    from repro_torch.launch import serve
+    return serve._gather_rows([r["b"][m]["run"] for r in res
+                               if r["b"][m]["run"] is not None])
+
+
+def phase_ep(smi):
+    """Phase 19: expert parallelism, llama4-scout at tp=4 over one rank
+    group (module docstring). Returns the launches of every rank,
+    summed."""
+    import torch
+    from repro_torch.distributed import context as PC
+    t0 = time.perf_counter()
+    cfg, nd = _p19_configs()
+    want_bytes, sharded, repl = _p18_shard_bytes(cfg, P19_TP)
+    ref = _p19_tp1(cfg, nd)
+    t_ref = time.perf_counter()
+    held_at_start = torch.cuda.memory_allocated()
+    res = PC.launch_ranks(_p19_rank, P19_TP, (ref["b"]["routes"],),
+                          device=DEVICE, timeout_s=P19_TIMEOUT_S)
+    t_ranks = time.perf_counter()
+    r0, r3 = res[0], res[-1]
+    gb = 1e9
+    for r in res:
+        if r["param_bytes"] != want_bytes:
+            fail(f"rank {r['rank']}: {r['param_bytes']} B of weights, want "
+                 f"{want_bytes} (sharded {sharded} / {P19_TP} + replicated "
+                 f"{repl})")
+        experts, rest = ref["ds_split"]
+        if r["ds_bytes"] != experts // P19_TP + rest:
+            fail(f"(a) rank {r['rank']}: {r['ds_bytes']} B of deepseek MoE "
+                 f"weights, want {experts} / {P19_TP} + {rest}")
+    print(f"[ep] {cfg.name} {cfg.dtype} at tp={P19_TP}, {P19_TP} ranks on "
+          f"one card (deepseek's MoE layer: {r0['ds_bytes'] / gb:.4f} GB a "
+          f"rank, {ref['ds_bytes'] / gb:.4f} GB whole): each rank's weights "
+          f"{want_bytes / gb:.4f} GB (the "
+          f"sharded {sharded / gb:.4f} GB / {P19_TP} + the replicated "
+          f"{repl / gb:.4f} GB: router, shared expert, norms), exact on "
+          f"every rank; tp=1 {ref['bytes'] / gb:.4f} GB; peak device "
+          f"memory per rank {[round(r['peak'] / 2**30, 2) for r in res]} "
+          f"GiB; init {[round(r['init_s'], 2) for r in res]} s ({smi})")
+    # (a) the blocks
+    _p19_report_a(res, ref, "a", cfg, ref["moe_bytes"], smi)
+    _p19_report_a(res, ref, "ds", _p19_deepseek(1.25), ref["ds_bytes"], smi)
+    # (b) the batch launcher, each mesh against tp=1
+    want = ref["b"]["run"]
+    want_toks, want_log = _run_log(want)
+    p = P19_BATCH[1]
+    for m in ("1x4", "2x2"):
+        got = _p19_batch_rows(res, m)
+        toks, log = _run_log(got)
+        routes = {}
+        for r in res:
+            for k, v in r["b"][m]["routes"].items():
+                routes.setdefault(k, v)
+        if routes.keys() != ref["b"]["routes"].keys() or any(
+                len(v) != cfg.num_layers for v in routes.values()):
+            fail(f"(b) --mesh {m}: the ranks logged the routing of "
+                 f"{len(routes)} tokens, tp=1 {len(ref['b']['routes'])}")
+        until = {b: next((j for j, (a, c) in enumerate(zip(t, toks[b]))
+                          if a != c), len(t)) for b, t in want_toks.items()}
+        rflips, noise = _route_flips(
+            routes, ref["b"]["routes"], lambda k: (k[0], k[1] - (p - 1)),
+            until, f"(b) --mesh {m}: tp's own routing vs tp=1's")
+        flips = _bf16_flips(want_log, log, want_toks, toks,
+                            f"(b) --mesh {m} vs 1x1", tag="ep")
+        b0 = r0["b"][m]
+        held = sorted({k[1] for r in res for k in r["b"][m]["held"]})
+        worst = max(e / mx for r in res for e, mx in
+                    r["b"][m]["held"].values())
+        print(f"[ep] (b) batch launcher --mesh {m}, {P19_BATCH[0]} x {p} + "
+              f"{P19_BATCH[2] - 1} decode steps, capacity_factor "
+              f"{P19_NO_DROP}: prefill {b0['prefill_ms']:.2f} ms, decode "
+              f"{1e3 * P19_BATCH[0] / b0['decode_tok_s']:.2f} ms a step "
+              f"(rank 0); 1x1 {want.prefill_ms:.2f} ms, "
+              f"{1e3 * P19_BATCH[0] / want.decode_tok_s:.2f} ms a step; "
+              f"tp on tp=1's routing: {flips} near-tie divergences, "
+              f"{rflips} routing decisions of its own differ (each a "
+              f"near-tie; largest top router logit difference where they "
+              f"route alike {noise:.4f}); gqa_decode {cfg.num_layers} x "
+              f"{P19_BATCH[2] - 1} on every rank, held live at (B, S) "
+              f"{held}, worst {worst:.3e} of max|plain| ({smi})")
+        del got, log
+    # (c) the fleet, dense then paged
+    tr = [sum(r["c"][pg]["counts"]["textrank"] for pg in (False, True))
+          for r in res]
+    if tr[0] < 2 * len(P13_INBAND) or any(tr[1:]):
+        fail(f"(c) TextRank launches by rank {tr}: want at least "
+             f"{2 * len(P13_INBAND)} on rank 0 alone")
+    for paged, kname, other, step in (
+            (False, "gqa_decode", "paged_decode", "decode_step"),
+            (True, "paged_decode", "gqa_decode", "paged_decode_step")):
+        c0 = r0["c"][paged]
+        for r in res:
+            c = r["c"][paged]
+            if c["tokens"] != c0["tokens"]:
+                fail(f"(c) paged={paged}: rank {r['rank']}'s tokens differ "
+                     "from rank 0's")
+            n, steps = c["counts"][kname], c["calls"].get(step, 0)
+            if n == 0 or n != cfg.num_layers * steps:
+                fail(f"(c) rank {r['rank']} paged={paged}: {kname} launched "
+                     f"{n} times over {steps} {step} calls, want "
+                     f"{cfg.num_layers} a step")
+            if c["counts"][other]:
+                fail(f"(c) rank {r['rank']} paged={paged}: the fleet "
+                     f"launched {other}")
+            if not any(k[0] == kname for k in c["held"]):
+                fail(f"(c) rank {r['rank']} paged={paged}: no live hold of "
+                     f"{kname}")
+        worst = max(e / mx for r in res for e, mx in
+                    r["c"][paged]["held"].values())
+        moved = (f"the long pool reprovisioned to {P9_LONG_TO} at round "
+                 f"{P9_EVENT_ROUND} ({c0['info']['migrated']} migrated)"
+                 if c0["info"] else "no reprovision")
+        print(f"[ep] (c) llama4-scout {cfg.num_layers} layers, phase 13 "
+              f"(c)'s K=2 fleet paged={paged} (contexts "
+              f"{P13_LONG_CTX // 8} / {P13_LONG_CTX}, c_chunk {P13_C_CHUNK}, "
+              f"window 0: the {'paged' if paged else 'fused'} chunk, a2a; "
+              f"{step}, psum; decode_k 4) at tp={P19_TP}, {moved}: every "
+              f"request completes ({len(c0['tokens'])}, {c0['rounds']} "
+              f"rounds, {c0['secs']:.2f} s), the same tokens on every rank; "
+              f"{kname} launches by rank "
+              f"{[r['c'][paged]['counts'][kname] for r in res]} = "
+              f"{cfg.num_layers} a decode step ({c0['calls'].get(step)} "
+              f"steps) on {cfg.num_kv_heads // P19_TP} kv heads, q_per_kv "
+              f"{cfg.num_heads // cfg.num_kv_heads}, head_dim "
+              f"{cfg.resolved_head_dim}; held live at "
+              f"{sorted({k[1] for k in c0['held']})} on every rank, worst "
+              f"{worst:.3e} of max|plain| ({smi})")
+    print(f"[ep] (c) TextRank launches by rank over both fleets {tr}")
+    # (d) reduced f32: card tp=4, CPU tp=4, CPU tp=1
+    lg1, tok1 = ref["d"]
+    top = float(lg1.abs().max())
+    errs = []
+    for r in res:
+        for where in ("cuda", "cpu"):
+            lg, toks = r["d"][where]
+            err = float((lg - lg1).abs().max())
+            errs.append(err / top)
+            if toks != tok1 or err > 1e-5 * top:
+                fail(f"(d) rank {r['rank']} {where} tp={P19_TP}: tokens "
+                     f"{'equal' if toks == tok1 else 'differ'}, logits "
+                     f"{err / top:.3e} of max from CPU tp=1 (limit 1e-05)")
+    print(f"[ep] (d) reduced llama4-scout f32 (4 experts, one a rank; "
+          f"capacity_factor {P19_NO_DROP}): the card at tp={P19_TP} and the "
+          f"CPU at tp={P19_TP} against the CPU at tp=1: tokens equal, "
+          f"logits within {max(errs):.3e} of max (limit 1e-05)")
+    launches = {}
+    for r in res:
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    p = r0["parts"]
+    print(f"[ep] phase 19: {time.perf_counter() - t0:.1f} s (tp=1 references "
+          f"{t_ref - t0:.1f}, ranks {t_ranks - t_ref:.1f}: (a) deepseek "
+          f"{p['(a) deepseek']:.1f}, init {r0['init_s']:.1f}, (a) "
+          f"{p['(a)'] - p['(a) deepseek']:.1f}, (c) "
+          f"{p['(c)'] - p['(a)']:.1f}, (b) {p['(b)'] - p['(c)']:.1f}, (d) "
+          f"{p['(d)'] - p['(b)']:.1f}); device memory held at the spawn "
+          f"{held_at_start / 2**30:.2f} GiB; launches of the {P19_TP} "
+          f"ranks {launches} ({smi})")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -7992,6 +8557,8 @@ def main() -> int:
     for name, n in phase_mla(smi).items():
         launches[name] += n
     for name, n in phase_tp(smi).items():
+        launches[name] += n
+    for name, n in phase_ep(smi).items():
         launches[name] += n
     sources = {"gqa_decode": ("src/repro_torch/kernels/csrc/gqa_decode.cu",
                               "src/repro/kernels/gqa_decode.py:29"),

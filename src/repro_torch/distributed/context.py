@@ -57,8 +57,6 @@ from repro_torch.launch.mesh import Mesh
 SLICE_SUBMESH = ("the disjoint-submesh sharded-serving slice (pools on "
                  "submeshes of their own, readbacks broadcast past each "
                  "submesh, reprovision(tp=) to another degree)")
-SLICE_EP = ("the expert-parallel slice (moe_block_sharded, "
-            "moe_block_psum)")
 SLICE_FAMILIES = ("the sharded-families slice (the non-dense families and "
                   "the sequence / block fallback under a mesh)")
 SLICE_HTTP = "the sharded-HTTP slice (--http at tp > 1)"
@@ -441,6 +439,51 @@ class ParallelContext:
         out = torch.cat(ring.parts(t), dim=dim)
         ring.finish()
         return out
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """The model axis' exchange of ``t``'s leading (tp) slots, as
+        ``jax.lax.all_to_all(t, axis, 0, 0, tiled=False)``: this rank (r)
+        sends ``t[j]`` to model rank j and receives rank j's ``t[r]`` into
+        slot j. Through the ring every rank writes its whole ``t`` once
+        and reads slot r of each peer's; under NCCL,
+        ``all_to_all_single`` (raw bytes: exact for every dtype)."""
+        if self.tp == 1:
+            return t
+        if t.shape[0] != self.tp:
+            raise ValueError(f"all_to_all of a {tuple(t.shape)} tensor: "
+                             f"its leading dim must be tp={self.tp}")
+        ring = self._ring(t)
+        if ring is None:
+            raw = t.contiguous().view(torch.uint8)
+            out = torch.empty_like(raw)
+            dist.all_to_all_single(out, raw, group=self.group)
+            return out.view(t.dtype)
+        parts = ring.parts(t)
+        r = self.model_rank
+        out = torch.stack([p[r] for p in parts])
+        ring.finish()
+        return out
+
+    def mean_all(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean of ``t`` over every rank of the mesh, each axis of
+        ``all_axes`` in turn (the reference's ``pmean`` over each), the
+        same bits on every rank."""
+        if self.mesh.size == 1:
+            return t
+        ranks = self.mesh.ranks           # the mesh's ranks, row-major
+        if self.backend == "nccl":
+            every = [torch.empty_like(t) for _ in ranks]
+            dist.all_gather(every, t.contiguous())
+            parts = [every[r] for r in ranks]
+        else:
+            ring = _exchange("tensors", ranks, None, t.device)
+            parts = [p.clone() for p in ring.parts(t)]
+            ring.finish()
+        grid = torch.stack(parts).reshape(*self.mesh.devices.shape, *t.shape)
+        for ax in self.all_axes:
+            grid = grid.mean(dim=self.mesh.axis_names.index(ax),
+                             keepdim=True)
+        return grid.reshape(t.shape)
 
     def gather_object(self, obj: Any) -> List[Any]:
         """Every mesh rank's ``obj``, in rank order (the mesh is the whole

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import math
 from typing import Any, Dict, Optional
 
@@ -60,26 +61,29 @@ def dense_init(gen: torch.Generator, shape, dtype, device,
     """N(0, (scale / sqrt(in_dim))^2) weights of ``shape`` = (..., in,
     out), drawn in f32 and cast, one leading index at a time so a
     stacked full-width weight never exists in f32 as a whole. ``part``
-    = (dim, index, parts), dim one of the last two: keep only that part
-    of each (in, out) draw (a rank's shard), drawing exactly what the
-    whole weight draws."""
+    = (dim, index, parts): keep only that part of the weight (a rank's
+    shard), drawing exactly what the whole weight draws: of each (in,
+    out) draw where dim is one of the last two; the draws of its
+    ``index``-th block of leading indices where dim leads (an expert
+    dim: the others are drawn and dropped, one at a time)."""
     std = scale / math.sqrt(shape[-2])
     local = list(shape)
     if part is not None:
         dim, index, parts = part
-        assert dim >= len(shape) - 2, "a shard of a lead (layer) dim"
         local[dim] //= parts
+        lo = index * local[dim]
     out = torch.empty(local, dtype=dtype, device=device)
     if out.is_meta:                # shapes only: nothing to draw
         return out
-    flat = out.view(-1, *local[-2:])
-    for i in range(flat.shape[0]):
+    for at in itertools.product(*map(range, shape[:-2])):
         w = (torch.randn(shape[-2:], generator=gen, dtype=torch.float32,
                          device=device) * std).to(dtype)
-        if part is not None:
-            size = local[dim]
-            w = w.narrow(dim - len(shape) + 2, index * size, size)
-        flat[i] = w
+        if part is None:
+            out[at] = w
+        elif dim >= len(shape) - 2:
+            out[at] = w.narrow(dim - len(shape) + 2, lo, local[dim])
+        elif lo <= at[dim] < lo + local[dim]:
+            out[(*at[:dim], at[dim] - lo, *at[dim + 1:])] = w
     return out
 
 

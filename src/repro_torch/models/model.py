@@ -90,8 +90,9 @@ ValueError, where the reference's ``jnp.pad`` raises on the negative
 width.
 
 Tensor parallelism (``parallel=``, a ``distributed.context.
-ParallelContext`` whose model axis spans tp ranks; the DENSE decoder
-only): every entry point, ``init_params`` and the caches take it. A rank
+ParallelContext`` whose model axis spans tp ranks; the DENSE decoder and
+the MoE decoder without MLA): every entry point, ``init_params`` and the
+caches take it. A rank
 computes with a local config of H/tp query and Hkv/tp kv heads and d_ff/tp
 MLP features (``_local_cfg``) on its shard of the weights
 (``distributed/sharding.py::param_specs``: column-parallel q/k/v and
@@ -101,8 +102,14 @@ reference's GSPMD inserts its all-reduce; the embedding is looked up
 vocab-parallel (each rank its slab, the rows summed) and the LM head's
 logits gathered in rank order, so every rank holds the whole logits.
 Each rank's cache is its own, Hkv/tp heads wide, so the decode kernels
-run on it unchanged. ``check_supported`` refuses the other families and
-widths tp does not divide, naming the later slice.
+run on it unchanged. An MoE layer is expert-parallel
+(``moe.moe_block_sharded``: a rank holds E/tp experts, the router and
+the shared experts whole) in the reference's mode at each site: "a2a" on
+the sequence paths (``forward``, ``prefill``, the fused and the paged
+chunk, so verify and mixed), "psum" in ``decode_step`` and
+``paged_decode_step`` (so in a window's per-token chunk loop).
+``check_supported`` refuses the other families, MLA, and widths or
+expert counts tp does not divide, naming the later slice.
 """
 from __future__ import annotations
 
@@ -144,14 +151,17 @@ def check_supported(cfg: ModelConfig, paged: bool = False,
     it."""
     par = _par(parallel)
     if par is not None:
-        if cfg.moe is not None:
-            raise PC.later(f"family {cfg.family!r} (MoE experts) under "
-                           f"tp={par.tp}", PC.SLICE_EP)
-        if cfg.family != DENSE or cfg.mla is not None:
-            raise PC.later(f"family {cfg.family!r} under tp={par.tp}",
+        if cfg.family not in (DENSE, MOE) or cfg.mla is not None:
+            what = "MLA" if cfg.mla is not None else "family"
+            raise PC.later(f"{what} {cfg.family!r} under tp={par.tp}",
                            PC.SLICE_FAMILIES)
-        odd = [f"{n}={getattr(cfg, n)}" for n in
-               ("num_heads", "num_kv_heads", "d_ff", "vocab_size")
+        if cfg.moe is not None and cfg.moe.num_experts % par.tp:
+            raise NotImplementedError(
+                f"{cfg.moe.num_experts} experts not divisible by "
+                f"ep={par.tp}")
+        widths = ("num_heads", "num_kv_heads", "vocab_size") \
+            + (() if cfg.moe is not None else ("d_ff",))
+        odd = [f"{n}={getattr(cfg, n)}" for n in widths
                if getattr(cfg, n) % par.tp]
         if odd:
             raise PC.later(f"tp={par.tp} with {', '.join(odd)} (not "
@@ -199,11 +209,14 @@ def _par(parallel):
 def _local_cfg(cfg: ModelConfig, tp: int) -> ModelConfig:
     """The config one of ``tp`` ranks computes with: its H/tp query and
     Hkv/tp kv heads (q_per_kv and head_dim unchanged) and d_ff/tp MLP
-    features; the vocab stays whole (the logits are gathered)."""
+    features; the vocab stays whole (the logits are gathered). An MoE
+    config keeps its expert widths and counts (the block splits the
+    experts, ``moe.moe_block_sharded``)."""
     return dataclasses.replace(
         cfg, num_heads=cfg.num_heads // tp,
         num_kv_heads=cfg.num_kv_heads // tp,
-        head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff // tp)
+        head_dim=cfg.resolved_head_dim,
+        d_ff=cfg.d_ff if cfg.moe is not None else cfg.d_ff // tp)
 
 
 def _local(cfg: ModelConfig, par) -> ModelConfig:
@@ -337,7 +350,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     p["layers"] = {"ln1": ones(*lead, d), "ln2": ones(*lead, d),
                    "attn": attn}
     if cfg.moe is not None:
-        p["layers"]["moe"] = MOE_MOD.init_moe(gen, cfg, n, dtype, device)
+        p["layers"]["moe"] = MOE_MOD.init_moe(gen, cfg, n, dtype, device,
+                                              part("layers", "moe"))
     else:
         p["layers"]["mlp"] = _init_mlp(gen, cfg, lead, dtype, device,
                                        part("layers", "mlp"))
@@ -416,14 +430,17 @@ def _head(params: Params, cfg: ModelConfig, x, par=None):
                      par)
 
 
-def _ffn_residual(lp, cfg, x, par=None):
+def _ffn_residual(lp, cfg, x, par=None, mode: str = "a2a"):
     """x plus the block's feed-forward (the MLP, or the MoE block) of its
     normed input; and the MoE load-balance loss (None for an MLP). Under
     ``par`` the MLP is column-parallel on up / gate and row-parallel on
-    down, whose partial products are summed over the ranks."""
+    down, whose partial products are summed over the ranks; the MoE
+    block is expert-parallel in ``mode`` ("a2a": the sequence paths;
+    "psum": the decode steps, as at the reference's sites)."""
     h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
     if cfg.moe is not None:
-        m, aux = MOE_MOD.moe_block(lp["moe"], cfg, h)
+        m, aux = (MOE_MOD.moe_block(lp["moe"], cfg, h) if par is None else
+                  MOE_MOD.moe_block_sharded(lp["moe"], cfg, h, par, mode))
         return x + m, aux["lb_loss"]
     return x + _sum(par, L.mlp(lp["mlp"], cfg, h)), None
 
@@ -521,6 +538,10 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict, remat=False,
     else:
         x, lb = _run_decoder_stack(params["layers"], cfg, x, positions,
                                    remat=layer, window=w, par=par)
+        if par is not None and cfg.moe is not None:
+            # each rank's losses summed over layers, then the reference's
+            # per-layer pmean over every rank once (the mean is linear)
+            lb = par.mean_all(lb)
         return _head(params, cfg, x, par), lb
     return _head(params, cfg, x), torch.zeros((), dtype=torch.float32,
                                               device=x.device)
@@ -984,7 +1005,7 @@ def decode_step(params: Params, cfg: ModelConfig, token, cache: Params, pos,
                                       decode_impl=decode_impl, active=active,
                                       idx=idx)
             a = _sum(par, a)
-        x = _ffn_residual(lp, cfg, x + a, par)[0]
+        x = _ffn_residual(lp, cfg, x + a, par, "psum")[0]
         if cfg.family == ENCDEC:
             h = L.rmsnorm(x, lp["lnx"], cfg.norm_eps)
             x = x + _cross_decode_attention(lp["xattn"], cfg, h,
@@ -1030,7 +1051,7 @@ def paged_decode_step(params: Params, cfg: ModelConfig, token,
                                         block_tables, idx.pos,
                                         decode_impl=decode_impl,
                                         active=active, idx=idx)
-        x = _ffn_residual(lp, cfg, x + _sum(par, a), par)[0]
+        x = _ffn_residual(lp, cfg, x + _sum(par, a), par, "psum")[0]
     return _head(params, cfg, x, par)[:, 0], cache
 
 

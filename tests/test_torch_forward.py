@@ -484,11 +484,12 @@ def test_int8_config_refused_by_engine_and_chunk_path():
 
 
 def test_sharded_mesh_refused():
-    """A mesh the model cannot split yet (MoE experts over the model
+    """A mesh the model cannot split yet (MLA attention over the model
     axis) is refused before any rank is spawned, naming its slice; the
-    dense decoder's meshes run (tests/test_torch_tp.py)."""
-    args = TS.parse_args(["--arch", "llama4-scout-17b-a16e", "--reduced",
+    dense and the MoE decoder's meshes run (tests/test_torch_tp.py,
+    tests/test_torch_ep.py)."""
+    args = TS.parse_args(["--arch", "deepseek-v2-236b", "--reduced",
                           "--mesh", "1x2", "--device", "cpu"])
     with pytest.raises(NotImplementedError,
-                       match="not ported.*expert-parallel slice"):
+                       match="not ported.*sharded-families slice"):
         TS.serve_batch(args)
