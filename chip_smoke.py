@@ -491,13 +491,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    norms (``param_specs`` on the meta shapes); each rank's KV bytes x 4
    exactly the tp=1 engines' (dense and paged); peak device memory per
    rank. (b) ``serve.py --fleet 2 --tp 4``'s path, phase 5's fleet and
-   prompts with 32 new tokens (decode_k 4), dense and paged: every
+   prompts with 32 new tokens (decode_k 4) on the first 16 of the 32
+   layers (``P18_FLEET_LAYERS``; phase 20 serves a multi-rank fleet at
+   full depth), dense and paged: every
    request completes,
    rank 0's tokens equal rank 3's, and held against the tp=1 run by the
    drift and near-tie rule (both runs' logits logged); decode ms a
    dispatch and a profiled dispatch with the collectives' share, beside
    tp=1's. (c) on every rank each decode kernel launches once a layer a
-   decode step (32) on the rank's 2 kv heads and its first launch at
+   decode step (16) on the rank's 2 kv heads and its first launch at
    every shape is held against its plain version on the live inputs
    (``_live_kernel_hold``). (d) phase 9's stream (five short, two long,
    one in-band request through C&R) on the tp=4 fleet, uninterrupted and
@@ -552,6 +554,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
    tokens equal, the forward's logits within 1e-5 of max. Times are
    reported, not gated (four ranks time-slice one card). Every rank's
    launches are added to the ``kernels`` line.
+20. the K-pool fleet on disjoint tp submeshes: minitron-8b bf16 at its
+   published widths and depth (seed 0), four rank processes on the one
+   card over a 1x4 mesh, phase 5's K=2 plan (contexts 512 / 4096, 4
+   slots a pool, c_chunk 256, decode_k 4) with tp=2 pools: the short pool
+   on ranks 0-1, the long pool on ranks 2-3, each rank drawing its
+   submesh's shard after the tp=1 references ran in this process and
+   were freed. (a) ``device_placement()`` is {short: [0, 1], long: [2,
+   3]} on every rank; each rank's weights are exactly its pool's shard
+   (the sharded leaves / 2 plus the replicated ones), it holds no cache
+   of the other pool, and a member's KV bytes x 2 are the tp=1 pool's.
+   (b) phase 9's stream (five short, two long, one in-band request
+   through C&R), dense and then paged: every request completes with the
+   same tokens on every rank, held to the tp=1 fleet by the drift and
+   near-tie rule (the logits logged on the pools' leads); TextRank on
+   rank 0 only; each rank launches its layout's decode kernel 32 times a
+   decode step of its own pool's and never for the other pool, ranks
+   0-1 and 2-3 the same steps, summing to tp=1's; each shape's first
+   launch held on its live inputs. (c) the long pool reprovisioned
+   mid-flight once all its slots decode: dense to tp=1 (rank 1, the
+   reference's rule) beside (b)'s uninterrupted run, and paged with the
+   prefix cache to tp=4 with a prefix-warm session turn in flight,
+   beside the same stream uninterrupted: the tokens by the drift rule,
+   every checkpointed request swapped (none recomputed), each host leaf
+   moved with every old member's heads bitwise (crc32), KV bytes a member
+   x tp_old / tp_new, device memory after = before - the old shard set
+   and cache + the new within 1 MiB on every rank; the reprovision's ms
+   split into ``drain_checkpoint``, the weight reshard, the KV reshard
+   and the engine build. (d) the short pool killed while the long pool
+   decodes: ``recover_pool`` rebuilds it on ranks 0-1, every accepted
+   request completes, the long pool's requests held to (b)'s by the
+   drift rule. (e) ``serve.py --fleet 2 --tp 2 --mesh 1x4`` on the card
+   prints the reference's placement lines and completes every request.
+   Reported, not gated: decode ms a dispatch a pool beside tp=1's, a
+   readback share's ms, the reprovision split, peak device memory a
+   rank (the ranks time-slice one card: correctness, not four cards).
+   Every rank's launches are added to the ``kernels`` line.
 
 Then it prints the ``kernels`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -3037,16 +3075,20 @@ def _p9_serve(cfg, params, paged, log, event=None, health=False,
 
 
 @contextlib.contextmanager
-def _split_timer(split):
-    """Seconds of ``drain_checkpoint``, of the engine build and of
-    ``_adopt_state`` (fitting each host checkpoint to the new geometry: a
-    dense row padded on the host) inside a reprovision call, the device
-    synchronised around each."""
+def _split_timer(split, fns=None):
+    """Seconds of each of a reprovision's parts, the device synchronised
+    around each: ``fns`` maps a key to the (owner, attribute) of the
+    function timed under it; by default ``drain_checkpoint``, the engine
+    build and ``_adopt_state`` (fitting each host checkpoint to the new
+    geometry: a dense row padded on the host)."""
     import torch
     from repro_torch.serving import reconfigure
     from repro_torch.serving.engine import InferenceEngine
-    drain, build = InferenceEngine.drain_checkpoint, reconfigure.InferenceEngine
-    adopt = reconfigure._adopt_state
+    if fns is None:
+        fns = {"drain": (InferenceEngine, "drain_checkpoint"),
+               "build": (reconfigure, "InferenceEngine"),
+               "adopt": (reconfigure, "_adopt_state")}
+    origs = {k: getattr(o, n) for k, (o, n) in fns.items()}
 
     def timed(fn, key):
         def call(*a, **kw):
@@ -3057,15 +3099,13 @@ def _split_timer(split):
             split[key] = split.get(key, 0.0) + time.perf_counter() - t0
             return out
         return call
-    InferenceEngine.drain_checkpoint = timed(drain, "drain")
-    reconfigure.InferenceEngine = timed(build, "build")
-    reconfigure._adopt_state = timed(adopt, "adopt")
+    for k, (o, n) in fns.items():
+        setattr(o, n, timed(origs[k], k))
     try:
         yield
     finally:
-        InferenceEngine.drain_checkpoint = drain
-        reconfigure.InferenceEngine = build
-        reconfigure._adopt_state = adopt
+        for k, (o, n) in fns.items():
+            setattr(o, n, origs[k])
 
 
 @contextlib.contextmanager
@@ -7558,6 +7598,8 @@ P18_TF = (2, 16, 8)           # (f): batch, tokens of the forward, engine
                               # requests' new tokens (reduced, f32)
 P18_NEW = 32                  # (b): new tokens a request (phase 5's 64
                               # halved for the smoke's time)
+P18_FLEET_LAYERS = 16         # (b): the fleet's first 16 of 32 layers (to
+                              # make room for phase 20's fleet at full depth)
 
 
 def _p18_model():
@@ -7641,9 +7683,10 @@ def _collective_timer(acc):
             setattr(PCtx, n, fn)
 
 
-def _p18_fleet(params, paged, tp, device, log=None, held=None):
+def _p18_fleet(params, paged, tp, device, log=None, held=None, arch=None):
     """(b) ``serve.py --fleet 2 --tp tp``'s fleet (phase 5's plan and
-    requests, decode_k 4) over ``params`` (a rank's shard at tp > 1), the
+    requests, decode_k 4) of ``arch`` (a registered config's name) over
+    ``params`` (a rank's shard at tp > 1), the
     logits behind every token logged into ``log`` and each decode
     kernel's first launch at a shape held in ``held`` (when given); then
     one profiled decode dispatch of the long pool (one live row of 1024
@@ -7661,7 +7704,7 @@ def _p18_fleet(params, paged, tp, device, log=None, held=None):
         if held is not None:
             stack.enter_context(_live_kernel_hold(held))
         rt, results, secs = serve.serve_fleet(
-            fleet_args(paged=paged, tp=tp, new_tokens=P18_NEW),
+            fleet_args(arch=arch, paged=paged, tp=tp, new_tokens=P18_NEW),
             slots_per_pool=4, c_chunk=256, long_ctx=4096, params=params,
             device=device)
     counts = _launch_counts()
@@ -7759,10 +7802,11 @@ def _p18_rank(rank, device):
     out["init_s"] = time.perf_counter() - t0
     out["param_bytes"] = _nbytes(params)
     out["b"], out["held"] = {}, {}
+    cut, cut_params = _depth_cut(cfg, params, P18_FLEET_LAYERS)
     for paged in (False, True):
         log = {} if rank == 0 else None
-        r = _p18_fleet(params, paged, P18_TP, device, log=log,
-                       held=out["held"])
+        r = _p18_fleet(cut_params, paged, P18_TP, device, log=log,
+                       held=out["held"], arch=cut.name)
         add(r["counts"])
         if log is not None:       # the logits' own dtype: exact, half the bytes
             r["log"] = {rid: {j: v.to(params["embed"].dtype).cpu()
@@ -7770,6 +7814,7 @@ def _p18_rank(rank, device):
                         for rid, row in log.items()}
         out["b"][paged] = r
         del log
+    del cut_params
     parts["(b)"] = time.perf_counter()
     # (d) the C&R fleet, uninterrupted and reprovisioned mid-stream
     runs = {}
@@ -7838,13 +7883,16 @@ def _p18_tp1(cfg, smi):
     from repro_torch.models import model as M
     params = M.init_params(cfg, seed=0, device=DEVICE)
     ref = {"b": {}}
+    cut, cut_params = _depth_cut(cfg, params, P18_FLEET_LAYERS)
     for paged in (False, True):
         log = {}
-        r = _p18_fleet(params, paged, 1, torch.device(DEVICE), log=log)
+        r = _p18_fleet(cut_params, paged, 1, torch.device(DEVICE), log=log,
+                       arch=cut.name)
         r["log"] = {rid: {j: v.cpu() for j, v in row.items()}
                     for rid, row in log.items()}
         ref["b"][paged] = r
         del log
+    del cut_params
     run = serve.serve_batch(batch_args(cfg.name, BATCH_SHAPE), params=params)
     ref["e"] = dataclasses.replace(run, cache={}).to_cpu()
     del run, params
@@ -7929,16 +7977,17 @@ def phase_tp(smi):
                                     "paged_decode_step")):
             b = r["b"][paged]
             n, steps = b["counts"][kname], b["calls"].get(step, 0)
-            if n == 0 or n != cfg.num_layers * steps:
+            if n == 0 or n != P18_FLEET_LAYERS * steps:
                 fail(f"(c) rank {r['rank']} paged={paged}: {kname} "
                      f"launched {n} times over {steps} decode steps, want "
-                     f"{cfg.num_layers} a step")
+                     f"{P18_FLEET_LAYERS} a step")
         kinds = {k[0] for k in r["held"]}
         if kinds != {"gqa_decode", "paged_decode"}:
             fail(f"(c) rank {r['rank']}: held {sorted(kinds)}")
     worst = max(e / m for r in res for e, m in r["held"].values())
-    print(f"[tp] (c) each rank launched each decode kernel {cfg.num_layers} "
-          f"times a decode step on its {cfg.num_kv_heads // P18_TP} kv heads "
+    print(f"[tp] (c) each rank launched each decode kernel {P18_FLEET_LAYERS} "
+          f"times a decode step (the fleet's first {P18_FLEET_LAYERS} of "
+          f"{cfg.num_layers} layers) on its {cfg.num_kv_heads // P18_TP} kv heads "
           f"(dense {[r['b'][False]['counts']['gqa_decode'] for r in res]}, "
           f"paged {[r['b'][True]['counts']['paged_decode'] for r in res]}); "
           f"held on live inputs at {sorted({k[:2] for k in r0['held']})} on "
@@ -8511,6 +8560,525 @@ def phase_ep(smi):
     return launches
 
 
+# ---------------------------------------------------------------- phase 20
+P20_WORLD = 4                 # ranks of the group, all on the one card
+P20_MESH = "1x4"              # the fleet's mesh: every rank
+P20_TP = 2                    # each pool's degree: short on 0-1, long on 2-3
+P20_TIMEOUT_S = 900           # the group's collective timeout
+P20_PLACE = {"short": [0, 1], "long": [2, 3]}
+P20_MOVES = {False: 1, True: 4}   # (c): the long pool's new degree, dense
+                                  # (the reference's rule: rank 1) and paged
+P20_SESSION = (1100, 60)      # (c) paged: the session's turn-1 prompt tokens,
+                              # and the tokens turn 2 adds to it
+P20_LEADS = (0, 1, 2)         # ranks whose logit logs the parent reads: the
+                              # pools' leads, before and after each move
+
+
+class _P20Event:
+    """``_p9_serve``'s event for (c) and (d) on the tp=2 fleet. ``turn2``:
+    a session turn submitted once the long pool's first request (its
+    turn 1) decodes, so it admits prefix-warm. Once every occupied slot of
+    the long pool decodes (and ``turn2`` was admitted), ``move`` (a tp)
+    reprovisions the long pool there, with device memory, the host rows
+    moved and the split timed; ``kill`` kills the short pool instead,
+    which ``on_dead`` recovers on its own submesh. With neither, the run
+    is the uninterrupted one of the same stream. ``held``: the caller's
+    weights, which a move cannot free."""
+
+    def __init__(self, move=None, turn2=None, kill=False, held=None):
+        self.move, self.turn2, self.kill = move, turn2, kill
+        self.held = id(held)
+        self.at, self.info, self.report = None, None, {}
+
+    def pending(self):
+        return False
+
+    def on_round(self, rt, rounds, rebuilt):
+        long_ = rt.engines["long"]
+        live = [not long_.slot_prefill_left[s] for s in range(long_.n_max)
+                if long_.slot_req[s]]
+        # a kill waits for one decoding slot, a move for every slot
+        decoding = any(live) if self.kill else live and all(live)
+        if self.turn2 is not None and not self.report.get("sent"):
+            if decoding:
+                d = rt.submit(self.turn2)
+                if d.pool != "long":
+                    fail(f"(c) the session's turn 2 routed to {d.pool}")
+                self.report["sent"] = rounds
+            return
+        if self.at is not None or not decoding or (
+                self.turn2 is not None
+                and not long_.prefix_stats["hit_blocks"]):
+            return
+        self.at = rounds
+        if self.kill:
+            from repro_torch.serving.reconfigure import FaultInjector
+            FaultInjector(rt).kill("short")
+        elif self.move is not None:
+            stats = long_.overload_stats
+            kv0 = long_.cache_bytes_per_device()
+            del long_
+            self._move(rt, stats, kv0)
+            rebuilt.add(rt.engines["long"])
+
+    def _move(self, rt, stats, kv0):
+        import torch
+        from repro_torch.serving import reconfigure as RC
+        from repro_torch.serving.engine import InferenceEngine
+        # the move's parts: the drain, the weight reshard, the KV reshard
+        # (every request's host rows) and the engine build
+        parts = {"drain": (InferenceEngine, "drain_checkpoint"),
+                 "weights": (RC, "reshard_params"),
+                 "kv": (RC, "_reshard_kv"),
+                 "build": (RC, "InferenceEngine")}
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        shards0 = {m: (_nbytes(p), id(p)) for m, p in rt.shards.items()}
+        split = {}
+        t0 = time.perf_counter()
+        with _split_timer(split, parts):
+            self.info = rt.reprovision("long", tp=self.move)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        mem1 = torch.cuda.memory_allocated()
+        shards1 = {m: _nbytes(p) for m, p in rt.shards.items()}
+        new = rt.engines["long"]
+        # the old cache and shard set go (unless the caller holds the
+        # set), the new ones come
+        want = (mem0 - kv0 + new.cache_bytes_per_device()
+                - sum(n for m, (n, i) in shards0.items()
+                      if m not in shards1 and i != self.held)
+                + sum(n for m, n in shards1.items() if m not in shards0))
+        self.report.update(
+            ms=ms, split={k: 1e3 * v for k, v in split.items()},
+            devices=new.devices(), tp=new.tp_degree,
+            moved=list(rt.moved_rows),
+            mem=(mem0, mem1, want), kv=(kv0, new.cache_bytes_per_device()),
+            member=new.member, recomputed=stats["recomputed"],
+            swapped=stats["swapped_out"], shards=sorted(
+                tuple(m.ranks) for m in rt.shards))
+
+    def on_dead(self, rt, name, rebuilt):
+        from repro_torch.serving.reconfigure import recover_pool
+        self.info = recover_pool(rt, name)
+        rebuilt.add(rt.engines[name])
+
+
+@contextlib.contextmanager
+def _p20_timers(acc):
+    """Host seconds of each decode-only dispatch of the pools this rank is
+    a member of, by the pool's context (the device synchronised around
+    it), and of each readback's share with the process group
+    (``ParallelContext.share``): "share" where this rank is one of the
+    pool's (the exchange itself, the others already waiting in it),
+    "wait" where it is not (its wait for the pool's dispatch); and the
+    decode-step calls on this rank by the context of the pool stepping
+    (each launches the decode kernel once a layer)."""
+    import torch
+    from repro_torch.distributed.context import ParallelContext as PCtx
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import InferenceEngine
+    step, scan = InferenceEngine.step, InferenceEngine._run_decode_scan
+    share = PCtx.share
+    steps = {n: getattr(M, n) for n in ("decode_step", "paged_decode_step")}
+    pool = [None]
+
+    def pooled(self):
+        pool[0] = self.c_max
+        try:
+            step(self)
+        finally:
+            pool[0] = None
+
+    def timed_scan(self, mask):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scan(self, mask)
+        torch.cuda.synchronize()
+        if self.member:
+            acc.setdefault(("dispatch", self.c_max), []).append(
+                time.perf_counter() - t0)
+
+    def timed_share(self, value, what):
+        t0 = time.perf_counter()
+        out = share(self, value, what)
+        acc.setdefault("share" if self.member else "wait", []).append(
+            time.perf_counter() - t0)
+        return out
+
+    def counted(fn):
+        @functools.wraps(fn)           # its signature, for _logit_log
+        def call(*a, **kw):
+            key = ("steps", pool[0])
+            acc[key] = acc.get(key, 0) + 1
+            return fn(*a, **kw)
+        return call
+    InferenceEngine.step, InferenceEngine._run_decode_scan = pooled, timed_scan
+    PCtx.share = timed_share
+    for n, fn in steps.items():
+        setattr(M, n, counted(fn))
+    try:
+        yield
+    finally:
+        InferenceEngine.step, InferenceEngine._run_decode_scan = step, scan
+        PCtx.share = share
+        for n, fn in steps.items():
+            setattr(M, n, fn)
+
+
+def _p20_session(tokenizer):
+    """(c) paged: phase 9's short prompts, one long request (rid 10) and
+    a session's first turn (rid 11, long), and its second turn (rid 12:
+    the first's text and more, the event's to submit)."""
+    import numpy as np
+    from repro_torch.serving.pools import GatewayRequest
+    rng = np.random.default_rng(20)
+    turn1 = varied_prompt(rng, P20_SESSION[0], tokenizer)
+    more = varied_prompt(rng, P20_SESSION[1], tokenizer)
+    reqs = [GatewayRequest(i, varied_prompt(rng, n, tokenizer), P9_NEW)
+            for i, n in enumerate(P9_SHORT[:3])]
+    reqs.append(GatewayRequest(10, varied_prompt(rng, P9_LONG[0],
+                                                 tokenizer), P9_NEW))
+    reqs.append(GatewayRequest(11, turn1, P9_NEW, session="s"))
+    return reqs, GatewayRequest(12, turn1 + " " + more, P9_NEW, session="s")
+
+
+def _p20_serve(cfg, params, paged, lead, event=None, session=False, **skw):
+    """One run of ``_p9_serve`` (phase 9's stream, or with ``session`` the
+    session stream) with the logits logged (on ``lead`` ranks, kept in
+    bf16 on the host), each decode kernel's first launch at every shape
+    held live, and the dispatch, share and step timers; returns its
+    result and the fleet's placement, bytes and members."""
+    import torch
+    log, held, acc = ({} if lead else None), {}, {}
+    kw = dict(skw)
+    if session:
+        from repro_torch.serving.tokenizer import ByteChunkTokenizer
+        reqs, turn2 = _p20_session(ByteChunkTokenizer(cfg.vocab_size))
+        kw.update(reqs=lambda tok: reqs, prefix_cache=True)
+        event.turn2 = turn2
+    with _live_kernel_hold(held), _p20_timers(acc):
+        r = _p9_serve(cfg, params, paged, log, event=event, keep=True, **kw)
+    rt = r.pop("rt")
+    r.update(place=rt.device_placement(),
+             kv={n: e.cache_bytes_per_device() for n, e in rt.engines.items()},
+             member={n: e.member for n, e in rt.engines.items()},
+             shards={tuple(m.ranks): _nbytes(p)
+                     for m, p in rt.shards.items() if m is not None},
+             held=held, acc=acc,
+             log=None if log is None else {
+                 rid: {j: v.to(torch.bfloat16).cpu() for j, v in row.items()}
+                 for rid, row in log.items()})
+    if event is not None:
+        r.update(at=event.at, info=event.info, report=event.report)
+    del rt, log
+    torch.cuda.empty_cache()
+    return r
+
+
+def _p20_rank(rank, device):
+    """One rank of phase 20: (a)-(e) on this rank's shard of its tp=2
+    submesh (module docstring). The leads' results carry their logit
+    logs for the parent's drift rule."""
+    import io
+    import torch
+    from repro_torch.distributed import context as PC
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_submeshes, parse_mesh
+    from repro_torch.models import model as M
+    mesh = parse_mesh(P20_MESH)
+    own = next(c for c in (PC.make_context(m)
+                           for m in make_submeshes(mesh, P20_TP))
+               if c.member)
+    cfg = _p18_model()
+    out, parts = {"rank": rank}, {}
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device=device, parallel=own)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["param_bytes"] = _nbytes(params)
+    lead = rank in P20_LEADS
+    skw = dict(mesh=mesh, tp_degree=P20_TP)
+    # (a), (b) the C&R fleet, dense then paged
+    out["b"] = {paged: _p20_serve(cfg, params, paged, lead, **skw)
+                for paged in (False, True)}
+    parts["(b)"] = time.perf_counter()
+    # (c) the long pool moved mid-flight: dense to tp=1 beside (b)'s
+    # uninterrupted dense run; paged with the prefix cache to tp=4, a
+    # prefix-warm session turn in flight, beside its own uninterrupted run
+    out["c"] = {False: _p20_serve(
+        cfg, params, False, lead,
+        event=_P20Event(move=P20_MOVES[False], held=params), **skw)}
+    for move in (None, P20_MOVES[True]):
+        out["c"][(True, move)] = _p20_serve(
+            cfg, params, True, lead, event=_P20Event(move=move, held=params),
+            session=True, **skw)
+    parts["(c)"] = time.perf_counter()
+    # (d) the short pool killed while the long pool decodes
+    out["d"] = _p20_serve(cfg, params, False, lead,
+                          event=_P20Event(kill=True), **skw)
+    parts["(d)"] = time.perf_counter()
+    # (e) the launcher: serve.py --fleet 2 --tp 2 --mesh 1x4 on the card
+    _reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rt, res, secs = serve.serve_fleet(
+            fleet_args(tp=P20_TP, mesh=P20_MESH, new_tokens=P9_NEW),
+            slots_per_pool=4, c_chunk=256, long_ctx=4096, params=params,
+            device=device)
+    out["e"] = dict(lines=buf.getvalue().splitlines(), secs=secs,
+                    place=rt.device_placement(), counts=_launch_counts(),
+                    done={rid: (r.timed_out, len(r.output_tokens))
+                          for rid, r in res.items()})
+    del rt, params
+    torch.cuda.empty_cache()
+    parts["(e)"] = time.perf_counter()
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["parts"] = {k: v - t0 for k, v in parts.items()}
+    return out
+
+
+def _p20_tp1(cfg):
+    """(b)'s fleets at tp=1 in this process (logits logged, kernels held
+    live, the timers on), the weights freed after."""
+    import torch
+    from repro_torch.models import model as M
+    params = M.init_params(cfg, seed=0, device=DEVICE)
+    ref = {paged: _p20_serve(cfg, params, paged, True)
+           for paged in (False, True)}
+    del params
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _p20_logs(runs):
+    """The logit log of one run (f32), merged over the ranks that logged
+    it (each logs the pools it is a member of; members of one pool log
+    the same bits)."""
+    import torch
+    log = {}
+    for run in runs:
+        for rid, row in (run["log"] or {}).items():
+            for j, v in row.items():
+                log.setdefault(rid, {})[j] = v.to(torch.float32)
+    return log
+
+
+def _p20_ms(acc, key) -> str:
+    v = acc.get(key) or []
+    return f"{1e3 * sum(v) / len(v):.2f}" if v else "none"
+
+
+def _p20_check_b(cfg, res, ref, paged, smi):
+    """(b) one layout's fleet: the ranks' tokens against tp=1's, TextRank
+    on rank 0 alone, each rank's decode kernel launched for its own
+    pool's decode steps only, 32 a step, and held live."""
+    short, long_ = 512, 4096
+    runs, want = [r["b"][paged] for r in res], ref[paged]
+    if any(x["tokens"] != runs[0]["tokens"] for x in runs[1:]):
+        fail(f"(b) paged={paged}: the ranks' tokens differ")
+    flips = _bf16_flips(_p20_logs([want]), _p20_logs(runs), want["tokens"],
+                        runs[0]["tokens"], f"(b) paged={paged} two tp="
+                        f"{P20_TP} pools vs tp=1", tag="submesh")
+    kname, other = (("paged_decode", "gqa_decode") if paged
+                    else ("gqa_decode", "paged_decode"))
+    tr = [x["counts"]["textrank"] for x in runs]
+    if tr[0] < 1 or any(tr[1:]):
+        fail(f"(b) TextRank launches by rank {tr}: want rank 0 alone")
+    steps = []
+    for rank, x in enumerate(runs):
+        mine = short if rank in P20_PLACE["short"] else long_
+        n = x["acc"].get(("steps", mine), 0)
+        elsewhere = {k: v for k, v in x["acc"].items() if isinstance(k, tuple)
+                     and k[0] == "steps" and k[1] != mine}
+        if elsewhere or n == 0 or x["counts"][other] \
+                or x["counts"][kname] != cfg.num_layers * n:
+            fail(f"(b) paged={paged} rank {rank}: {kname} "
+                 f"{x['counts'][kname]} over {n} decode steps of its pool, "
+                 f"{other} {x['counts'][other]}, other pools' steps "
+                 f"{elsewhere}")
+        if {k[0] for k in x["held"]} != {kname}:
+            fail(f"(b) paged={paged} rank {rank}: held {sorted(x['held'])}")
+        steps.append(n)
+    tp1 = sum(v for k, v in want["acc"].items()
+              if isinstance(k, tuple) and k[0] == "steps")
+    if steps[0] != steps[1] or steps[2] != steps[3] \
+            or steps[0] + steps[2] != tp1:
+        fail(f"(b) paged={paged}: decode steps by rank {steps}, tp=1 {tp1}")
+    worst = max(e / m for x in runs for e, m in x["held"].values())
+    r0, r2 = runs[0], runs[2]
+    print(f"[submesh] (b) fleet paged={paged} (phase 9's stream: 5 short, 2 "
+          f"long, 1 in-band compressed into the short pool): every request "
+          f"completes, the same tokens on every rank, {flips} near-tie "
+          f"divergences from tp=1; TextRank by rank {tr}; {kname} by rank "
+          f"{[x['counts'][kname] for x in runs]} ({cfg.num_layers} a decode "
+          f"step of the rank's own pool: steps {steps}, tp=1 {tp1}), held "
+          f"live at {sorted({k[1] for x in runs for k in x['held']})} within "
+          f"{worst:.3e} of max|plain|; decode ms a dispatch short "
+          f"{_p20_ms(r0['acc'], ('dispatch', short))} (rank 0), long "
+          f"{_p20_ms(r2['acc'], ('dispatch', long_))} (rank 2), tp=1 "
+          f"{_p20_ms(want['acc'], ('dispatch', short))} / "
+          f"{_p20_ms(want['acc'], ('dispatch', long_))}; a readback's share "
+          f"with the group {_p20_ms(r0['acc'], 'share')} ms on a member "
+          f"({len(r0['acc'].get('share', []))} on rank 0), "
+          f"{_p20_ms(r0['acc'], 'wait')} ms waited outside the pool "
+          f"({len(r0['acc'].get('wait', []))}); {r0['secs']:.2f} s against "
+          f"tp=1's "
+          f"{want['secs']:.2f} s ({smi}; four ranks time-slice one card: "
+          f"correctness, not four cards)")
+
+
+def _p20_check_c(res, key, base, what, new_tp, smi):
+    """(c) one move of the long pool: the ranks' tokens against the
+    uninterrupted run's (``base``), every checkpointed request swapped
+    (none recomputed), the host rows' heads bitwise, KV bytes a member
+    scaled by tp_old / tp_new, device memory after = before - old + new
+    within 1 MiB on every rank."""
+    runs, plain = [r["c"][key] for r in res], [base(r) for r in res]
+    if any(x["tokens"] != runs[0]["tokens"] for x in runs[1:]):
+        fail(f"(c) {what}: the ranks' tokens differ")
+    flips = _bf16_flips(_p20_logs(plain), _p20_logs(runs),
+                        plain[0]["tokens"], runs[0]["tokens"],
+                        f"(c) {what} vs uninterrupted", tag="submesh")
+    info, rep = runs[0]["info"], [x["report"] for x in runs]
+    new_ranks, old_ranks = rep[0]["devices"], P20_PLACE["long"]
+    kv_old = rep[old_ranks[0]]["kv"][0]
+    for rank, x in enumerate(rep):
+        if x["recomputed"] or x["swapped"] != info["checkpointed"]:
+            fail(f"(c) {what} rank {rank}: recomputed {x['recomputed']}, "
+                 f"swapped {x['swapped']} of {info['checkpointed']}")
+        mem0, mem1, want = x["mem"]
+        if abs(mem1 - want) > 2 ** 20:
+            fail(f"(c) {what} rank {rank}: device memory after the move "
+                 f"{mem1} B, want {want} B (before {mem0} B)")
+        if (rank in new_ranks) != x["member"] or (
+                x["member"] and x["kv"][1] * new_tp != kv_old * P20_TP):
+            fail(f"(c) {what} rank {rank}: KV bytes {x['kv']}, a member's "
+                 f"before {kv_old}")
+    moved = rep[0]["moved"]
+    if not moved:
+        fail(f"(c) {what}: no host row moved")
+    for k, rec in enumerate(moved):
+        sent = [rep[i]["moved"][k]["sent"] for i in old_ranks]
+        for i in new_ranks:
+            got = rep[i]["moved"][k]
+            if got["got"] != sent or got["leaf"] != rec["leaf"]:
+                fail(f"(c) {what}: rid {rec['rid']} {rec['leaf']} arrived "
+                     f"on rank {i} as {got['got']}, sent {sent}")
+    sp = [x["split"] for x in rep]
+    part = lambda k: [round(s.get(k, 0.0), 1) for s in sp]  # noqa
+    print(f"[submesh] (c) {what}: the long pool on ranks {new_ranks} (tp="
+          f"{rep[0]['tp']}) after round {runs[0]['at']}, "
+          f"{info['checkpointed']} checkpointed, every one swapped and none "
+          f"recomputed; {len(moved)} host leaves moved, each old member's "
+          f"heads bitwise (crc32); KV bytes a member {kv_old} -> "
+          f"{rep[new_ranks[0]]['kv'][1]}; device memory after = before - "
+          f"old + new within 1 MiB on every rank (before "
+          f"{[round(x['mem'][0] / 2**30, 2) for x in rep]}, after "
+          f"{[round(x['mem'][1] / 2**30, 2) for x in rep]} GiB); {flips} "
+          f"near-tie divergences from the uninterrupted run; reprovision ms "
+          f"by rank {[round(x['ms'], 1) for x in rep]}: drain_checkpoint "
+          f"{part('drain')}, weight reshard {part('weights')}, KV reshard "
+          f"{part('kv')}, engine build {part('build')} ({smi})")
+
+
+def phase_submesh(smi):
+    """Phase 20: the K-pool fleet on disjoint tp=2 submeshes (module
+    docstring). Returns the launches of every rank, summed."""
+    import torch
+    from repro_torch.distributed import context as PC
+    t0 = time.perf_counter()
+    cfg = _p18_model()
+    want_bytes, sharded, repl = _p18_shard_bytes(cfg, P20_TP)
+    ref = _p20_tp1(cfg)
+    t_ref = time.perf_counter()
+    held_at_start = torch.cuda.memory_allocated()
+    res = PC.launch_ranks(_p20_rank, P20_WORLD, device=DEVICE,
+                          timeout_s=P20_TIMEOUT_S)
+    t_ranks = time.perf_counter()
+    # (a) placement and bytes
+    for rank, r in enumerate(res):
+        pool = "short" if rank in P20_PLACE["short"] else "long"
+        other = "long" if pool == "short" else "short"
+        if r["param_bytes"] != want_bytes:
+            fail(f"(a) rank {rank}: {r['param_bytes']} B of weights, want "
+                 f"{want_bytes}")
+        for paged in (False, True):
+            b = r["b"][paged]
+            if b["place"] != P20_PLACE or b["shards"] != {
+                    tuple(P20_PLACE[pool]): want_bytes}:
+                fail(f"(a) rank {rank}: placement {b['place']}, shard sets "
+                     f"{b['shards']}")
+            if b["kv"][other] or b["member"][other] or \
+                    P20_TP * b["kv"][pool] != ref[paged]["kv"][pool]:
+                fail(f"(a) rank {rank} paged={paged}: KV bytes {b['kv']}, "
+                     f"tp=1 {ref[paged]['kv']}")
+    print(f"[submesh] (a) {cfg.name} {cfg.dtype}, {P20_WORLD} ranks on one "
+          f"card over mesh {P20_MESH}, two tp={P20_TP} pools: placement "
+          f"{P20_PLACE} on every rank; each rank's weights "
+          f"{want_bytes / 1e9:.4f} GB, its pool's shard only (sharded "
+          f"{sharded / 1e9:.4f} GB / {P20_TP} + replicated {repl} B), exact;"
+          f" no cache of the other pool; KV bytes a member x {P20_TP} = the "
+          f"tp=1 pool's exactly (dense {ref[False]['kv']}, paged "
+          f"{ref[True]['kv']} B at tp=1); init "
+          f"{[round(r['init_s'], 2) for r in res]} s ({smi})")
+    for paged in (False, True):
+        _p20_check_b(cfg, res, ref, paged, smi)
+    _p20_check_c(res, False, lambda r: r["b"][False], "dense 2 -> 1",
+                 P20_MOVES[False], smi)
+    _p20_check_c(res, (True, P20_MOVES[True]), lambda r: r["c"][(True, None)],
+                 "paged 2 -> 4, a prefix-warm session turn in flight",
+                 P20_MOVES[True], smi)
+    # (d) crash recovery on a submesh
+    runs, base = [r["d"] for r in res], res[0]["b"][False]
+    longs = [rid for rid in base["tokens"] if 10 <= rid < 20]
+    if any(x["tokens"] != runs[0]["tokens"] for x in runs[1:]):
+        fail("(d) the ranks' tokens differ")
+    info = runs[0]["info"]
+    if info is None or runs[0]["stats"]["engine_restarts"] != 1:
+        fail(f"(d) no recovery: {info}")
+    flips = _bf16_flips(_p20_logs([r["b"][False] for r in res]),
+                        _p20_logs(runs),
+                        {rid: base["tokens"][rid] for rid in longs},
+                        runs[0]["tokens"], "(d) the long pool, the short "
+                        "pool killed", tag="submesh")
+    print(f"[submesh] (d) the short pool killed after round {runs[0]['at']} "
+          f"while the long pool decodes: recover_pool rebuilt it on ranks "
+          f"{P20_PLACE['short']} and moved {info['migrated']} requests to "
+          f"the {info['rerouted_to']} pool; every accepted request "
+          f"completes; the long pool's requests {longs}: {flips} near-tie "
+          f"divergences from the run without the fault")
+    # (e) the launcher
+    lines = [ln for ln in res[0]["e"]["lines"] if "tp=" in ln]
+    if lines != [f"  {n}: tp={P20_TP} devices={d}"
+                 for n, d in P20_PLACE.items()]:
+        fail(f"(e) placement lines {lines}")
+    for rank, r in enumerate(res):
+        if r["e"]["place"] != P20_PLACE or any(
+                t or not n for t, n in r["e"]["done"].values()):
+            fail(f"(e) rank {rank}: {r['e']['place']} {r['e']['done']}")
+    print(f"[submesh] (e) serve.py --fleet 2 --tp {P20_TP} --mesh {P20_MESH} "
+          f"on the card prints {lines}; {len(res[0]['e']['done'])} requests "
+          f"complete in {res[0]['e']['secs']:.2f} s")
+    launches = {}
+    for r in res:
+        for run in (r["b"][False], r["b"][True], r["c"][False],
+                    r["c"][(True, None)], r["c"][(True, P20_MOVES[True])],
+                    r["d"], r["e"]):
+            for k, n in run["counts"].items():
+                launches[k] = launches.get(k, 0) + n
+    p = res[0]["parts"]
+    print(f"[submesh] phase 20: {time.perf_counter() - t0:.1f} s (tp=1 "
+          f"references {t_ref - t0:.1f}, ranks {t_ranks - t_ref:.1f}: init "
+          f"{res[0]['init_s']:.1f}, (b) {p['(b)']:.1f}, (c) "
+          f"{p['(c)'] - p['(b)']:.1f}, (d) {p['(d)'] - p['(c)']:.1f}, (e) "
+          f"{p['(e)'] - p['(d)']:.1f}); peak device memory per rank "
+          f"{[round(r['peak'] / 2**30, 2) for r in res]} GiB; held by this "
+          f"process at the spawn {held_at_start / 2**30:.2f} GiB; launches "
+          f"of the {P20_WORLD} ranks {launches} ({smi})")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -8559,6 +9127,8 @@ def main() -> int:
     for name, n in phase_tp(smi).items():
         launches[name] += n
     for name, n in phase_ep(smi).items():
+        launches[name] += n
+    for name, n in phase_submesh(smi).items():
         launches[name] += n
     sources = {"gqa_decode": ("src/repro_torch/kernels/csrc/gqa_decode.cu",
                               "src/repro/kernels/gqa_decode.py:29"),

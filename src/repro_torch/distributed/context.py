@@ -33,12 +33,25 @@ by interprocess events (no host synchronisation). Every rank sums its
 peers' parts in rank order, so all hold the same bits. The process group
 sets these up; under NCCL (a card a rank) it runs the tensor collectives
 itself, on each rank's own card.
+
+A mesh may be a submesh of the process group (a fleet's pool on ranks of
+its own). Every rank makes the context of every submesh, at the same
+point, since a process group is made by all ranks together; a rank
+outside the mesh holds a context that says so (``member``) and runs none
+of the mesh's collectives. Three exchanges span every rank of the
+group (``world_context``), for what the ranks outside a mesh must see:
+``broadcast_object`` (rank 0's routing decisions), ``share`` (a mesh's
+readbacks, from its lead) and ``gather_whole`` (a tensor made whole from
+the slices some ranks hold, on others: a pool's weights and host KV
+moving to another submesh).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import datetime
+import math
 import os
 import pickle
 import shutil
@@ -54,9 +67,6 @@ import torch.distributed as dist
 from repro_torch.launch.mesh import Mesh
 
 # the later slices of the port's sharded path, named by every refusal
-SLICE_SUBMESH = ("the disjoint-submesh sharded-serving slice (pools on "
-                 "submeshes of their own, readbacks broadcast past each "
-                 "submesh, reprovision(tp=) to another degree)")
 SLICE_FAMILIES = ("the sharded-families slice (the non-dense families and "
                   "the sequence / block fallback under a mesh)")
 SLICE_HTTP = "the sharded-HTTP slice (--http at tp > 1)"
@@ -68,6 +78,7 @@ _WIDE = {torch.bfloat16: torch.float32, torch.float16: torch.float32}
 # shared files and its timeout (empty outside launch_ranks)
 _RANK: Dict[str, Any] = {}
 OBJECT_SLOT = 1 << 22          # bytes of one rank's pickled host object
+CHUNK_BYTES = 1 << 26          # bytes of one piece of ``gather_whole``
 
 
 def later(what: str, slice_name: str) -> NotImplementedError:
@@ -306,7 +317,10 @@ class _TensorRing(_Exchange):
                 self.bufs.append(torch.from_numpy(np.memmap(
                     path.format(p), np.uint8, "r+", shape=(self.cap,))))
 
-    def parts(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def parts(self, x: torch.Tensor, write: bool = True
+              ) -> List[torch.Tensor]:
+        """``write`` False posts nothing: ``x`` (a meta tensor will do)
+        gives only the shape and dtype of every part."""
         x = x.contiguous()
         nbytes = x.numel() * x.element_size()
         self.begin()
@@ -317,7 +331,8 @@ class _TensorRing(_Exchange):
             for ev in self.peer_done:          # peers done with my buffer
                 if ev is not None:
                     stream.wait_event(ev)
-        self.bufs[self.i][:nbytes].copy_(x.view(-1).view(torch.uint8))
+        if write:
+            self.bufs[self.i][:nbytes].copy_(x.view(-1).view(torch.uint8))
         if self.cuda:
             self.ev_write.record(stream)
         self.publish()
@@ -349,14 +364,18 @@ def _exchange(kind, ranks, group, device=None):
 @dataclasses.dataclass(frozen=True, eq=False)
 class ParallelContext:
     """One rank's view of a mesh: the axes' roles (as the reference's),
-    the rank, and the process group of its model-axis row (None where
-    the row is the whole group or this rank alone)."""
+    the rank, the process group of its model-axis row (None where the row
+    is the whole group or this rank alone) and that of the mesh (None
+    where the mesh is the whole group). A rank outside the mesh holds a
+    context too (``member`` False): it knows the mesh's ranks and its
+    lead, and runs none of its collectives."""
     mesh: Mesh
     data_axes: Tuple[str, ...] = ("data",)
     model_axis: str = "model"
     rank: int = 0
     group: Any = None          # this rank's model-axis row
     backend: str = ""
+    mesh_group: Any = None     # the mesh's ranks
 
     @property
     def all_axes(self) -> Tuple[str, ...]:
@@ -370,6 +389,16 @@ class ParallelContext:
     def tp(self) -> int:
         """Ranks along the model axis (the tensor-parallel degree)."""
         return self.mesh.shape[self.model_axis]
+
+    @property
+    def member(self) -> bool:
+        """Whether this rank is one of the mesh's."""
+        return self.rank in self.mesh.ranks
+
+    @property
+    def lead(self) -> int:
+        """The mesh's first rank: it publishes the mesh's readbacks."""
+        return self.mesh.ranks[0]
 
     def axis_index(self, axes) -> int:
         """This rank's index along ``axes`` (a name or a tuple of names,
@@ -464,6 +493,93 @@ class ParallelContext:
         ring.finish()
         return out
 
+    @contextlib.contextmanager
+    def _mesh_parts(self, t: Optional[torch.Tensor], shape, dtype, device):
+        """Every mesh rank's part of ``shape`` and ``dtype`` on ``device``,
+        by global rank, valid inside the block; a rank passing ``t`` None
+        posts nothing, and its part is not to be read."""
+        ranks = self.mesh.ranks
+        if self.backend == "nccl":
+            # each rank's own card; a host part goes there and back
+            card = torch.device("cuda", torch.cuda.current_device())
+            n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+            mine = (torch.zeros(n, dtype=torch.uint8, device=card)
+                    if t is None else
+                    t.contiguous().reshape(-1).view(torch.uint8).to(card))
+            every = [torch.empty_like(mine) for _ in ranks]
+            dist.all_gather(every, mine, group=self.mesh_group)
+            yield {r: p.view(dtype).view(shape).to(device)
+                   for r, p in zip(ranks, every)}
+            return
+        ring = _exchange("tensors", ranks, self.mesh_group,
+                         torch.device(device))
+        like = torch.empty(shape, dtype=dtype, device="meta") \
+            if t is None else t
+        parts = ring.parts(like, write=t is not None)
+        try:
+            yield dict(zip(ranks, parts))
+        finally:
+            ring.finish()
+
+    def gather_whole(self, part: Optional[torch.Tensor],
+                     senders: Sequence[int], receivers: Sequence[int],
+                     shape, dtype, axis: Optional[int], device,
+                     keep: Optional[Tuple[int, int, int]] = None
+                     ) -> Optional[torch.Tensor]:
+        """A tensor held in slices, made whole on ``receivers``: each of
+        ``senders`` (global ranks of the mesh, in slice order) holds its
+        slice ``part`` of ``shape`` (every other rank passes None), and
+        the whole is the slices concatenated along ``axis`` (None: each
+        sender holds the whole, and the first's is taken). ``keep`` =
+        (dim, lo, hi): a receiver gets only the whole's [lo, hi) along
+        ``dim`` (``axis`` itself where the slices are split), the rest
+        never copied. Every rank of the mesh takes part. The slices move
+        as raw bytes (exact for every dtype) in pieces of at most
+        ``CHUNK_BYTES`` along dim 0, so the exchange's buffers stay small
+        whatever the tensor. Returns the whole (or its kept part) on
+        ``device`` on a receiver, None elsewhere."""
+        shape = tuple(shape)
+        srcs = list(senders) if axis is not None else list(senders)[:1]
+        full = list(shape)
+        if axis is not None:
+            full[axis] *= len(srcs)
+        d = axis if axis is not None else 0
+        d, lo, hi = keep if keep is not None else (d, 0, full[d])
+        if axis is not None and d != axis:
+            raise ValueError(f"keep along dim {d} of slices split on {axis}")
+        kept = list(full)
+        kept[d] = hi - lo
+        out = torch.empty(kept, dtype=dtype, device=device) \
+            if self.rank in receivers else None
+        row = max(1, math.prod(shape[1:])
+                  * torch.empty((), dtype=dtype).element_size())
+        step = max(1, CHUNK_BYTES // row)
+        for i0 in range(0, shape[0], step):
+            i1 = min(shape[0], i0 + step)
+            mine = part[i0:i1] if part is not None \
+                and self.rank in srcs else None
+            with self._mesh_parts(mine, (i1 - i0, *shape[1:]), dtype,
+                                  device) as parts:
+                if out is None:
+                    continue
+                for j, s in enumerate(srcs):
+                    # the piece's place in the whole: its first row, and
+                    # its first index and extent along d
+                    row0 = i0 + (j * shape[0] if axis == 0 else 0)
+                    at = j * shape[d] if axis == d and d != 0 else 0
+                    ext = shape[d] if axis == d else full[d]
+                    if d == 0:
+                        a, b = max(row0, lo), min(row0 + i1 - i0, hi)
+                        if a < b:
+                            out[a - lo:b - lo].copy_(
+                                parts[s][a - row0:b - row0])
+                        continue
+                    a, b = max(at, lo), min(at + ext, hi)
+                    if a < b:
+                        out[row0:row0 + i1 - i0].narrow(d, a - lo, b - a) \
+                            .copy_(parts[s].narrow(d, a - at, b - a))
+        return out
+
     def mean_all(self, t: torch.Tensor) -> torch.Tensor:
         """The mean of ``t`` over every rank of the mesh, each axis of
         ``all_axes`` in turn (the reference's ``pmean`` over each), the
@@ -473,10 +589,10 @@ class ParallelContext:
         ranks = self.mesh.ranks           # the mesh's ranks, row-major
         if self.backend == "nccl":
             every = [torch.empty_like(t) for _ in ranks]
-            dist.all_gather(every, t.contiguous())
-            parts = [every[r] for r in ranks]
+            dist.all_gather(every, t.contiguous(), group=self.mesh_group)
+            parts = every
         else:
-            ring = _exchange("tensors", ranks, None, t.device)
+            ring = _exchange("tensors", ranks, self.mesh_group, t.device)
             parts = [p.clone() for p in ring.parts(t)]
             ring.finish()
         grid = torch.stack(parts).reshape(*self.mesh.devices.shape, *t.shape)
@@ -486,27 +602,39 @@ class ParallelContext:
         return grid.reshape(t.shape)
 
     def gather_object(self, obj: Any) -> List[Any]:
-        """Every mesh rank's ``obj``, in rank order (the mesh is the whole
-        process group)."""
+        """Every mesh rank's ``obj``, in the mesh's rank order."""
         if self.mesh.size == 1:
             return [obj]
-        return _exchange("objects", self.mesh.ranks, None).all_gather(obj)
+        return _exchange("objects", self.mesh.ranks,
+                         self.mesh_group).all_gather(obj)
 
     def broadcast_object(self, obj: Any) -> Any:
-        """Rank 0's ``obj`` (the mesh's first rank), on every rank of the
+        """The lead's ``obj`` (the mesh's first rank), on every rank of the
         mesh: a host decision every rank must take alike."""
-        first = self.rank == self.mesh.ranks[0]
-        return self.gather_object(obj if first else None)[0]
+        return self.gather_object(obj if self.rank == self.lead
+                                  else None)[0]
 
-    def assert_same(self, value, what: str) -> None:
-        """Raise on every rank when ``value`` (an array) differs between
-        the mesh's ranks: what each computed for itself must agree, or the
-        schedulers would drift apart."""
-        seen = self.gather_object(
-            zlib.crc32(np.ascontiguousarray(value).tobytes()))
-        if len(set(seen)) > 1:
+    def share(self, value, what: str):
+        """A readback of the mesh, on every rank of the process group: each
+        rank of the mesh passes its host array ``value``, every other rank
+        None. Every rank checks the mesh's arrays equal (what each member
+        computed must agree, or the schedulers would drift apart) and
+        returns the lead's, so a rank outside the mesh takes the mesh's
+        host decisions from it. One exchange of host objects: the lead
+        sends the array, the other members its crc32."""
+        if world_size() == 1:
+            return value
+        mine = None
+        if self.member:
+            crc = zlib.crc32(np.ascontiguousarray(value).tobytes())
+            mine = (crc, value if self.rank == self.lead else None)
+        seen = _exchange("objects", list(range(world_size())),
+                         None).all_gather(mine)
+        crcs = [seen[r][0] for r in self.mesh.ranks]
+        if len(set(crcs)) > 1:
             raise RuntimeError(f"{what} differs between the ranks of "
-                               f"{self.mesh}: crc32 {seen}")
+                               f"{self.mesh}: crc32 {crcs}")
+        return value if self.rank == self.lead else seen[self.lead][1]
 
 
 _CONTEXTS: Dict[Any, ParallelContext] = {}
@@ -515,45 +643,54 @@ _CONTEXTS: Dict[Any, ParallelContext] = {}
 def make_context(mesh: Mesh, data_axes: Optional[Sequence[str]] = None
                  ) -> ParallelContext:
     """This rank's context on ``mesh``: every axis but "model" is a data
-    axis, as in the reference. A mesh of more than one rank needs the
+    axis, as in the reference. A rank outside the mesh gets a context
+    whose ``member`` is False. A mesh of more than one rank needs the
     process group, and every rank of the group must make the context of
-    the same mesh at the same point (a row of the model axis that is not
-    the whole group gets a process group of its own, which all ranks
-    create together). One context a mesh and process: later calls
-    return it."""
+    the same mesh at the same point, members or not: a model-axis row
+    and a mesh that are not the whole group get process groups of their
+    own, which all ranks create together (a fleet makes the contexts of
+    all its submeshes at once). One context a mesh and process: later
+    calls return it."""
     if data_axes is None:
         data_axes = tuple(a for a in mesh.axis_names if a != "model")
     key = (mesh, tuple(data_axes), world_size())
     if key in _CONTEXTS:
         return _CONTEXTS[key]
-    rank = global_rank()
-    if rank not in mesh.ranks:
-        raise later(f"a mesh over ranks {mesh.ranks} seen from rank {rank}",
-                    SLICE_SUBMESH)
-    if mesh.size == 1:
-        ctx = ParallelContext(mesh=mesh, data_axes=tuple(data_axes),
-                              rank=rank)
-        _CONTEXTS[key] = ctx
-        return ctx
-    if not (dist.is_initialized() and _RANK):
-        raise RuntimeError(f"{mesh} spans {mesh.size} ranks: run it in "
-                           "ranks that launch_ranks started (serve.py "
-                           "--mesh / --tp do)")
-    if sorted(mesh.ranks) != list(range(world_size())):
-        raise later(f"a mesh over ranks {mesh.ranks} of a "
-                    f"{world_size()}-rank group", SLICE_SUBMESH)
-    rows = mesh.devices.reshape(-1, mesh.shape["model"])
-    group = None
-    if len(rows) > 1:
-        for row in rows:          # every rank creates every row's group
-            g = dist.new_group([int(r) for r in row])
-            if rank in row:
-                group = g
+    rank, world = global_rank(), world_size()
+    if not set(mesh.ranks) <= set(range(world)):
+        raise ValueError(f"{mesh} names ranks outside the {world}-rank "
+                         "process group")
+    group = mesh_group = None
+    backend = ""
+    if mesh.size > 1:
+        if not (dist.is_initialized() and _RANK):
+            raise RuntimeError(f"{mesh} spans {mesh.size} ranks: run it in "
+                               "ranks that launch_ranks started (serve.py "
+                               "--mesh / --tp do)")
+        whole = sorted(mesh.ranks) == list(range(world))
+        rows = mesh.devices.reshape(-1, mesh.shape["model"])
+        if len(rows) > 1 or not whole:
+            for row in rows:      # every rank creates every row's group
+                g = dist.new_group([int(r) for r in row])
+                if rank in row:
+                    group = g
+        if not whole:
+            mesh_group = (dist.new_group(mesh.ranks) if len(rows) > 1
+                          else group)
+        backend = dist.get_backend()
     ctx = ParallelContext(mesh=mesh, data_axes=tuple(data_axes), rank=rank,
-                          group=group,
-                          backend=dist.get_backend())
+                          group=group, backend=backend, mesh_group=mesh_group)
     _CONTEXTS[key] = ctx
     return ctx
+
+
+def world_context() -> ParallelContext:
+    """The context of every rank of the process group, one (1, world)
+    mesh: the ranks a fleet's host decisions, readbacks and reshards are
+    shared over. It makes no process group of its own, so any rank may
+    make it at any point."""
+    n = world_size()
+    return make_context(Mesh(np.arange(n).reshape(1, n), ("data", "model")))
 
 
 # -- ranks --------------------------------------------------------------------

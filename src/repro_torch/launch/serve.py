@@ -43,17 +43,23 @@ asyncio HTTP/SSE gateway with the closed-loop re-planner.
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --fleet 2 \
       --smoke --chaos --device cpu
 
-  # tensor-parallel: the K=2 fleet over 4 ranks (tp=4), and the batch
-  # launcher over a 2x2 (data x model) mesh; four processes on the CPU
+  # tensor-parallel: the K=2 fleet over 4 ranks (tp=4), the same fleet
+  # with each pool on a submesh of its own (tp=2: short on ranks 0-1,
+  # long on 2-3), and the batch launcher over a 2x2 (data x model) mesh;
+  # four processes on the CPU
   PYTHONPATH=src python -m repro_torch.launch.serve --fleet 2 --tp 4 \
       --reduced --decode-k 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --fleet 2 --tp 2 \
+      --mesh 1x4 --reduced --decode-k 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --mesh 2x2 --reduced \
       --batch 4 --prompt-len 16 --new-tokens 4 --device cpu
 
 The port of ``repro/launch/serve.py``. Runs on ``--device cuda`` (the
 default) and raises when no card is present; ``--device cpu`` runs the
 plain PyTorch versions of the kernels. ``--mesh DxM`` (the batch
-launcher) and ``--tp D`` (the fleet) spawn one process per rank
+launcher's mesh, or the fleet's, carved into submeshes of ``--tp D``
+ranks, pool i on submesh i % (D*M / tp)) and ``--tp D`` alone (the
+fleet on D ranks) spawn one process per rank
 (``distributed/context.launch_ranks``): every rank runs the same
 launcher on its shard, and rank 0 alone prints. The ranks share one
 card when there are fewer cards than ranks (a gloo group, the tensors
@@ -79,7 +85,8 @@ from repro_torch.core.workload import get_workload
 from repro_torch.device import resolve_device
 from repro_torch.distributed import context as PC
 from repro_torch.distributed import sharding as SH
-from repro_torch.launch.mesh import make_smoke_mesh, parse_mesh
+from repro_torch.launch.mesh import (make_smoke_mesh, make_submeshes,
+                                     parse_mesh)
 from repro_torch.models import model as M
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.pools import FleetRuntime, GatewayRequest
@@ -277,18 +284,18 @@ def _to_device(tree, device):
 
 def _check_ranks(args, cfg) -> None:
     """Refuse, before any rank is spawned, what the ranks would refuse:
-    a family or width the model axis cannot split, ``--http`` / ``--smoke``
-    at tp > 1, a fleet's mesh of more than one tp group."""
+    a family or width the model axis cannot split, a fleet's tp that does
+    not divide its mesh, ``--http`` / ``--smoke`` at tp > 1."""
     world = _world(args)
     tp = parse_mesh(args.mesh).shape["model"] if not args.fleet else args.tp
+    if world % tp:
+        raise ValueError(f"--tp {tp} does not divide the {world} ranks of "
+                         f"--mesh {args.mesh}")
     mesh = make_smoke_mesh(tp, world=world)
     ctx = PC.ParallelContext(mesh=mesh)
     M.check_supported(cfg, parallel=ctx)
     if args.fleet and (args.http is not None or args.smoke) and tp > 1:
         raise PC.later(f"--http / --smoke with --tp {tp}", PC.SLICE_HTTP)
-    if args.fleet and world != tp:
-        raise PC.later(f"a {world}-rank fleet of tp={tp} pools",
-                       PC.SLICE_SUBMESH)
 
 
 def build_fleet_runtime(args, *, slots_per_pool: int = 2, c_chunk: int = 16,
@@ -298,10 +305,11 @@ def build_fleet_runtime(args, *, slots_per_pool: int = 2, c_chunk: int = 16,
     parameter set on ``args.device`` (``params``, else
     ``init_params(seed=0)``). The plan's datacenter-token boundaries are
     scaled so the long pool's context is ``long_ctx`` tokens. Returns
-    (runtime, plan). Under ``--tp D`` (in a rank of a D-rank group) every
-    engine runs over the group's mesh, on this rank's ``device`` and
-    shard of the weights (a full ``params`` is cut per rank; None draws
-    the rank's shard, ``init_params(parallel=)``)."""
+    (runtime, plan). Under ``--tp D`` (in a rank of the group ``--mesh``
+    or ``--tp`` spawned) pool i runs over the mesh's submesh i % (ranks /
+    D) of D ranks, on this rank's ``device`` and its shard of the weights
+    for its submesh (a full ``params`` is cut per rank; None draws the
+    rank's shard, ``init_params(parallel=)``)."""
     w = get_workload(args.workload)
     plan = plan_k_pool(w, lam=args.lam, t_slo=0.5, k=args.fleet)
     print(f"plan: {plan.summary()}")
@@ -310,15 +318,21 @@ def build_fleet_runtime(args, *, slots_per_pool: int = 2, c_chunk: int = 16,
               f"rho={pp.utilization:.3f} ttft_p99={pp.ttft_p99_s*1e3:.0f}ms")
     device = device or resolve_device(args.device)
     cfg = model_config(args)
-    mesh = make_smoke_mesh(args.tp) if args.tp > 1 else None
+    mesh, par = None, None
+    if _world(args) > 1:
+        mesh = (parse_mesh(args.mesh) if args.mesh not in ("", "1x1")
+                else make_smoke_mesh(args.tp, world=_world(args)))
+        # every rank makes every submesh's context, in order; this rank's
+        # own is the one it is a member of
+        subs = [PC.make_context(m) for m in make_submeshes(mesh, args.tp)]
+        par = next(c for c in subs if c.member)
     if params is None:
-        params = (M.init_params(cfg, seed=0, device=device,
-                                parallel=PC.make_context(mesh))
-                  if mesh is not None
+        params = (M.init_params(cfg, seed=0, device=device, parallel=par)
+                  if par is not None
                   else M.init_params(cfg, seed=0, device=device))
-    elif mesh is not None:
-        params = _to_device(SH.rank_shard(params, PC.make_context(mesh),
-                                          cfg.vocab_size), device)
+    elif par is not None:
+        params = _to_device(SH.rank_shard(params, par, cfg.vocab_size),
+                            device)
     scfg = ServingConfig(
         paged=args.paged or args.prefix_cache or args.preemption,
         prefix_cache=args.prefix_cache, decode_k=args.decode_k,
@@ -413,7 +427,7 @@ def serve_fleet(args, **build_kw):
                   f"L_eff={d.l_total_effective}")
             rid += 1
             results.update(rt.run(max_iters=20_000))
-    if next(iter(rt.engines.values())).device.type == "cuda":
+    if rt.device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     done = sum(len(res.output_tokens) for res in results.values())

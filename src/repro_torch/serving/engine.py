@@ -83,9 +83,18 @@ each readback is checked equal across the ranks. With
 ``decode_impl="kernel"`` each rank launches the decode kernels on its
 local heads, an ordinary unsharded cache, where the reference's sharded
 engine falls back to XLA (``pallas_fallback`` stays False here). The
-dense decoder is served so; the other families, a mesh that is not the
-whole process group, and heads that tp does not divide raise
-NotImplementedError naming the later slice.
+dense decoder and the MoE decoder are served so; the other families and
+heads that tp does not divide raise NotImplementedError naming the later
+slice.
+
+The mesh may be a submesh of the process group (a fleet's pool on its
+own ranks). Every rank of the group still runs the engine's host logic
+on the same requests: a rank outside the mesh (``member`` False) holds no
+weights and no cache and skips every device dispatch, and takes each
+dispatch's host result from the mesh's lead (``ParallelContext.share``).
+Its host KV tier holds the same states as a member's, a swapped request
+marked as holding KV with no rows (an empty ``host_kv``), so it takes the
+swap path wherever the members do.
 """
 from __future__ import annotations
 
@@ -200,10 +209,14 @@ class InferenceEngine:
         M.check_supported(cfg, parallel=self.parallel)
         self.config = scfg
         self.cfg = cfg
-        if self.tp_degree > 1:
+        # a rank outside the mesh holds nothing of the engine on a device
+        self.member = self.parallel is None or self.parallel.member
+        if not self.member:
+            params = None
+        elif self.tp_degree > 1:
             params = SH.rank_shard(params, self.parallel, cfg.vocab_size)
         self.params = params
-        self.device = params["embed"].device
+        self.device = params["embed"].device if self.member else None
         self.decode_impl = scfg.decode_impl
         self.n_max = n_max
         self.c_max = c_max
@@ -218,10 +231,11 @@ class InferenceEngine:
             self.blocks_per_slot = math.ceil(c_max / self.block_size)
             self.num_blocks = (scfg.num_blocks if scfg.num_blocks is not None
                                else n_max * self.blocks_per_slot)
-            self.cache = M.init_paged_cache(cfg, self.num_blocks,
-                                            self.block_size,
-                                            device=self.device,
-                                            parallel=self.parallel)
+            self.cache = (M.init_paged_cache(cfg, self.num_blocks,
+                                             self.block_size,
+                                             device=self.device,
+                                             parallel=self.parallel)
+                          if self.member else None)
             # host-side allocator: free list, worst-case reservations and
             # per-slot tables
             self._free: List[int] = list(range(self.num_blocks))
@@ -253,8 +267,9 @@ class InferenceEngine:
             # allocator touched it
             self._bt_device = None
         else:
-            self.cache = M.init_cache(cfg, n_max, c_max, device=self.device,
-                                      parallel=self.parallel)
+            self.cache = (M.init_cache(cfg, n_max, c_max, device=self.device,
+                                       parallel=self.parallel)
+                          if self.member else None)
         # per-slot host state
         self.slot_req: List[Optional[ServeRequest]] = [None] * n_max
         self.slot_pos = np.zeros(n_max, np.int32)        # next position
@@ -332,21 +347,25 @@ class InferenceEngine:
 
     def devices(self) -> List[int]:
         """The global ranks this engine spans (each holds one shard; one
-        rank without a mesh)."""
+        rank without a mesh), the same list on every rank."""
         return self.mesh.ranks if self.mesh is not None else [0]
 
     def cache_bytes_per_device(self) -> int:
         """KV-cache bytes on this rank: 1/tp of the unsharded engine's
-        under the kv-head split."""
+        under the kv-head split (0 on a rank outside the mesh)."""
+        if not self.member:
+            return 0
         return sum(a.numel() * a.element_size()
                    for a in _leaves(self.cache))
 
-    def _readback(self, t: torch.Tensor, what: str) -> np.ndarray:
-        """The host copy of a dispatch's tokens, checked equal on every
-        rank of the mesh (the schedulers would drift apart otherwise)."""
-        out = t.cpu().numpy()
+    def _readback(self, t: Optional[torch.Tensor], what: str) -> np.ndarray:
+        """The host copy of a dispatch's tokens (``t``; None on a rank
+        outside the mesh, which dispatched nothing), checked equal on
+        every rank of the mesh (the schedulers would drift apart
+        otherwise) and shared with every rank of the process group."""
+        out = t.cpu().numpy() if self.member else None
         if self.parallel is not None:
-            self.parallel.assert_same(out, what)
+            out = self.parallel.share(out, what)
         return out
 
     # ------------------------------------------------------------------ API
@@ -841,10 +860,14 @@ class InferenceEngine:
         """Device->host copy of slot ``s``'s KV: exactly its block-table
         entries (shared prefix blocks included: the originals may be
         evicted before resume), or its dense cache row (VLM: with its
-        cross memory). The host copy aliases no device memory."""
+        cross memory). The host copy aliases no device memory. A rank
+        outside the mesh copies nothing: its state holds an empty dict."""
         if self.paged:
             blocks = self._slot_blocks[s]
             self.overload_stats["swapped_blocks"] += len(blocks)
+        if not self.member:
+            return {}
+        if self.paged:
             idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
             return {k: L.gather_blocks(a, idx).cpu()
                     for k, a in self.cache["kv"].items()}
@@ -875,7 +898,7 @@ class InferenceEngine:
             self._bt_device = None
             self._reserved += worst - n
             self._slot_reserved[s] = worst - n
-            if n:
+            if n and self.member:
                 idx = torch.tensor(fresh, dtype=torch.long,
                                    device=self.device)
                 for k, a in self.cache["kv"].items():
@@ -885,7 +908,7 @@ class InferenceEngine:
             # duplicate hashes
             self._slot_hashes[s] = []
             self._slot_registered[s] = 0
-        else:
+        elif self.member:
             for k, a in self._row_leaves().items():
                 L.scatter_slot_row(a, state.host_kv[k].to(self.device), s)
         self.waiting.pop(qi)
@@ -1092,17 +1115,18 @@ class InferenceEngine:
 
     def _run_prefill_chunks(self, chunks: Dict[int, List[int]]) -> None:
         tokens, lengths = self._bucket_chunks(chunks)
-        tokens, start, lengths = (self._upload(tokens),
-                                  self._upload(self.slot_pos),
-                                  self._upload(lengths))
-        if self.paged:
-            M.paged_prefill_chunk(self.params, self.cfg, tokens, self.cache,
-                                  self._block_table_device(), start, lengths,
-                                  parallel=self.parallel)
-        else:
-            M.prefill_chunk(self.params, self.cfg, tokens, self.cache, start,
-                            lengths, decode_impl=self.decode_impl,
-                            parallel=self.parallel)
+        if self.member:               # the mesh's ranks prefill
+            tokens, start, lengths = (self._upload(tokens),
+                                      self._upload(self.slot_pos),
+                                      self._upload(lengths))
+            if self.paged:
+                M.paged_prefill_chunk(self.params, self.cfg, tokens,
+                                      self.cache, self._block_table_device(),
+                                      start, lengths, parallel=self.parallel)
+            else:
+                M.prefill_chunk(self.params, self.cfg, tokens, self.cache,
+                                start, lengths, decode_impl=self.decode_impl,
+                                parallel=self.parallel)
         self.dispatches += 1
         self._advance_prefill_host(chunks)
 
@@ -1273,11 +1297,12 @@ class InferenceEngine:
                 or self.slot_pos[s] >= self.c_max)
 
     def _run_decode(self, mask: np.ndarray) -> None:
-        logits = self._decode_logits(self._upload(self.slot_last_tok[:, None]),
-                                     self._upload(self.slot_pos),
-                                     self._upload(mask))
-        next_tok = self._readback(torch.argmax(logits, dim=-1),
-                                  "the decode dispatch's tokens")
+        tok = None
+        if self.member:
+            tok = torch.argmax(self._decode_logits(
+                self._upload(self.slot_last_tok[:, None]),
+                self._upload(self.slot_pos), self._upload(mask)), dim=-1)
+        next_tok = self._readback(tok, "the decode dispatch's tokens")
         self.dispatches += 1
         self.decode_dispatches += 1
         self._decode_only_tokens += int(mask.sum())
@@ -1292,8 +1317,11 @@ class InferenceEngine:
         completion rule to update its mirrors without dirtying the
         device state."""
         k = self.decode_k
-        state, emitted = self._decode_loop(*self._device_decode_state(mask))
-        self._dev_state = state
+        emitted = None
+        if self.member:
+            state, emitted = self._decode_loop(
+                *self._device_decode_state(mask))
+            self._dev_state = state
         self.dispatches += 1
         self.decode_dispatches += 1
         emitted = self._readback(emitted,       # the single host sync
@@ -1343,15 +1371,17 @@ class InferenceEngine:
                 drafts[s, :len(d)] = d
                 dlen[s] = len(d)
                 self.spec_stats["drafted_tokens"] += len(d)
-        state, emitted, fed = self._spec_loop(
-            *self._device_decode_state(mask), self._upload(drafts),
-            self._upload(dlen))
-        self._dev_state = state
+        both = None
+        if self.member:
+            state, emitted, fed = self._spec_loop(
+                *self._device_decode_state(mask), self._upload(drafts),
+                self._upload(dlen))
+            self._dev_state = state
+            both = torch.cat([emitted, fed[..., None]], dim=2)
         self.dispatches += 1
         self.decode_dispatches += 1
         # the single host sync: emitted tokens and drafts fed, one copy
-        out = self._readback(torch.cat([emitted, fed[..., None]], dim=2),
-                             "the verify windows' tokens")
+        out = self._readback(both, "the verify windows' tokens")
         emitted, fed = out[..., :w_max], out[..., w_max]
         self.iteration += k - 1              # step() already added 1
         for s in np.where(mask)[0]:
@@ -1402,21 +1432,23 @@ class InferenceEngine:
         """Fused prefill + decode dispatch: one model call advances all
         pending chunks and all decode rows (M.mixed_step)."""
         tokens, lengths = self._bucket_chunks(chunks)
-        pos = self._upload(self.slot_pos)
-        toks = self._upload(self.slot_last_tok[:, None])
-        if self.paged:
-            logits, _ = M.paged_mixed_step(
-                self.params, self.cfg, self._upload(tokens), self.cache,
-                self._block_table_device(), pos, self._upload(lengths), toks,
-                self._upload(mask), decode_impl=self.decode_impl,
-                parallel=self.parallel)
-        else:
-            logits, _ = M.mixed_step(
-                self.params, self.cfg, self._upload(tokens), self.cache, pos,
-                self._upload(lengths), toks, self._upload(mask),
-                decode_impl=self.decode_impl, parallel=self.parallel)
-        next_tok = self._readback(torch.argmax(logits, dim=-1),
-                                  "the mixed dispatch's tokens")
+        nxt = None                    # the mesh's ranks dispatch
+        if self.member:
+            pos = self._upload(self.slot_pos)
+            toks = self._upload(self.slot_last_tok[:, None])
+            if self.paged:
+                logits, _ = M.paged_mixed_step(
+                    self.params, self.cfg, self._upload(tokens), self.cache,
+                    self._block_table_device(), pos, self._upload(lengths),
+                    toks, self._upload(mask), decode_impl=self.decode_impl,
+                    parallel=self.parallel)
+            else:
+                logits, _ = M.mixed_step(
+                    self.params, self.cfg, self._upload(tokens), self.cache,
+                    pos, self._upload(lengths), toks, self._upload(mask),
+                    decode_impl=self.decode_impl, parallel=self.parallel)
+            nxt = torch.argmax(logits, dim=-1)
+        next_tok = self._readback(nxt, "the mixed dispatch's tokens")
         self.dispatches += 1
         self._dev_dirty = True
         self._advance_prefill_host(chunks)

@@ -24,16 +24,22 @@ crash, ``reconfigure.recover_pool`` rebuilds it and blacks the pool out
 for a while (``pool_down_until``), during which ``submit`` raises
 ``PoolDownError``. ``reprovision_stats`` counts both.
 
-Sharded serving: with ``mesh`` and ``tp_degree`` every pool's engine
-runs tensor-parallel over one rank group of ``tp_degree`` ranks (an SPMD
-program, ``distributed/context.py``), and all engines on a rank share
-that rank's shard of the weights (``device_placement`` maps each pool to
-its ranks). Every rank holds the same requests and takes the same host
-decisions: rank 0 routes each request (the C&R compressor and its
-TextRank launch run there alone) and reads the blackout clock, and the
-ranks receive its decision. A mesh carved into more than one submesh
-comes with a later slice, which must broadcast each engine's readbacks
-to the ranks outside its submesh.
+Sharded serving: with ``mesh`` and ``tp_degree`` the mesh (every rank of
+the process group, one process a rank: an SPMD program,
+``distributed/context.py``) is carved into submeshes of ``tp_degree``
+consecutive ranks (``launch/mesh.make_submeshes``), and pool i's engine
+runs tensor-parallel on submesh ``i % len(subs)``, as the reference
+places it: with fewer submeshes than pools the placement wraps round
+robin and pools share a rank group (``device_placement`` maps each pool
+to its ranks). A rank holds one shard set of the weights for each
+distinct submesh it belongs to (``shards``; pools on one submesh share
+it) and nothing of a pool outside its submesh. Every rank holds the same
+requests and takes the same host decisions, for every pool: rank 0
+routes each request (the C&R compressor and its TextRank launch run
+there alone) and reads the blackout clock, and the ranks receive its
+decision over the fleet's world context; a pool's readbacks reach the
+ranks outside its submesh from the submesh's lead (``InferenceEngine.
+_readback``). The pools step one after another on every rank.
 """
 from __future__ import annotations
 
@@ -52,10 +58,10 @@ from repro_torch.core.router import GatewayRouter, RoutingDecision
 from repro_torch.core.workload import (OutputLenPredictor, Request,
                                        get_workload)
 from repro_torch.distributed import sharding as SH
-from repro_torch.distributed.context import (SLICE_SUBMESH, later,
-                                             make_context)
+from repro_torch.distributed.context import (make_context, world_context,
+                                             world_size)
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import make_submeshes
+from repro_torch.launch.mesh import Mesh, make_submeshes
 from repro_torch.serving import reconfigure
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.engine import (InferenceEngine, ServeRequest,
@@ -121,17 +127,30 @@ class FleetRuntime:
                 raise ValueError(
                     f"pool {i} context {c_maxes[i]} < its boundary {b}: "
                     "compressed requests could overflow the KV cache")
-        # -- placement: one rank group of tp_degree ranks serves every pool
+        # -- placement: pool i on submesh i % len(subs) of tp_degree ranks
         self.tp_degree = scfg.tp_degree
-        self.submesh, self.parallel = None, None
+        # the weights by the mesh of the engines that run them: the one
+        # set of a fleet without a mesh under None; under a mesh, this
+        # rank's shard set of each submesh it belongs to
+        self.shards: Dict[Optional[Mesh], dict] = {}
+        self.world = None
+        places: List[Optional[Mesh]] = [None] * k
         if scfg.mesh is not None:
-            subs = make_submeshes(scfg.mesh, scfg.tp_degree)
-            if len(subs) > 1:
-                raise later(f"a fleet over {len(subs)} tp={scfg.tp_degree} "
-                            f"submeshes of {scfg.mesh}", SLICE_SUBMESH)
-            self.submesh = subs[0]
-            self.parallel = make_context(self.submesh)
-            params = SH.rank_shard(params, self.parallel, cfg.vocab_size)
+            if sorted(scfg.mesh.ranks) != list(range(world_size())):
+                raise ValueError(
+                    f"a fleet's mesh must span every rank of the "
+                    f"{world_size()}-rank process group (every rank runs "
+                    f"the fleet's host logic): {scfg.mesh}")
+            self.world = world_context()
+            subs = self.submeshes(scfg.tp_degree)
+            places = [subs[i % len(subs)] for i in range(k)]
+            for m in dict.fromkeys(places):
+                ctx = make_context(m)
+                if ctx.member:
+                    self.shards[m] = SH.rank_shard(params, ctx,
+                                                   cfg.vocab_size)
+        else:
+            self.shards[None] = params
         self.cfg = cfg
         self.tokenizer = ByteChunkTokenizer(cfg.vocab_size)
         # per-category output-length model, fed by record_completion;
@@ -144,7 +163,7 @@ class FleetRuntime:
         # C&R scores sentences with TextRank on the params' device: the
         # CUDA kernel on its own stream on the card, the plain version
         # on the CPU
-        device = params["embed"].device
+        device = self.device = params["embed"].device
         self.gateway_stream = (torch.cuda.Stream(device)
                                if device.type == "cuda" else None)
         scorer = functools.partial(ops.textrank_scores, device=device,
@@ -155,14 +174,14 @@ class FleetRuntime:
             lout_predictor=(self.lout_predictor
                             if scfg.lout_routing else None))
         names = pool_names(k)
+        # engine rebuilds (reprovision, recover_pool) take these sets too,
+        # never a second copy
         self.engines: Dict[str, InferenceEngine] = {
-            names[i]: InferenceEngine(cfg, params, n_maxes[i], c_maxes[i],
-                                      config=scfg.replace(mesh=self.submesh,
+            names[i]: InferenceEngine(cfg, self.params_for(places[i]),
+                                      n_maxes[i], c_maxes[i],
+                                      config=scfg.replace(mesh=places[i],
                                                           tp_degree=1))
             for i in range(k)}
-        # the one parameter set on the device (this rank's shard): engine
-        # rebuilds (reprovision, recover_pool) take it, never a second copy
-        self.params = params
         self._decisions: Dict[int, RoutingDecision] = {}
         self._categories: Dict[int, str] = {}
         self.reprovision_stats = {"rebuilds": 0, "engine_restarts": 0,
@@ -171,6 +190,9 @@ class FleetRuntime:
                                   "autoscale_actions": 0}
         # pool -> monotonic deadline while crash recovery blacks it out
         self.pool_down_until: Dict[str, float] = {}
+        # one crc record a host KV leaf moved between submeshes by a
+        # reprovision or a recovery, oldest first (reconfigure._reshard_kv)
+        self.moved_rows: List[dict] = []
         # per-pool GPU counts of the plan this fleet was provisioned from
         # (from_plan sets it): the re-planner's hysteresis baseline
         self.plan_pool_gpus: Optional[List[int]] = None
@@ -181,17 +203,38 @@ class FleetRuntime:
 
     def device_placement(self) -> Dict[str, List[int]]:
         """pool name -> the global ranks its engine spans (one rank on a
-        runtime without a mesh)."""
+        runtime without a mesh), the same on every rank."""
         return {name: eng.devices() for name, eng in self.engines.items()}
+
+    def submeshes(self, tp: int) -> List[Mesh]:
+        """The fleet mesh's submeshes of ``tp`` ranks, each with its
+        context made: every rank makes all of them, in order, at the same
+        point (their process groups are made by every rank together)."""
+        subs = make_submeshes(self.config.mesh, tp)
+        for m in subs:
+            make_context(m)
+        return subs
+
+    def params_for(self, mesh: Optional[Mesh]):
+        """The weights an engine on ``mesh`` runs on this rank: the fleet's
+        one set without a mesh, this rank's shard set of ``mesh``, or None
+        on a rank outside it."""
+        return self.shards.get(mesh)
+
+    def drop_unused_shards(self) -> None:
+        """Free the shard sets of submeshes no engine runs on any more."""
+        used = {eng.mesh for eng in self.engines.values()}
+        for m in [m for m in self.shards if m not in used]:
+            del self.shards[m]
 
     def _route(self, r: Request, req: GatewayRequest):
         """(routing decision, seconds left of the pool's blackout or
-        None): taken on rank 0 and received by the other ranks of a
-        sharded fleet, so every rank enqueues the same request on the
-        same pool (the compressor's kept sentences and the blackout clock
-        are rank 0's)."""
-        par = self.parallel
-        if par is None or par.rank == par.mesh.ranks[0]:
+        None): taken on rank 0 and received by every other rank of a
+        sharded fleet over its world context, so every rank enqueues the
+        same request on the same pool (the compressor's kept sentences
+        and the blackout clock are rank 0's)."""
+        par = self.world
+        if par is None or par.rank == par.lead:
             d = self.router.route(r, prompt_text=req.text,
                                   session=req.session)
             left = (self.pool_down_until[d.pool] - time.monotonic()
@@ -292,8 +335,8 @@ class FleetRuntime:
                     tp: Optional[int] = None) -> Dict[str, object]:
         """Rebuild one pool's engine with a new slot count or context,
         migrating every in-flight request through the host KV tier with
-        the tokens of an uninterrupted run (``reconfigure.reprovision``;
-        ``tp`` raises NotImplementedError)."""
+        the tokens of an uninterrupted run; ``tp`` moves it onto the fleet
+        mesh's submesh of that degree (``reconfigure.reprovision``)."""
         return reconfigure.reprovision(self, pool, n_max=n_max,
                                        c_max=c_max, tp=tp)
 

@@ -2,7 +2,8 @@
 ``repro/serving/reconfigure.py``.
 
 ``reprovision`` tears a loaded engine down and rebuilds it with another
-slot count or context window without dropping an in-flight request:
+slot count, context window or tensor-parallel degree without dropping an
+in-flight request:
 
     quiesce -> checkpoint -> rebuild -> restore
 
@@ -14,7 +15,9 @@ slot count or context window without dropping an in-flight request:
    replay token list and, on the swap path, the slot's exact KV bits as
    CPU tensors.
 3. rebuild: a new ``InferenceEngine`` over the runtime's one parameter
-   set (``runtime.params``, already on the card: no second copy).
+   set (``runtime.params_for(None)``, already on the card: no second
+   copy), or, under a mesh, over this rank's shard set of the engine's
+   submesh.
 4. restore: checkpointed requests move ahead of queued ones;
    ``_adopt_state`` fits swap-path KV to the new geometry (dense rows are
    zero-padded or truncated along the seq axis on the host; paged blocks
@@ -33,24 +36,44 @@ allocator, or wedges ``step()``; ``HealthPolicy`` detects the stall; and
 and re-routes them one pool up, where the no-OOM guarantee holds by
 construction (band_i requests fit pool i+1's larger context).
 
-A sharded fleet (one rank group, ``FleetRuntime(mesh=, tp_degree=)``)
-re-provisions and recovers at its tp over the same group: every rank
-runs the same steps, salvages and re-adopts its own shard's host rows,
-and rebuilds its part of the engine over its shard of the weights.
-``reprovision(tp=)`` to another degree comes with a later slice.
+A sharded fleet (``FleetRuntime(mesh=, tp_degree=)``, each pool on a
+submesh of its own) re-provisions and recovers on every rank alike:
+every rank runs the same steps and salvages the same host states, and a
+member of the engine's submesh rebuilds its part over its shard set.
+``reprovision(tp=)`` moves the pool onto the fleet mesh's submesh of
+that degree, pool i on ``make_submeshes(mesh, tp)[i % len(subs)]`` as
+the reference places it. The reference re-shards from pristine host
+params and scatters a full host KV copy into any submesh; the port keeps
+only rank shards, so the move is an exchange over the fleet's world
+context: each rank of the new submesh receives its slice of each weight
+leaf from the old submesh's slices, one leaf at a time
+(``reshard_params``); each swapped request's host rows are made
+whole along the kv-head axis from the old members' heads and split for
+the new degree, bitwise (``_reshard_kv``), so no request falls back to
+the recompute path. A request that moves between pools on different
+submeshes (a misfit re-routed one pool up, a salvaged one after a crash)
+has its rows moved the same way.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import time
+import zlib
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.context import SLICE_SUBMESH, later
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.context import make_context, world_context
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models import model as M
 from repro_torch.serving.engine import (InferenceEngine, ServeRequest,
                                         _PreemptedState)
+
+# the kv-head axis of each host KV leaf, counted from its end (the
+# serving cache's split, ``sharding.serving_cache_specs``)
+_HEAD_AXIS = {"k": -2, "v": -2, "k_scale": -1, "v_scale": -1}
 
 
 class PoolDownError(RuntimeError):
@@ -117,6 +140,8 @@ def _adopt_state(state: _PreemptedState, src: InferenceEngine,
             and state.n_blocks <= dst.blocks_per_slot:
         return state
     if not src.paged and not dst.paged:
+        if not dst.member:
+            return state             # no rows on this rank to fit
         n = next(iter(dst.cache["kv"].values())).shape[2]
         kv = {k: h if k in ("xk", "xv") else _fit_seq(h, 1, n)
               for k, h in state.host_kv.items()}
@@ -124,14 +149,103 @@ def _adopt_state(state: _PreemptedState, src: InferenceEngine,
     return dataclasses.replace(state, host_kv=None, n_blocks=0, pos=0)
 
 
+def _crc(t: torch.Tensor) -> int:
+    return zlib.crc32(t.contiguous().reshape(-1).view(torch.uint8)
+                      .numpy().tobytes())
+
+
+def _reshard_kv(state: _PreemptedState, src: InferenceEngine,
+                dst: InferenceEngine, log: Optional[list] = None
+                ) -> _PreemptedState:
+    """A swapped request's host rows moved from ``src``'s submesh to
+    ``dst``'s: each leaf made whole along its kv-head axis from the old
+    members' heads (over the world context, every rank taking part),
+    and each new member keeping its heads for ``dst``'s degree; a rank
+    outside ``dst``'s submesh keeps an empty dict. Bitwise: raw bytes
+    move. Paged blocks and dense rows alike, int8 scales included.
+    ``log`` gets one record a leaf: the crc32 of each old member's rows
+    as sent ("sent", on an old member) and of each old member's head
+    range of the whole as received ("got", on a new member)."""
+    if state.host_kv is None or src.mesh == dst.mesh:
+        return state
+    world = world_context()
+    mine = None
+    if src.member and src.parallel.rank == src.parallel.lead:
+        mine = {k: (tuple(h.shape), h.dtype)
+                for k, h in state.host_kv.items()}
+    layout = world.gather_object(mine)[src.parallel.lead]
+    rows = {}
+    for k, (shape, dtype) in layout.items():
+        axis = _HEAD_AXIS[k] % len(shape)
+        part = state.host_kv[k] if src.member else None
+        whole = world.gather_whole(part, src.devices(), dst.devices(),
+                                   shape, dtype, axis, "cpu")
+        rec = {"rid": state.req.rid, "leaf": k,
+               "sent": _crc(part) if part is not None else None,
+               "got": None}
+        if whole is not None:
+            h = shape[axis]
+            rec["got"] = [_crc(whole.narrow(axis, j * h, h))
+                          for j in range(len(src.devices()))]
+            n = whole.shape[axis] // dst.tp_degree
+            rows[k] = whole.narrow(axis, dst.parallel.model_rank * n,
+                                   n).clone()
+        if log is not None:
+            log.append(rec)
+    return dataclasses.replace(state, host_kv=rows)
+
+
+def reshard_params(params, src: Mesh, dst: Mesh, device):
+    """This rank's shard set of ``dst`` (None outside it), built from
+    ``src``'s shards (``params``: this rank's, None outside ``src``) one
+    leaf at a time over the world context, every rank taking part: each
+    of ``dst``'s ranks receives its own slice of the leaf from the slices
+    ``src``'s ranks hold (``ParallelContext.gather_whole`` with ``keep``).
+    ``src``'s lead publishes the leaves' paths, shapes and dtypes; a leaf
+    is split along the dim the partition rules pick at any degree that
+    divides the widths (the model's check refuses the others), the same
+    dim at both degrees, so no unsharded tree is drawn and no rank holds
+    more of a leaf than its new slice; no host copy is made."""
+    world, old, new = world_context(), make_context(src), make_context(dst)
+    mine = []
+    if old.member and old.rank == old.lead:
+        SH._map_with_path(lambda path, a: mine.append(
+            (path, tuple(a.shape), a.dtype)), params)
+    out: dict = {}
+    for path, shape, dtype in world.gather_object(mine)[old.lead]:
+        spec = SH.param_spec(path, torch.empty(shape, device="meta"),
+                             old.model_axis, 1)
+        split = [d for d, e in enumerate(spec) if e is not None]
+        axis = split[0] if split and old.tp > 1 else None
+        keep = None
+        if split and new.tp > 1 and new.member:
+            n = shape[split[0]] * (old.tp if axis is not None else 1) \
+                // new.tp
+            keep = (split[0], new.model_rank * n, (new.model_rank + 1) * n)
+        part = params
+        for key in path if old.member else ():
+            part = part[key]
+        got = world.gather_whole(part if old.member else None, src.ranks,
+                                 dst.ranks, shape, dtype, axis, device, keep)
+        if got is not None:
+            node = out
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = got
+    return out if new.member else None
+
+
 def _move_request(src: InferenceEngine, dst: InferenceEngine,
                   req: ServeRequest,
-                  state: Optional[_PreemptedState]) -> None:
+                  state: Optional[_PreemptedState],
+                  log: Optional[list] = None) -> None:
     """Move one queued or checkpointed request from ``src`` to the tail of
-    ``dst``'s queue with its accounting. The enqueue time is re-keyed to
-    ``dst``'s iteration clock."""
+    ``dst``'s queue with its accounting (a swapped request's host rows
+    resharded to ``dst``'s submesh, :func:`_reshard_kv`). The enqueue
+    time is re-keyed to ``dst``'s iteration clock."""
     rid = req.rid
     if state is not None:
+        state = _reshard_kv(state, src, dst, log)
         dst._preempted[rid] = _adopt_state(state, src, dst)
     dst.waiting.append(req)
     dst._enqueued_at[rid] = dst.iteration
@@ -150,19 +264,21 @@ def _move_request(src: InferenceEngine, dst: InferenceEngine,
 def reprovision(runtime, pool: str, *, n_max: Optional[int] = None,
                 c_max: Optional[int] = None,
                 tp: Optional[int] = None) -> Dict[str, object]:
-    """Rebuild ``runtime.engines[pool]`` with a new slot count or context
-    window, migrating every in-flight and queued request with the tokens
-    of an uninterrupted run.
+    """Rebuild ``runtime.engines[pool]`` with a new slot count, context
+    window or tensor-parallel degree (``tp``: the fleet mesh's submesh of
+    that degree, pool i on ``make_submeshes(mesh, tp)[i % len(subs)]``),
+    migrating every in-flight and queued request with the tokens of an
+    uninterrupted run. A new submesh's weights are resharded from the old
+    one's (:func:`reshard_params`) unless another pool already runs on
+    it, and the old shard set is freed once no pool uses it.
 
     In-flight requests the new geometry cannot hold re-route one pool up
     (their band fits the larger pool by construction); shrinking the TOP
-    pool below an in-flight request's footprint is refused up front,
-    before any state is touched. ``tp`` other than the fleet's own
-    degree raises NotImplementedError, also before any state is touched;
-    the fleet's own rebuilds at it."""
-    if tp is not None and int(tp) != runtime.tp_degree:
-        raise later(f"reprovision(tp={tp!r}) of a tp={runtime.tp_degree} "
-                    "fleet", SLICE_SUBMESH)
+    pool below an in-flight request's footprint, and a ``tp`` the mesh
+    cannot be carved by, are refused up front, before any state is
+    touched. Every rank of a sharded fleet calls this at the same point;
+    each host leaf moved to another submesh adds its crc record
+    (:func:`_reshard_kv`) to ``runtime.moved_rows``."""
     names = list(runtime.engines)
     if pool not in runtime.engines:
         raise KeyError(f"unknown pool {pool!r} (have {names})")
@@ -179,6 +295,14 @@ def reprovision(runtime, pool: str, *, n_max: Optional[int] = None,
             f"{bounds[i]}: compressed requests could overflow the KV "
             "cache (shrink the boundary first)")
     ecfg = old.config
+    if tp is not None:
+        if runtime.config.mesh is None:
+            raise ValueError("tp re-provisioning needs a fleet mesh")
+        subs = runtime.submeshes(int(tp))
+        ecfg = ecfg.replace(mesh=subs[i % len(subs)])
+        # a degree the widths do not divide is refused here, not by the
+        # new engine after the drain
+        M.check_supported(runtime.cfg, parallel=make_context(ecfg.mesh))
     # misfit scan before any mutation: a request the new geometry can
     # never hold must have somewhere to go
     block = ecfg.block_size
@@ -194,20 +318,26 @@ def reprovision(runtime, pool: str, *, n_max: Optional[int] = None,
     # quiesce: checkpoint every occupied slot into the host tier, requeued
     # in slot order ahead of the waiting arrivals
     checkpointed = old.drain_checkpoint()
-    new_eng = InferenceEngine(runtime.cfg, runtime.params, new_n, new_c,
-                              config=ecfg)
+    if ecfg.mesh not in {e.mesh for e in runtime.engines.values()}:
+        shard = reshard_params(runtime.params_for(old.mesh), old.mesh,
+                               ecfg.mesh, runtime.device)
+        if shard is not None:
+            runtime.shards[ecfg.mesh] = shard
+    new_eng = InferenceEngine(runtime.cfg, runtime.params_for(ecfg.mesh),
+                              new_n, new_c, config=ecfg)
     up = runtime.engines[names[i + 1]] if i + 1 < len(names) else None
     migrated = rerouted = 0
+    moved = runtime.moved_rows
     for req in list(old.waiting):
         state = old._preempted.get(req.rid)
         if req.rid in misfits:
-            _move_request(old, up, req, state)
+            _move_request(old, up, req, state, moved)
             rerouted += 1
             d = runtime._decisions.get(req.rid)
             if d is not None:
                 d.pool = names[i + 1]
         else:
-            _move_request(old, new_eng, req, state)
+            _move_request(old, new_eng, req, state, moved)
         migrated += 1
     old.waiting.clear()
     # unconsumed finished results follow the pool name
@@ -216,6 +346,7 @@ def reprovision(runtime, pool: str, *, n_max: Optional[int] = None,
     # the swap: the router's pool name maps to the new engine from the
     # next submit or step on
     runtime.engines[pool] = new_eng
+    runtime.drop_unused_shards()
     stats = runtime.reprovision_stats
     stats["rebuilds"] += 1
     stats["migrated_requests"] += migrated
@@ -276,21 +407,22 @@ def recover_pool(runtime, pool: str, *,
     dead engine's host mirrors, rebuild the engine at its provisioned
     shape, and re-route the salvaged requests ONE POOL UP (band_i requests
     fit pool i+1's larger context). The top pool restores into its own
-    rebuilt engine. New submissions to the pool raise ``PoolDownError``
-    until ``blackout_s`` has elapsed."""
+    rebuilt engine, on its own submesh over that submesh's shard set. New
+    submissions to the pool raise ``PoolDownError`` until ``blackout_s``
+    has elapsed."""
     names = list(runtime.engines)
     if pool not in runtime.engines:
         raise KeyError(f"unknown pool {pool!r} (have {names})")
     i = names.index(pool)
     old = runtime.engines[pool]
     salvaged = salvage_states(old)
-    new_eng = InferenceEngine(runtime.cfg, runtime.params, old.n_max,
-                              old.c_max, config=old.config)
+    new_eng = InferenceEngine(runtime.cfg, runtime.params_for(old.mesh),
+                              old.n_max, old.c_max, config=old.config)
     up_name = names[i + 1] if i + 1 < len(names) else pool
     migrated = 0
     for req, state in salvaged:
         dst = new_eng if up_name == pool else runtime.engines[up_name]
-        _move_request(old, dst, req, state)
+        _move_request(old, dst, req, state, runtime.moved_rows)
         migrated += 1
         if up_name != pool:
             d = runtime._decisions.get(req.rid)

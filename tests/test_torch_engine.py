@@ -215,13 +215,16 @@ _TP3 = Mesh(np.arange(3).reshape(1, 3), ("data", "model"))
     dict(autoscale=True)],
     ids=lambda kw: next(iter(kw)))
 def test_later_slice_knobs_raise(models, knob):
-    """The sharded-serving cases of later slices raise, naming their
-    slice: a mesh of other ranks than this process's (the disjoint
-    submeshes), and a tp degree the heads do not divide (the
-    sequence / block fallback); the speculation, overload, output-length
+    """A tp degree the heads do not divide (the sequence / block
+    fallback) raises, naming its later slice; a mesh of ranks outside the
+    process group is refused; the speculation, overload, output-length
     and autoscale knobs, ported since, serve a request."""
     _, _, tcfg, tp = models
-    if next(iter(knob)) in ("mesh", "parallel"):
+    if next(iter(knob)) == "mesh":
+        with pytest.raises(ValueError, match="outside the 1-rank process"):
+            InferenceEngine(tcfg, tp, 2, 64, config=ServingConfig(**knob))
+        return
+    if next(iter(knob)) == "parallel":
         with pytest.raises(NotImplementedError, match="not ported.*slice"):
             InferenceEngine(tcfg, tp, 2, 64, config=ServingConfig(**knob))
         return

@@ -273,10 +273,13 @@ def test_in_band_request_compresses_like_jax(reduced_models):
 
 
 def test_fleet_rejects_later_slice_knobs():
+    """A fleet's mesh must span the process group: every rank runs the
+    fleet's host logic (tests/test_torch_submesh.py serves pools on
+    disjoint submeshes of one)."""
     tcfg = dataclasses.replace(get_config("minitron-8b").reduced(),
                                dtype="float32")
-    with pytest.raises(NotImplementedError,
-                       match="not ported.*sharded-serving slice"):
+    with pytest.raises(ValueError,
+                       match="mesh must span every rank of the 1-rank"):
         TPools.FleetRuntime(tcfg, {}, (64,), (1.5,), (1, 1), (64, 128),
                             tp_degree=2,
                             mesh=make_smoke_mesh(2, world=4))

@@ -470,7 +470,7 @@ def test_reprovision_tp_raises_before_any_state_changes(pkgs):
     rt.engines["long"].step()
     eng = rt.engines["long"]
     before = _state(rt)
-    with pytest.raises(NotImplementedError, match="sharded-serving"):
+    with pytest.raises(ValueError, match="needs a fleet mesh"):
         rt.reprovision("long", n_max=2, tp=2)
     assert rt.engines["long"] is eng and _state(rt) == before
 

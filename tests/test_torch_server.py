@@ -584,7 +584,7 @@ def test_rebuilt_engine_freed_by_the_drive_loops_next_pass(models):
 
     def alive():
         gc.collect()
-        return sum(type(o) is InferenceEngine and o.params is rt.params
+        return sum(type(o) is InferenceEngine and o.params is rt.params_for(None)
                    for o in gc.get_objects())
 
     async def go(gw):

@@ -42,7 +42,6 @@ from repro_torch.distributed.context import ParallelContext
 from repro_torch.launch import serve as TS
 from repro_torch.launch.mesh import Mesh, make_smoke_mesh
 from repro_torch.models import model as TM
-from repro_torch.serving.pools import FleetRuntime
 
 sys.path.insert(0, str(__import__("pathlib").Path(__file__).parents[1]))
 import chip_smoke  # noqa: E402  (the in-band prompt builder)
@@ -243,12 +242,14 @@ def test_tp4_fleet_through_the_gateway(tp):
 
 def test_tp4_reprovision_mid_flight(tp):
     """Re-provisioning the long pool to another c_max mid-flight at the
-    same tp: the uninterrupted run's tokens; another tp is refused,
-    naming its slice."""
-    (base, moved, rebuilds, _, refused), r3 = _both(tp, "fleet")
+    same tp: the uninterrupted run's tokens; then to tp=2, which moves it
+    onto ranks 2-3, the second tp=2 submesh (tests/test_torch_submesh.py
+    serves such fleets)."""
+    (base, moved, rebuilds, _, regrouped), r3 = _both(tp, "fleet")
     assert moved[1] == base[1] == r3[1][1]
     assert rebuilds == 1
-    assert "not ported" in refused and "disjoint-submesh" in refused
+    assert regrouped == r3[4] == (
+        [2, 3], {"short": [0, 1, 2, 3], "long": [2, 3]})
 
 
 def test_tp4_serve_fleet_launcher(tp):
@@ -296,7 +297,7 @@ def test_tp4_f32_logits_match_one_device(tp):
 
 
 @pytest.mark.parametrize("case", ["moe", "mla", "vlm", "ssm", "heads",
-                                  "submeshes", "http", "fleet_world"])
+                                  "http"])
 def test_later_slice_cases_raise(case):
     """Every case a later slice serves raises NotImplementedError naming
     that slice, before any rank is spawned or any state is built."""
@@ -304,10 +305,7 @@ def test_later_slice_cases_raise(case):
     dense = _cfgs()[1]
     slices = {"moe": "sharded-training", "mla": "sharded-families",
               "vlm": "sharded-families", "ssm": "sharded-families",
-              "heads": "sharded-families",
-              "submeshes": "disjoint-submesh sharded-serving",
-              "http": "sharded-HTTP",
-              "fleet_world": "disjoint-submesh sharded-serving"}
+              "heads": "sharded-families", "http": "sharded-HTTP"}
     arch = {"mla": "deepseek-v2-236b",
             "vlm": "llama-3.2-vision-11b", "ssm": "zamba2-1.2b"}
     # an MoE model serves under tp (tests/test_torch_ep.py); its training
@@ -325,14 +323,8 @@ def test_later_slice_cases_raise(case):
         elif case == "heads":
             TM.init_params(dense, device="meta", parallel=ParallelContext(
                 mesh=make_smoke_mesh(3, world=3)))
-        elif case == "submeshes":
-            FleetRuntime(dense, {}, (64,), (1.5,), (1, 1), (64, 128),
-                         mesh=make_smoke_mesh(2, world=4), tp_degree=2)
-        elif case == "http":
-            TS.main(FLEET_ARGV + ["--tp", "4", "--smoke"])
         else:
-            TS.serve_fleet(TS.parse_args(FLEET_ARGV + ["--tp", "2",
-                                                       "--mesh", "1x4"]))
+            TS.main(FLEET_ARGV + ["--tp", "4", "--smoke"])
 
 
 @pytest.mark.parametrize("tp_size", [2, 4])

@@ -93,14 +93,6 @@ def _lines(fn):
     return buf.getvalue().splitlines(), result
 
 
-def _refusal(fn) -> str:
-    try:
-        fn()
-    except NotImplementedError as e:
-        return str(e)
-    return "no refusal"
-
-
 def run_scenarios(rank, device, inp):
     """Every scenario on this rank; a failing scenario's traceback is
     returned, so one fault does not hide the others."""
@@ -143,9 +135,11 @@ def run_scenarios(rank, device, inp):
         moved = fleet(cfg, full, inp["fleet"], event=dict(c_max=384),
                       mesh=ctx.mesh, tp_degree=4)
         rt = moved[3]
-        refused = _refusal(lambda: rt.reprovision("long", tp=2))
-        return (base[:3], moved[:3], rt.reprovision_stats["rebuilds"],
-                rt.device_placement(), refused)
+        rebuilds, place = (rt.reprovision_stats["rebuilds"],
+                           rt.device_placement())
+        rt.reprovision("long", tp=2)
+        return (base[:3], moved[:3], rebuilds, place,
+                (rt.engines["long"].devices(), rt.device_placement()))
     scenario("fleet", fleets)
 
     def launcher_fleet():
